@@ -1,0 +1,358 @@
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and hold
+every kernel of it against its plain PyTorch version.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure is fatal and exits non-zero):
+
+1. card and build — the card's name and power limit; nvcc builds the
+   kernel library from ``src/repro_torch/kernels/csrc`` (one process per
+   source, in parallel);
+2. kernels — each of the four kernels (blind_encode, limb_matmul,
+   limb_matmul_fused, limb_fold) at the VGG-16 tier-1 shapes of a batch of
+   4, bit-for-bit against its plain version on the card, with its time
+   (CUDA events, median of 10 after warm-up), the plain version's time,
+   the card's bound for the same work and, for the matmuls, nine
+   ``torch._int_mm`` calls of one limb pair as a library yardstick;
+3. serving — a full-width VGG-16 (224x224, 1000 classes, random weights
+   from a seed) behind ``PrivateInferenceServer`` with tier-1 blinded and
+   Freivalds-verified (full, k=2): sealed requests, one tampered, served
+   twice (cold, then with the next session's factors prefetched) with the
+   kernel launch counts read around exactly those calls; the logits must
+   be bit-equal to the enclave recompute and within 5% of the plain float
+   forward;
+4. where the time goes — a warm batch split into session factors, the
+   blinded infer and its float tier-2.
+
+Prints the findings, then a JSON line of the kernels, then as its last
+line ``{"ok": true, "device": {...}}``.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.integrity import IntegrityPolicy  # noqa: E402
+from repro_torch.core.prng import PRNGKey  # noqa: E402
+from repro_torch.kernels import build as KB  # noqa: E402
+from repro_torch.kernels.blind.blind import (blind_encode,  # noqa: E402
+                                             blind_encode_plain)
+from repro_torch.kernels.limb_matmul import ops, ref  # noqa: E402
+from repro_torch.kernels.limb_matmul.fold import (  # noqa: E402
+    limb_fold_planes, limb_fold_planes_plain)
+from repro_torch.kernels.limb_matmul.limb_matmul import (  # noqa: E402
+    limb_matmul_planes, limb_matmul_planes_fused,
+    limb_matmul_planes_fused_plain, limb_matmul_planes_plain)
+from repro_torch.models import vgg as V  # noqa: E402
+from repro_torch.runtime.serving import (PrivateInferenceServer,  # noqa: E402
+                                         Request)
+
+BATCH = 4
+SEED = 0
+# H100 SXM published peaks (dense): int8 tensor cores, float32 outside the
+# tensor cores, HBM3 bandwidth
+INT8_OPS_S = 1979e12
+F32_OPS_S = 67e12
+BYTES_S = 3.35e12
+REPLACES = {
+    "blind_encode": "src/repro/kernels/blind/blind.py:82",
+    "limb_matmul": "src/repro/kernels/limb_matmul/limb_matmul.py:110",
+    "limb_matmul_fused": "src/repro/kernels/limb_matmul/limb_matmul.py:133",
+    "limb_fold": "src/repro/kernels/limb_matmul/fold.py:37",
+}
+SOURCES = {
+    "blind_encode": "src/repro_torch/kernels/csrc/blind_encode.cu",
+    "limb_matmul": "src/repro_torch/kernels/csrc/limb_matmul.cu",
+    "limb_matmul_fused": "src/repro_torch/kernels/csrc/limb_matmul.cu",
+    "limb_fold": "src/repro_torch/kernels/csrc/limb_fold.cu",
+}
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed runs."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tier1_shapes(cfg):
+    """(layer, t, K, N) of each blinded conv of tier-1 at batch BATCH."""
+    shapes = V.feature_shapes(cfg)
+    out = []
+    for i in range(cfg.origami.tier1_layers):
+        kind, n = V.layer_kind(cfg, i)
+        if kind == "conv":
+            h, w, c = shapes[i]
+            out.append((f"l{i}", BATCH * h * w, 9 * c, n))
+    return out
+
+
+def phase_card_and_build():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    t0 = time.perf_counter()
+    KB.lib()
+    print(f"build: kernel library ready in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {KB.build_seconds:.2f} s)")
+    return card
+
+
+def phase_kernels(cfg, dev):
+    """Each kernel against its plain version at the tier-1 shapes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bytes": 0, "ops": 0, "peak": INT8_OPS_S, "err": 0.0}
+           for name in KB.KERNELS}
+    acc["blind_encode"]["peak"] = F32_OPS_S
+    acc["blind_encode"]["library_ms"] = None
+    acc["limb_fold"]["library_ms"] = None
+
+    def add(name, ms, plain_ms, nbytes, nops, err, lib_ms=None):
+        a = acc[name]
+        a["ms"] += ms
+        a["plain_ms"] += plain_ms
+        a["bytes"] += nbytes
+        a["ops"] += nops
+        a["err"] = max(a["err"], err)
+        if lib_ms is not None:
+            a["library_ms"] += lib_ms
+
+    def compare(name, got, want):
+        if not torch.equal(got, want):
+            diff = (got.double() - want.double()).abs().max().item()
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs err {diff})")
+        return 0.0
+
+    for layer, M, K, N in tier1_shapes(cfg):
+        Kp = ops.block_plan(M, K, N)[4]
+        x = torch.randn((M, K), generator=gen, device=dev)
+        r = torch.randint(0, ref.P, (M, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w_q = ref.from_signed(torch.randint(-128, 128, (K, N), generator=gen,
+                                            device=dev, dtype=torch.int32))
+        inv = (1.0 / x.abs().max()).reshape(())
+        scale = torch.tensor(3.1e-6, device=dev)
+        wl = ops.encode_weight_planes(w_q)
+
+        # blind_encode
+        xl = blind_encode(x, r, inv, 8, Kp)
+        err = compare("blind_encode", xl, blind_encode_plain(x, r, inv, 8, Kp))
+        ms = cuda_ms(lambda: blind_encode(x, r, inv, 8, Kp))
+        pms = cuda_ms(lambda: blind_encode_plain(x, r, inv, 8, Kp), reps=5)
+        add("blind_encode", ms, pms, 8 * M * K + 3 * M * Kp + 4, 2 * M * K,
+            err)
+        print(f"blind_encode {layer} ({M}x{K} -> 3x{M}x{Kp}): {ms:.3f} ms, "
+              f"plain {pms:.3f} ms")
+
+        # library yardstick: nine int8 GEMMs of one limb pair
+        a8, b8 = xl[0], wl[0]
+        lib_ms = cuda_ms(lambda: [torch._int_mm(a8, b8) for _ in range(9)])
+        mm_ops = 18 * M * Kp * N
+
+        # limb_matmul (the u = r @ W_q product)
+        xr = ops.field_planes(r, Kp)
+        got = limb_matmul_planes(xr, wl)
+        err = compare("limb_matmul", got, limb_matmul_planes_plain(xr, wl))
+        u = got
+        ms = cuda_ms(lambda: limb_matmul_planes(xr, wl))
+        pms = cuda_ms(lambda: limb_matmul_planes_plain(xr, wl), reps=5)
+        add("limb_matmul", ms, pms, 3 * M * Kp + 3 * Kp * N + 4 * M * N,
+            mm_ops, err, lib_ms)
+        print(f"limb_matmul {layer} ({M}x{Kp}x{N}): {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, 9x _int_mm {lib_ms:.3f} ms")
+
+        # limb_matmul_fused
+        got = limb_matmul_planes_fused(xl, wl, u, scale)
+        want = limb_matmul_planes_fused_plain(xl, wl, u, scale)
+        err = compare("limb_matmul_fused", got, want)
+        if not torch.isfinite(got).all():
+            raise AssertionError("limb_matmul_fused: non-finite output")
+        ms = cuda_ms(lambda: limb_matmul_planes_fused(xl, wl, u, scale))
+        pms = cuda_ms(lambda: limb_matmul_planes_fused_plain(xl, wl, u, scale),
+                      reps=5)
+        add("limb_matmul_fused", ms, pms,
+            3 * M * Kp + 3 * Kp * N + 8 * M * N + 4, mm_ops, err, lib_ms)
+        print(f"limb_matmul_fused {layer} ({M}x{Kp}x{N}): {ms:.3f} ms, plain "
+              f"{pms:.3f} ms")
+
+        # limb_fold: [y | x] against a k=2 fold matrix
+        yx = torch.cat([u, r], dim=1)
+        s = torch.randint(0, ref.P, (N + K, 2), generator=gen, device=dev,
+                          dtype=torch.int32)
+        sl = ops.encode_weight_planes(s)
+        fl = ops.field_planes(yx, sl.shape[1])
+        got = limb_fold_planes(fl, sl)
+        err = compare("limb_fold", got, limb_fold_planes_plain(fl, sl))
+        ms = cuda_ms(lambda: limb_fold_planes(fl, sl))
+        pms = cuda_ms(lambda: limb_fold_planes_plain(fl, sl), reps=5)
+        Kf = sl.shape[1]
+        add("limb_fold", ms, pms, 3 * M * Kf + 3 * Kf * 2 + 4 * M * 2,
+            18 * M * Kf * 2, err)
+        print(f"limb_fold {layer} ({M}x{Kf}x2): {ms:.3f} ms, plain "
+              f"{pms:.3f} ms")
+        del x, r, xl, xr, u, yx, fl
+    torch.cuda.empty_cache()
+    return acc
+
+
+def _request(cfg, rid, rng):
+    img = (rng.normal(size=(cfg.image_size, cfg.image_size,
+                            cfg.image_channels)) * 0.5).astype(np.float32)
+    key = rng.integers(0, 2 ** 32 - 1, size=(2,), dtype=np.uint32)
+    box = PrivateInferenceServer.client_seal(key, img, rid)
+    return Request(rid=rid, box=box, shape=img.shape, session_key=key), key, img
+
+
+def phase_serving(cfg, dev):
+    t0 = time.perf_counter()
+    params = V.init_params(cfg, SEED, device=dev)
+    server = PrivateInferenceServer(cfg, params, mode="origami",
+                                    max_batch=BATCH,
+                                    integrity=IntegrityPolicy.full(k=2),
+                                    device=dev)
+    torch.cuda.synchronize()
+    print(f"serving: vgg16 {cfg.image_size}x{cfg.image_size}, "
+          f"{sum(v.numel() for l in params.values() for v in l.values())} "
+          f"params, tier-1 = layers 1-{cfg.origami.tier1_layers} blinded, "
+          f"set-up {time.perf_counter() - t0:.2f} s")
+    print(f"attest: {server.attest()}")
+    rng = np.random.default_rng(SEED)
+    reqs, keys, imgs = zip(*[_request(cfg, rid, rng) for rid in range(BATCH)])
+    bad_src, _, _ = _request(cfg, 99, rng)
+    ct = bad_src.box.ciphertext.clone()
+    ct.view(-1)[0] ^= 1
+    bad = Request(99, bad_src.box._replace(ciphertext=ct), bad_src.shape,
+                  bad_src.session_key)
+
+    # the main path: launch counts read around exactly these calls
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    walls = []
+    for _ in range(2):                       # cold, then warm (prefetched)
+        t = time.perf_counter()
+        responses = server.serve_batch(list(reqs))
+        walls.append((time.perf_counter() - t, dict(server.last_phases)))
+    bad_resp = server.serve_batch([bad])
+    torch.cuda.synchronize()
+    launches = dict(KB.LAUNCHES)
+    tele = server.executor.telemetry_blinded
+
+    assert all(r.ok for r in responses), [r.error for r in responses]
+    assert not bad_resp[0].ok and bad_resp[0].error == "mac_failed", bad_resp
+    logits = np.stack([PrivateInferenceServer.client_open(
+        k, r.box, (cfg.num_classes,)) for k, r in zip(keys, responses)])
+    assert logits.shape == (BATCH, cfg.num_classes)
+    assert np.isfinite(logits).all()
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the serving path"
+    assert tele.device_matmuls == tele.calls == 4, tele
+    assert tele.enclave_matmuls == 0, tele
+    assert tele.verify_ops == 4, tele
+
+    batch = {"images": torch.from_numpy(np.stack(imgs))}
+    res = server.executor.infer(batch, session_key=PRNGKey(SEED + 1))
+    rep = res.integrity
+    assert rep.n_ops == 4 and rep.n_checked == 4 and rep.n_failed == 0, rep
+    trusted = server.executor.infer(batch, trusted=True)
+    if not np.array_equal(trusted.logits.cpu().numpy(), logits):
+        raise AssertionError("served logits differ from the enclave "
+                             "recompute")
+    reference = server.executor.reference(batch).cpu().numpy()
+    rel = float(np.abs(logits - reference).max() / np.abs(reference).max())
+    assert rel < 0.05, rel
+    print(f"serving: {BATCH} ok, tampered -> {bad_resp[0].error}; "
+          f"checks {rep.n_checked}/{rep.n_ops} failed {rep.n_failed}; "
+          f"device_matmuls {tele.device_matmuls} calls {tele.calls} "
+          f"enclave_matmuls {tele.enclave_matmuls}; logits == enclave "
+          f"recompute; rel err vs float forward {rel:.5f}")
+    for label, (wall, ph) in zip(("cold", "warm"), walls):
+        print(f"serve_batch {label}: {wall * 1e3:.1f} ms a batch of {BATCH}, "
+              f"{wall * 1e3 / BATCH:.1f} ms a request; unseal "
+              f"{ph['unseal'] * 1e3:.1f} ms, infer {ph['infer'] * 1e3:.1f} "
+              f"ms, seal {ph['seal'] * 1e3:.1f} ms")
+    print(f"launches on the serving path: {launches}")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return server, batch, launches
+
+
+def phase_breakdown(server, batch):
+    """A warm batch split into its parts (host clock, synchronized)."""
+    ex = server.executor
+    cfg = ex.cfg
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    key = PRNGKey(SEED + 2)
+    factors_ms, _ = timed(lambda: ex.prepare_session(key))
+    infer_ms, res = timed(lambda: ex.infer(batch, session_key=key))
+    p = cfg.origami.tier1_layers
+    with torch.no_grad():
+        tier2_ms, _ = timed(lambda: V.apply_layer_range(
+            ex.params, res.boundary, cfg, p, len(cfg.cnn_layers)))
+        plain_ms, _ = timed(lambda: ex.reference(batch))
+    print(f"breakdown (warm, batch {BATCH}): session factors "
+          f"{factors_ms:.1f} ms; blinded infer {infer_ms:.1f} ms = tier-1 "
+          f"{infer_ms - tier2_ms:.1f} ms + tier-2 {tier2_ms:.1f} ms; plain "
+          f"float forward {plain_ms:.1f} ms")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda")
+    phase_card_and_build()
+    cfg = get_config("vgg16")
+    acc = phase_kernels(cfg, dev)
+    server, batch, launches = phase_serving(cfg, dev)
+    phase_breakdown(server, batch)
+    kernels = []
+    for name in KB.KERNELS:
+        a = acc[name]
+        t_bytes = a["bytes"] / BYTES_S * 1e3
+        t_ops = a["ops"] / a["peak"] * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": a["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,33 @@
+"""Config registry of the port: the paper's two CNNs.
+
+``get_config(name)`` returns the published configuration;
+``get_smoke(name)`` a reduced same-family one for CPU tests.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, OrigamiConfig
+
+PAPER_MODELS = ("vgg16", "vgg19")
+ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19"}
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in PAPER_MODELS:
+        raise KeyError(f"unknown model {name!r}; the port carries "
+                       f"{PAPER_MODELS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ModelConfig:
+    return _module(name).smoke_config()
+
+
+__all__ = ["PAPER_MODELS", "ModelConfig", "OrigamiConfig", "get_config",
+           "get_smoke"]

@@ -1,0 +1,69 @@
+"""Config schema: a copy of the reference's ``ModelConfig`` and
+``OrigamiConfig`` (``repro/configs/base.py``) with the same fields, in the
+same order and with the same defaults, so ``to_json()`` — which the
+enclave measurement hashes — is identical for the same model.
+
+The mixture-of-experts, latent-attention and state-space sub-configs
+belong to the language-model families, which this port does not carry
+yet; their fields stay (as ``None``) to keep the JSON identical.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class OrigamiConfig:
+    """The paper's technique: tier-1 blinded-offload prefix, tier-2 open."""
+    enabled: bool = False
+    tier1_layers: int = 0          # partition point p (layers)
+    field_bits: int = 24
+    quant_bits: int = 8
+    verify_depth: int = 2
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # this port runs "cnn"
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0
+    vocab_pad_to: int = 1
+    qkv_bias: bool = False
+    attention: str = "gqa"
+    window_size: int = 0
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"
+    activation: str = "silu"
+    tie_embeddings: bool = False
+    moe: Optional[Any] = None
+    mla: Optional[Any] = None
+    ssm: Optional[Any] = None
+    hybrid_attn_every: int = 0
+    encoder_decoder: bool = False
+    encoder_seq_len: int = 1500
+    cross_attn_every: int = 0
+    vision_seq_len: int = 1601
+    # CNN (VGG) family
+    cnn_layers: Tuple[str, ...] = ()
+    image_size: int = 224
+    image_channels: int = 3
+    num_classes: int = 1000
+    dtype: str = "bfloat16"
+    origami: OrigamiConfig = field(default_factory=OrigamiConfig)
+    remat: str = "block"
+    scan_layers: bool = True
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), default=str, indent=1)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,232 @@
+"""Origami executor: plan-driven trust-partitioned inference (the paper).
+
+Port of ``repro/core/origami.py`` for CNN plans on one device. The executor
+walks a ``PlacementPlan`` (core/plan.py) segment by segment: plain
+segments run the float layers, blinded and verified segments route every
+conv and dense layer through the Slalom protocol (core/slalom.py) by
+installing it as the layer hook. The legacy mode strings
+
+    "open" | "enclave" | "split" | "slalom" | "origami"
+
+compile to plans (``plan.compile_mode``). The port runs eagerly on
+``device`` (``"cuda"`` by default; the CPU tests pass ``"cpu"``); there
+is no jit and no ahead-of-time compile. On the card the field ops launch
+the port's CUDA kernels; on the CPU they take the kernels' plain versions.
+"""
+from __future__ import annotations
+
+import functools
+from contextlib import ExitStack
+from dataclasses import dataclass, field as dfield
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import integrity as IG
+from repro_torch.core import plan as PL
+from repro_torch.core import prng
+from repro_torch.core import slalom as SL
+from repro_torch.core.blinding import BlindingSpec
+from repro_torch.core.precompute import BlindedLayerCache
+from repro_torch.models import layers as L
+from repro_torch.models import vgg as V
+
+MODES = PL.LEGACY_MODES
+
+
+@dataclass
+class OrigamiResult:
+    logits: torch.Tensor
+    boundary: Optional[torch.Tensor]    # what the adversary observes
+    telemetry: SL.Telemetry
+    integrity: IG.IntegrityReport = dfield(
+        default_factory=IG.IntegrityReport.empty)
+    trusted: bool = False               # enclave-recompute run (no device)
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device; a CUDA request without a card raises
+    (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           f"available; pass device='cpu' to run the plain "
+                           f"versions of the kernels")
+    return dev
+
+
+def params_to_device(params, device: torch.device):
+    return {layer: {name: torch.as_tensor(v).to(device)
+                    for name, v in leaves.items()}
+            for layer, leaves in params.items()}
+
+
+class OrigamiExecutor:
+    """Plan-interpreting private inference over a VGG model."""
+
+    def __init__(self, cfg: ModelConfig, params, mode: str = "origami",
+                 partition: Optional[int] = None,
+                 spec: Optional[BlindingSpec] = None,
+                 precompute: bool = False,
+                 integrity: Optional[IG.IntegrityPolicy] = None,
+                 plan: Optional[PL.PlacementPlan] = None,
+                 device="cuda"):
+        """``plan``: an explicit PlacementPlan; when omitted, ``mode`` and
+        ``partition`` compile one. ``integrity``: Freivalds policy of
+        blinded steps without their own (default off). ``precompute``:
+        draw each session's factors through a BlindedLayerCache."""
+        if plan is None:
+            plan = PL.compile_mode(cfg, mode, partition)
+        assert plan.n_layers == PL.num_blocks(cfg), plan.n_layers
+        self.device = resolve_device(device)
+        L.set_exact_float(self.device)
+        self.cfg = cfg
+        self.params = params_to_device(params, self.device)
+        self.plan = plan
+        self.partition = plan.boundary
+        self.spec = spec or BlindingSpec()
+        self.precompute = precompute
+        self.integrity = integrity or IG.IntegrityPolicy.off()
+        self.cache: Optional[BlindedLayerCache] = None
+        self._caches: Dict[Any, BlindedLayerCache] = {}
+        self._cache_key = None
+        self._program = PL.program_for(cfg)
+        self._tele_last = SL.Telemetry()
+        self._tele_blinded = SL.Telemetry()
+        self._tele_trusted = SL.Telemetry()
+
+    # -- telemetry snapshots -------------------------------------------------
+    @property
+    def telemetry(self) -> SL.Telemetry:
+        """Counters of the most recent run (blinded or trusted)."""
+        return self._tele_last
+
+    @property
+    def telemetry_blinded(self) -> SL.Telemetry:
+        return self._tele_blinded
+
+    @property
+    def telemetry_trusted(self) -> SL.Telemetry:
+        return self._tele_trusted
+
+    # -- the plan walk -------------------------------------------------------
+    def _traced(self, batch, session_key, factors=None, trusted=False):
+        tele = SL.Telemetry()
+        ctx = SL.SlalomContext(session_key, self.spec, telemetry=tele,
+                               factors=factors, trusted=trusted)
+        logits, boundary = self._run(batch, ctx)
+        if ctx.integrity_log:
+            rep = tuple(torch.stack([entry[i] for entry in ctx.integrity_log])
+                        for i in range(3))
+        else:
+            z = torch.zeros((0,), dtype=torch.bool, device=self.device)
+            rep = (z, z, z)
+        if trusted:
+            self._tele_trusted = tele
+        else:
+            self._tele_blinded = tele
+        return logits, boundary, rep
+
+    def _run(self, batch, ctx):
+        """Walk the plan segments: one interpreter for every placement."""
+        params, prog, plan = self.params, self._program, self.plan
+        x, memory = prog.prologue(params, batch)
+        boundary = x if plan.boundary == 0 else None
+        for seg in plan.segments:
+            if seg.regime == "plain":
+                x = prog.segment(params, x, seg.lo, seg.hi, memory)
+            else:
+                policy = (seg.policy if seg.policy is not None
+                          else self.integrity)
+                with ExitStack() as stack:
+                    stack.enter_context(ctx.segment_overrides(
+                        policy, unblinded=(seg.regime == "verified")))
+                    stack.enter_context(L.dense_impl(
+                        functools.partial(SL.blinded_dense, ctx)))
+                    if prog.blind_convs:
+                        stack.enter_context(L.conv_impl(
+                            functools.partial(SL.blinded_conv2d, ctx)))
+                    x = prog.segment(params, x, seg.lo, seg.hi, memory)
+            if seg.hi == plan.boundary:
+                boundary = x
+        return prog.epilogue(params, x, batch, memory), boundary
+
+    # -- precompute pipeline -------------------------------------------------
+    def _batch_key(self, batch):
+        shapes = tuple(sorted((k, tuple(v.shape)) for k, v in batch.items()))
+        return self.plan.digest, shapes
+
+    def build_cache(self, batch) -> Optional[BlindedLayerCache]:
+        """Quantize and limb-encode every offloaded layer's weights once
+        and set up the per-session factor store for this batch shape."""
+        ops = self.plan.cache_ops
+        if not ops:
+            self.precompute = False
+            self.cache = None
+            return None
+        batch_size = int(batch["images"].shape[0])
+        records = V.blinded_op_records(self.params, self.cfg,
+                                       [s.layer_id for s in ops], batch_size)
+        for rec, step in zip(records, ops):
+            rec["unblinded"] = step.verified_open
+            rec["policy"] = (step.integrity if step.integrity is not None
+                             else self.integrity)
+        self.cache = BlindedLayerCache.from_records(records, self.spec,
+                                                    integrity=self.integrity)
+        self._cache_key = self._batch_key(batch)
+        self._caches[self._cache_key] = self.cache
+        return self.cache
+
+    def prepare_session(self, session_key, step: int = 0) -> None:
+        """Compute a future session's factors ahead of its request."""
+        if self.cache is not None:
+            self.cache.prefetch(session_key, step)
+
+    def _session_factors(self, batch, session_key):
+        if not (self.precompute and self.plan.has_offload):
+            return None
+        key = self._batch_key(batch)
+        if self.cache is None or key != self._cache_key:
+            if key in self._caches:
+                self.cache = self._caches[key]
+                self._cache_key = key
+            else:
+                self.build_cache(batch)
+        if self.cache is None:
+            return None
+        return self.cache.take(session_key)
+
+    # -- public API ----------------------------------------------------------
+    def _on_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.array(v, np.float32))).to(self.device, torch.float32)
+                for k, v in batch.items()}
+
+    def infer(self, batch, session_key=None,
+              trusted: bool = False) -> OrigamiResult:
+        """Run the plan on ``batch`` ({"images": (B, H, W, C)}) under the
+        blinding session ``session_key`` (a (2,) uint32 key; PRNGKey(0)
+        when omitted). ``trusted=True`` runs the enclave-recompute path:
+        no device, no blinding, no verification, bit-identical logits."""
+        batch = self._on_device(batch)
+        key = session_key if session_key is not None else prng.PRNGKey(0)
+        with torch.no_grad():
+            if trusted:
+                logits, boundary, rep = self._traced(batch, key, None, True)
+            else:
+                factors = self._session_factors(batch, key)
+                logits, boundary, rep = self._traced(batch, key, factors)
+        self._tele_last = (self._tele_trusted if trusted
+                           else self._tele_blinded)
+        return OrigamiResult(logits=logits, boundary=boundary,
+                             telemetry=self.telemetry,
+                             integrity=IG.IntegrityReport(*rep),
+                             trusted=trusted)
+
+    def reference(self, batch) -> torch.Tensor:
+        """Plain float forward — the correctness oracle for all plans."""
+        with torch.no_grad():
+            return V.vgg_forward(self.params, self._on_device(batch)["images"],
+                                 self.cfg)

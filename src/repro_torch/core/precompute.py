@@ -1,0 +1,125 @@
+"""Precomputed blinding material: weight quantization + unblinding factors
+off the request path.
+
+Port of ``repro/core/precompute.py``. ``BlindedLayerCache`` holds, per
+blinded op, the field weights, their absmax scale and their limb planes
+(computed once per model, ``from_records``), and generates per session
+the blinding stream ``r``, the factor ``u = (r @ W_q) mod p`` and, under
+an integrity policy, the fold vectors ``s`` and ``ws = (W_q @ s) mod p``
+(``session_factors``). ``prefetch`` computes a future session's set ahead
+of its request; ``take`` pops it, or computes it on the spot.
+
+Factor keys are ``stream_key(session_key, layer_index, step)``, the keys
+the live path draws, so cached and live results are bit-identical.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import blinding as B
+from repro_torch.core import integrity as IG
+from repro_torch.kernels.limb_matmul.ops import encode_weight_planes, field_matmul
+
+
+@dataclass(frozen=True)
+class CachedLayer:
+    """Per-blinded-op static material. ``unblinded``: verified-open slot
+    (zero pad). ``policy``: this op's Freivalds policy (``None`` inherits
+    the cache-wide one)."""
+    t: int                      # activation rows (batch-shape dependent)
+    d_in: int
+    d_out: int
+    w_q: torch.Tensor           # (d_in, d_out) int32 field
+    w_limbs: torch.Tensor       # (3, Kp, d_out) int8, padded to the plan
+    w_scale: torch.Tensor       # () float32 absmax scale
+    unblinded: bool = False
+    policy: Optional[IG.IntegrityPolicy] = None
+
+
+class BlindedLayerCache:
+    """Quantize-once weight cache + per-session blinding-factor store."""
+
+    # a session's r tensors can pin hundreds of MB at full width; double
+    # buffering needs one set in flight, two leave slack
+    MAX_PREFETCHED = 2
+
+    def __init__(self, layers: List[CachedLayer], spec: B.BlindingSpec,
+                 integrity: Optional[IG.IntegrityPolicy] = None):
+        self.layers = layers
+        self.spec = spec
+        self.integrity = integrity or IG.IntegrityPolicy.off()
+        self.factor_matmuls = 0          # r@W_q matmuls issued off-path
+        self.fold_matmuls = 0            # W_q@s fold matmuls issued off-path
+        self._ready: Dict[Tuple[bytes, int], List[Dict[str, Any]]] = {}
+
+    @classmethod
+    def from_records(cls, records: List[Dict[str, Any]], spec: B.BlindingSpec,
+                     integrity: Optional[IG.IntegrityPolicy] = None
+                     ) -> "BlindedLayerCache":
+        """records: one {"kind", "w", "t", "d_in", "d_out"} per offloaded
+        op in call order (models/vgg.py:blinded_op_records), optionally
+        with "unblinded" and "policy". Conv records carry the raw HWIO
+        weight; the im2col column order is applied here."""
+        from repro_torch.core.slalom import conv_weight_cols
+        layers = []
+        for rec in records:
+            w = (conv_weight_cols(rec["w"]) if rec["kind"] == "conv"
+                 else rec["w"])
+            w_q, w_scale = B.quantize_weight(w, spec)
+            layers.append(CachedLayer(
+                t=rec["t"], d_in=rec["d_in"], d_out=rec["d_out"],
+                w_q=w_q, w_limbs=encode_weight_planes(w_q), w_scale=w_scale,
+                unblinded=bool(rec.get("unblinded", False)),
+                policy=rec.get("policy")))
+        return cls(layers, spec, integrity=integrity)
+
+    @staticmethod
+    def _skey(session_key, step: int) -> Tuple[bytes, int]:
+        return np.asarray(session_key, np.uint32).tobytes(), step
+
+    def session_factors(self, session_key, step: int = 0) -> List[Dict]:
+        """(r, u) — and, under an integrity policy, (s, ws) — for every
+        cached layer, on the device that holds its weights."""
+        factors = []
+        for i, lyr in enumerate(self.layers):
+            dev = lyr.w_q.device
+            if lyr.unblinded:
+                r = u = None     # zero pad: the consumer makes the zeros
+            else:
+                key = B.stream_key(session_key, i, step)
+                r = B.blinding_stream(key, (lyr.t, lyr.d_in), device=dev)
+                u = field_matmul(r, lyr.w_q)
+                self.factor_matmuls += 1
+            entry = {"r": r, "u": u, "w_q": lyr.w_q,
+                     "w_limbs": lyr.w_limbs, "w_scale": lyr.w_scale}
+            pol = lyr.policy if lyr.policy is not None else self.integrity
+            if pol.enabled:
+                entry["s"] = IG.fold_stream(session_key, i, step, lyr.d_out,
+                                            pol.k, device=dev)
+                entry["ws"] = field_matmul(lyr.w_q, entry["s"])
+                self.fold_matmuls += 1
+            factors.append(entry)
+        return factors
+
+    def prefetch(self, session_key, step: int = 0) -> None:
+        """Compute a future session's factors now (evicting the oldest
+        buffered set beyond ``MAX_PREFETCHED``)."""
+        k = self._skey(session_key, step)
+        if k in self._ready:
+            return
+        factors = self.session_factors(session_key, step)
+        while len(self._ready) >= self.MAX_PREFETCHED:
+            self._ready.pop(next(iter(self._ready)))
+        self._ready[k] = factors
+
+    def prefetched(self, session_key, step: int = 0) -> bool:
+        return self._skey(session_key, step) in self._ready
+
+    def take(self, session_key, step: int = 0) -> List[Dict]:
+        """Pop prefetched factors for this session, or compute them now."""
+        hit = self._ready.pop(self._skey(session_key, step), None)
+        return hit or self.session_factors(session_key, step)

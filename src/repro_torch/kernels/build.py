@@ -1,0 +1,169 @@
+"""Build and bind the port's CUDA kernels (``kernels/csrc/*.cu``).
+
+The sources have a plain C interface (no PyTorch headers), so each compiles
+in seconds. At first use ``lib()`` compiles every ``.cu`` file with its own
+``nvcc`` process, all started together, links the objects into one shared
+library for ``sm_90a`` and loads it with ``ctypes``. The library lands in
+``kernels/_build/`` under a name derived from the hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises on a non-zero code. ``LAUNCHES``
+counts, per kernel, the launches its wrapper made: the wrappers add one
+right after a successful launch and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # name: argtypes (pointers and the stream as void*, sizes as ints)
+    "repro_blind_encode": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, _P),
+    "repro_limb_matmul": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, _P),
+    "repro_limb_matmul_fused": (_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                ctypes.c_int, ctypes.c_int, _P),
+    "repro_limb_fold": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+build_seconds: Optional[float] = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.is_file():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit that builds the port's kernels")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (one nvcc each, in parallel) and link them into
+    one shared library; reuse it when the sources are unchanged."""
+    global build_seconds
+    out = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    if out.is_file():
+        build_seconds = 0.0
+        return out
+    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        sources = sorted(CSRC.glob("*.cu"))
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+             str(tmp / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+        failed = []
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        lib_tmp = tmp / "lib.so"
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
+                        *(str(tmp / (s.stem + ".o")) for s in sources)],
+                       check=True, capture_output=True, text=True)
+        os.replace(lib_tmp, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            handle.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = lib().repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{code} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    """Handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            device: torch.device, ndim: Optional[int] = None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{ndim} dimensions")
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper takes the plain version); raises
+    for a device that has no kernel here."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False

@@ -1,0 +1,258 @@
+"""Private-inference serving (the paper's deployment shape).
+
+Port of the single-dispatch part of ``repro/runtime/serving.py``. The
+client attests the enclave (core/attestation), seals its input under its
+session key (core/sealing); the enclave unseals, filters failed MACs,
+pads the batch to a power-of-two bucket, runs the OrigamiExecutor (tier-1
+blinded and Freivalds-verified, tier-2 open) and seals each result back.
+
+Nonces: requests seal under the 64-bit rid split ``[lo, hi]``, responses
+under ``[lo, hi, DIRECTION_RESPONSE]``, so no (key, nonce) pair repeats
+between the two directions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
+from repro_torch.core.attestation import Quote, measure_enclave
+from repro_torch.core.origami import OrigamiExecutor
+from repro_torch.core.sealing import SealedBox, seal, unseal
+
+DIRECTION_RESPONSE = 0xEE
+
+# fold_in tag of a fresh blinding session for an integrity retry when the
+# caller gave a fixed key (a re-run must never reuse one-time pads)
+_RETRY_DOMAIN = 0x0E7B1
+
+
+def request_nonce(rid: int) -> np.ndarray:
+    return np.asarray([rid & 0xFFFFFFFF, (rid >> 32) & 0xFFFFFFFF],
+                      np.uint32)
+
+
+def response_nonce(rid: int) -> np.ndarray:
+    return np.asarray([rid & 0xFFFFFFFF, (rid >> 32) & 0xFFFFFFFF,
+                       DIRECTION_RESPONSE], np.uint32)
+
+
+def bucket_for(n: int, max_batch: int) -> int:
+    """Smallest power-of-two batch holding ``n`` requests (capped at
+    ``max_batch``): a lone request pads to 1 row of work, not max_batch."""
+    assert 1 <= n <= max_batch, (n, max_batch)
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, max_batch)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    box: SealedBox
+    shape: Tuple[int, ...]
+    session_key: np.ndarray          # client's symmetric key material
+
+
+@dataclasses.dataclass
+class Response:
+    rid: int
+    box: Optional[SealedBox]
+    ok: bool
+    latency_s: float
+    # True when a Freivalds check failed on this request's batch and the
+    # logits were recovered (device retry or enclave recompute)
+    flagged: bool = False
+    # "mac_failed" when the request never reached the executor
+    error: Optional[str] = None
+
+
+@dataclasses.dataclass
+class BatchIntegrity:
+    """Verification outcome of one sealed-batch dispatch."""
+    checks: int = 0              # Freivalds checks that ran (all attempts)
+    failures: int = 0            # checks that mismatched
+    retried: bool = False        # one fresh-session device retry happened
+    recomputed: bool = False     # enclave recompute produced the response
+
+    @property
+    def flagged(self) -> bool:
+        return self.failures > 0
+
+
+def _trusted_key() -> np.ndarray:
+    """The enclave-recompute run draws no pads or fold vectors."""
+    return prng.PRNGKey(0)
+
+
+@dataclasses.dataclass
+class PreparedBatch:
+    """Product of the enclave stage: requests unsealed, failed MACs
+    filtered, survivors stacked and zero-padded to a bucket."""
+    requests: List[Request]
+    boxes: List[Optional[SealedBox]]     # positional; None = MAC failed
+    valid_idx: List[int]
+    x: Optional[torch.Tensor]            # bucket-padded input, None if empty
+    pad: int
+    bucket: int
+    integ: BatchIntegrity
+    # wall seconds of the stages: "unseal" here, "infer" (until the logits
+    # reach the host) and "seal" in complete_prepared_batch
+    phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def n_valid(self) -> int:
+        return len(self.valid_idx)
+
+
+def prepare_sealed_batch(requests: List[Request], *,
+                         max_batch: int) -> PreparedBatch:
+    """Enclave stage: unseal -> filter failed MACs -> bucket-pad. Zero pad
+    rows never raise the activation absmax, so they leave every data row's
+    result unchanged."""
+    t0 = time.perf_counter()
+    valid_idx: List[int] = []
+    inputs: List[torch.Tensor] = []
+    for i, r in enumerate(requests):
+        pt, ok = unseal(r.session_key, r.box, r.shape)
+        if ok:
+            valid_idx.append(i)
+            inputs.append(pt)
+    boxes: List[Optional[SealedBox]] = [None] * len(requests)
+    integ = BatchIntegrity()
+    if not inputs:
+        return PreparedBatch(requests, boxes, valid_idx, None, 0, 0, integ,
+                             {"unseal": time.perf_counter() - t0})
+    bucket = bucket_for(len(inputs), max_batch)
+    pad = bucket - len(inputs)
+    x = torch.stack(inputs + [torch.zeros_like(inputs[0])] * pad)
+    return PreparedBatch(requests, boxes, valid_idx, x, pad, bucket, integ,
+                         {"unseal": time.perf_counter() - t0})
+
+
+def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
+                            *, session_key: np.ndarray
+                            ) -> Tuple[List[Optional[SealedBox]], int, int,
+                                       BatchIntegrity]:
+    """Device stage: blinded infer -> verify -> recovery -> seal.
+
+    A failed Freivalds check discards the device's answer and grants one
+    re-offload under a fresh blinding session (a one-time pad is never
+    reused); if that fails too, the enclave recomputes the batch itself.
+    Every recovery path is bit-identical to an honest device's answer."""
+    requests, boxes, integ = prep.requests, prep.boxes, prep.integ
+    batch = {"images": prep.x}
+    t0 = time.perf_counter()
+    result = executor.infer(batch, session_key=session_key)
+    integ.checks = result.integrity.n_checked
+    integ.failures = result.integrity.n_failed
+    if not result.integrity.ok:
+        result = executor.infer(
+            batch, session_key=prng.fold_in(session_key, _RETRY_DOMAIN))
+        integ.retried = True
+        integ.checks += result.integrity.n_checked
+        integ.failures += result.integrity.n_failed
+    if not result.integrity.ok:
+        result = executor.infer(batch, session_key=_trusted_key(),
+                                trusted=True)
+        integ.recomputed = True
+    logits = result.logits.to(torch.float32).cpu()[:prep.n_valid]
+    t1 = time.perf_counter()
+    for row, i in enumerate(prep.valid_idx):
+        r = requests[i]
+        boxes[i] = seal(r.session_key, logits[row], response_nonce(r.rid))
+    prep.phases.update(infer=t1 - t0, seal=time.perf_counter() - t1)
+    return boxes, prep.n_valid, prep.pad, integ
+
+
+def execute_sealed_batch(executor: OrigamiExecutor, requests: List[Request],
+                         *, max_batch: int, session_key: np.ndarray
+                         ) -> Tuple[List[Optional[SealedBox]], int, int,
+                                    BatchIntegrity]:
+    """unseal -> filter failed MACs -> bucket-pad -> verified blinded
+    infer -> recover on failure -> seal. Returns ``(boxes, n_valid, pad,
+    integrity)``; ``boxes[i] is None`` iff request i failed its MAC (it
+    never reached the executor)."""
+    prep = prepare_sealed_batch(requests, max_batch=max_batch)
+    if prep.x is None:
+        return prep.boxes, 0, 0, prep.integ
+    return complete_prepared_batch(executor, prep, session_key=session_key)
+
+
+class PrivateInferenceServer:
+    """Batched Origami serving of a VGG model on one device."""
+
+    def __init__(self, cfg: ModelConfig, params, *, mode: str = "origami",
+                 max_batch: int = 8, precompute: bool = True, integrity=None, plan=None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.executor = OrigamiExecutor(cfg, params, mode=mode,
+                                        precompute=precompute,
+                                        integrity=integrity, plan=plan,
+                                        device=device)
+        self.quote = measure_enclave(cfg, self.executor.params,
+                                     self.executor.partition,
+                                     plan_digest=self.executor.plan.digest)
+        self.max_batch = max_batch
+        self.processed = 0
+        self.batches = 0
+        self.last_phases: Dict[str, float] = {}   # stage seconds, last batch
+        # server-side root of the per-batch blinding sessions: batch k runs
+        # under fold_in(root, k). Fresh entropy per instance, so one-time
+        # pads never repeat across restarts or replicas.
+        w0, w1 = np.frombuffer(os.urandom(8), np.uint32)
+        self._blind_root = prng.fold_in(prng.PRNGKey(int(w0)), int(w1))
+
+    def _blind_session(self, batch_idx: int) -> np.ndarray:
+        return prng.fold_in(self._blind_root, batch_idx)
+
+    # -- client side helpers ---------------------------------------------
+    def attest(self) -> Quote:
+        return self.quote
+
+    @staticmethod
+    def client_seal(key: np.ndarray, x, rid: int) -> SealedBox:
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.array(x, np.float32))
+        return seal(key, x, request_nonce(rid))
+
+    @staticmethod
+    def client_open(key: np.ndarray, box: SealedBox,
+                    shape: Tuple[int, ...]) -> np.ndarray:
+        pt, ok = unseal(key, box, shape)
+        if not ok:
+            raise ValueError("response MAC failed")
+        return pt.cpu().numpy()
+
+    # -- server side -------------------------------------------------------
+    def serve_batch(self, requests: List[Request]) -> List[Response]:
+        """One enclave dispatch of at most ``max_batch`` requests."""
+        if len(requests) > self.max_batch:
+            raise ValueError(
+                f"serve_batch got {len(requests)} requests for max_batch="
+                f"{self.max_batch}")
+        t0 = time.monotonic()
+        prep = prepare_sealed_batch(requests, max_batch=self.max_batch)
+        boxes, n_valid, integ = prep.boxes, 0, prep.integ
+        if prep.x is not None:
+            boxes, n_valid, _, integ = complete_prepared_batch(
+                self.executor, prep,
+                session_key=self._blind_session(self.batches))
+        self.last_phases = prep.phases
+        if n_valid:
+            self.batches += 1
+            # compute the next session's factors now, off its request path
+            self.executor.prepare_session(self._blind_session(self.batches))
+            self.processed += n_valid
+        dt = time.monotonic() - t0
+        return [Response(r.rid, box, box is not None, dt,
+                         flagged=integ.flagged and box is not None,
+                         error=None if box is not None else "mac_failed")
+                for r, box in zip(requests, boxes)]

@@ -1,0 +1,150 @@
+"""The port's CUDA kernels on the card, held bit-for-bit against their plain
+PyTorch versions and an int64 oracle, and the executor on the card against
+the port on the CPU.
+
+Every test here needs an NVIDIA GPU with nvcc; without one they skip.
+Run on the card with:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX (the machine with the card has none).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build as KB
+from repro_torch.kernels.blind.blind import blind_encode, blind_encode_plain
+from repro_torch.kernels.limb_matmul import ops
+from repro_torch.kernels.limb_matmul import ref
+from repro_torch.kernels.limb_matmul.fold import (limb_fold_planes,
+                                                  limb_fold_planes_plain)
+from repro_torch.kernels.limb_matmul.limb_matmul import (
+    limb_matmul_planes, limb_matmul_planes_fused,
+    limb_matmul_planes_fused_plain, limb_matmul_planes_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    KB.lib()                                   # build once for the module
+    return torch.device("cuda")
+
+
+def _oracle(x, w):
+    return (x.astype(np.int64) @ w.astype(np.int64)) % ref.P
+
+
+def _field(rng, shape):
+    return torch.from_numpy(rng.integers(0, ref.P, shape, dtype=np.int32))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (300, 72, 8), (257, 27, 64),
+                                   (130, 576, 130), (64, 1152, 128)])
+def test_limb_matmul_matches_plain_and_int64(dev, M, K, N):
+    rng = np.random.default_rng(M * 7 + K)
+    x, w = _field(rng, (M, K)), _field(rng, (K, N))
+    Kp = ops.block_plan(M, K, N)[4]
+    xl, wl = ops.field_planes(x, Kp).to(dev), ops.encode_weight_planes(w).to(dev)
+    before = KB.LAUNCHES["limb_matmul"]
+    got = limb_matmul_planes(xl, wl)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["limb_matmul"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  limb_matmul_planes_plain(xl, wl).cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle(x.numpy(), w.numpy()))
+
+
+def test_limb_matmul_extreme_digits(dev):
+    """All-(-128) digit planes give the largest group sums the int32
+    accumulators see; K = 40,000 crosses one mod-p reduction."""
+    M, K, N = 65, 40000, 3
+    xl = torch.full((3, M, K), -128, dtype=torch.int8, device=dev)
+    wl = torch.full((3, K, N), -128, dtype=torch.int8, device=dev)
+    np.testing.assert_array_equal(limb_matmul_planes(xl, wl).cpu().numpy(),
+                                  limb_matmul_planes_plain(xl, wl).cpu().numpy())
+
+
+@pytest.mark.parametrize("M,K,N", [(300, 72, 8), (200, 27, 64),
+                                   (96, 1152, 128)])
+def test_fused_chain_matches_plain(dev, M, K, N):
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+    r = _field(rng, (M, K)).to(dev)
+    w_q = ref.from_signed(torch.from_numpy(
+        rng.integers(-128, 128, (K, N), dtype=np.int32))).to(dev)
+    u = ops.field_matmul(r, w_q)
+    inv = torch.tensor(0.5, device=dev)
+    scale = torch.tensor(1e-4, device=dev)
+    Kp = ops.block_plan(M, K, N)[4]
+    xl = blind_encode(x, r, inv, 8, Kp)
+    np.testing.assert_array_equal(
+        xl.cpu().numpy(), blind_encode_plain(x, r, inv, 8, Kp).cpu().numpy())
+    wl = ops.encode_weight_planes(w_q)
+    got = limb_matmul_planes_fused(xl, wl, u, scale)
+    want = limb_matmul_planes_fused_plain(xl, wl, u, scale)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_blind_encode_rounds_half_to_even(dev):
+    # x * inv * 2^8 lands exactly on .5 steps: rintf must round to even
+    x = (torch.arange(-8, 9, dtype=torch.float32) + 0.5) / 256
+    x = x.reshape(1, -1).to(dev)
+    r = torch.zeros_like(x, dtype=torch.int32)
+    inv = torch.tensor(1.0, device=dev)
+    got = blind_encode(x, r, inv, 8, 32)
+    want = blind_encode_plain(x, r, inv, 8, 32)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("M,K,kf", [(1, 5, 1), (333, 640, 2), (50, 100, 5)])
+def test_fold_matches_plain_and_int64(dev, M, K, kf):
+    rng = np.random.default_rng(M + kf)
+    x, s = _field(rng, (M, K)), _field(rng, (K, kf))
+    got = ops.field_fold(x.to(dev), s.to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy(), _oracle(x.numpy(), s.numpy()))
+    Kp = ops.block_plan(M, K, kf)[4]
+    xl, sl = ops.field_planes(x, Kp).to(dev), ops.encode_weight_planes(s).to(dev)
+    np.testing.assert_array_equal(limb_fold_planes(xl, sl).cpu().numpy(),
+                                  limb_fold_planes_plain(xl, sl).cpu().numpy())
+
+
+def test_wrappers_reject_bad_operands(dev):
+    xl = torch.zeros((3, 4, 30), dtype=torch.int8, device=dev)   # Kp % 32
+    wl = torch.zeros((3, 30, 4), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        limb_matmul_planes(xl, wl)
+    with pytest.raises(TypeError):
+        blind_encode(torch.zeros((2, 3), dtype=torch.float64, device=dev),
+                     torch.zeros((2, 3), dtype=torch.int32, device=dev),
+                     torch.tensor(1.0, device=dev), 8, 32)
+
+
+def test_executor_on_card_matches_cpu(dev):
+    """The tier-1 boundary on the card is bit-equal to the port on the CPU;
+    the logits agree to float32 tier-2 tolerance."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models import vgg as V
+    cfg = get_smoke("vgg16")
+    params = V.init_params(cfg, 0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    out = {}
+    for d in ("cpu", "cuda"):
+        ex = OrigamiExecutor(cfg, params, mode="origami", precompute=True,
+                             integrity=IntegrityPolicy.full(k=2), device=d)
+        out[d] = ex.infer({"images": x}, session_key=PRNGKey(5))
+    np.testing.assert_array_equal(out["cuda"].boundary.cpu().numpy(),
+                                  out["cpu"].boundary.numpy())
+    ref_logits = out["cpu"].logits.numpy()
+    np.testing.assert_allclose(out["cuda"].logits.cpu().numpy(), ref_logits,
+                               rtol=0, atol=1e-4 * np.abs(ref_logits).max())
+    assert out["cuda"].integrity.n_checked == 2
+    assert out["cuda"].integrity.n_failed == 0

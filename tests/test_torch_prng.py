@@ -1,0 +1,91 @@
+"""The port's threefry generator (core/prng.py) is bit-equal to jax.random
+under the installed jax."""
+import numpy as np
+import pytest
+import torch
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro_torch.core import prng  # noqa: E402
+
+P = (1 << 23) - 15
+SEEDS = [0, 1, 42, 2 ** 31 - 1, 2 ** 31 + 5, 2 ** 32 - 1]
+SHAPES = [(1,), (2,), (5,), (3, 7), (1001,), (4, 1, 33)]
+
+
+def _keys():
+    """(jax key, port key) pairs: fresh seeds and derived keys."""
+    out = []
+    for seed in SEEDS:
+        jk = jax.random.PRNGKey(seed)
+        out.append((jk, prng.PRNGKey(seed)))
+    jk = jax.random.fold_in(jax.random.PRNGKey(9), 0xFA17)
+    out.append((jk, np.asarray(jk)))
+    return out
+
+
+def test_counter_layout_matches_installed_jax():
+    """The port draws in the partitionable counter layout; the reference's
+    streams are only comparable when jax uses it too."""
+    assert bool(jax.config.jax_threefry_partitionable) == prng.PARTITIONABLE
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prngkey(seed):
+    np.testing.assert_array_equal(prng.PRNGKey(seed),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("data", [0, 1, 7, 0x5ECC, 0xFA17, 2 ** 31,
+                                  2 ** 32 - 1])
+def test_fold_in_and_split(data):
+    for jk, tk in _keys():
+        np.testing.assert_array_equal(
+            prng.fold_in(tk, data), np.asarray(jax.random.fold_in(jk, data)))
+    jk, tk = _keys()[2]
+    for num in (2, 3):
+        for a, b in zip(prng.split(tk, num), jax.random.split(jk, num)):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bits(shape):
+    for jk, tk in _keys():
+        want = np.asarray(jax.random.bits(jk, shape, jnp.uint32))
+        got = prng.bits(tk, shape)
+        assert got.dtype == torch.int64 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("lo,hi", [(0, P), (0, 1000), (3, 2 ** 16 - 7),
+                                   (0, 2 ** 31 - 1)])
+def test_randint(shape, lo, hi):
+    for jk, tk in _keys():
+        want = np.asarray(jax.random.randint(jk, shape, lo, hi,
+                                             dtype=jnp.int32))
+        got = prng.randint(tk, shape, lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [()] + SHAPES)
+def test_uniform(shape):
+    for jk, tk in _keys():
+        want = np.asarray(jax.random.uniform(jk, shape))
+        got = prng.uniform(tk, shape)
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mul32_wraps_like_uint32(rng):
+    a = rng.integers(0, 2 ** 32, 10_000, dtype=np.uint64)
+    b = rng.integers(0, 2 ** 32, 10_000, dtype=np.uint64)
+    want = (a.astype(np.uint32) * b.astype(np.uint32)).astype(np.int64)
+    got = prng.mul32(torch.from_numpy(a.astype(np.int64)),
+                     torch.from_numpy(b.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
