@@ -10,21 +10,36 @@ Phases (any failure is fatal and exits non-zero):
 1. card and build — the card's name and power limit; nvcc builds the
    kernel library from ``src/repro_torch/kernels/csrc`` (one process per
    source, in parallel);
-2. kernels — each of the four kernels (blind_encode, limb_matmul,
-   limb_matmul_fused, limb_fold) at the VGG-16 tier-1 shapes of a batch of
-   4, bit-for-bit against its plain version on the card, with its time
-   (CUDA events, median of 10 after warm-up), the plain version's time,
-   the card's bound for the same work and, for the matmuls, nine
-   ``torch._int_mm`` calls of one limb pair as a library yardstick;
-3. serving — a full-width VGG-16 (224x224, 1000 classes, random weights
-   from a seed) behind ``PrivateInferenceServer`` with tier-1 blinded and
-   Freivalds-verified (full, k=2): sealed requests, one tampered, served
-   twice (cold, then with the next session's factors prefetched) with the
-   kernel launch counts read around exactly those calls; the logits must
-   be bit-equal to the enclave recompute and within 5% of the plain float
-   forward;
+2. kernels — each of the six kernels (blind_encode, limb_matmul,
+   limb_matmul_fused, limb_fold, blind, unblind) at the VGG-16 tier-1
+   shapes of a batch of 4, bit-for-bit against its plain version on the
+   card, with its time (CUDA events, median of 10 after warm-up), the
+   plain version's time, the card's bound for the same work and, for the
+   matmuls, nine ``torch._int_mm`` calls of one limb pair as a library
+   yardstick;
+3. fused serving — a full-width VGG-16 (224x224, 1000 classes, random
+   weights from a seed) behind ``PrivateInferenceServer`` with tier-1
+   blinded and Freivalds-verified (full, k=2): sealed requests, one
+   tampered, served twice (cold, then with the next session's factors
+   prefetched) with the kernel launch counts read around exactly those
+   calls; the logits must be bit-equal to the enclave recompute and within
+   5% of the plain float forward;
 4. where the time goes — a warm batch split into session factors, the
-   blinded infer and its float tier-2.
+   blinded infer and its float tier-2;
+5. unfused serving — the same requests behind ``impl="unfused"`` (blind,
+   limb matmul and unblind kernels; checks in the blinded domain), cold
+   then warm, with the launch counts read around exactly those calls;
+6. dishonest device — every fault kind on both data paths under full
+   verification: each check fails exactly where the injector corrupted;
+7. recovery — a server behind a stale-replaying device: one device retry,
+   one enclave recompute, logits bit-equal to the honest server's;
+8. offload plane — a pool of two simulated slots on the card, slot 1
+   dishonest, in "rows" and "shares" modes: bit-equal to the pool-less
+   executor, the failed shards recovered, slot 1 quarantined, no dispatch
+   crashed or timed out.
+
+Phases 3 and 5-8 each read the launch counts around exactly the calls they
+drive and fail unless their path launched its kernels and no other.
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
@@ -45,8 +60,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.integrity import IntegrityPolicy  # noqa: E402
 from repro_torch.core.prng import PRNGKey  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
-from repro_torch.kernels.blind.blind import (blind_encode,  # noqa: E402
-                                             blind_encode_plain)
+from repro_torch.core.origami import OrigamiExecutor  # noqa: E402
+from repro_torch.kernels.blind.blind import (blind,  # noqa: E402
+                                             blind_encode, blind_encode_plain,
+                                             blind_plain, unblind,
+                                             unblind_plain)
 from repro_torch.kernels.limb_matmul import ops, ref  # noqa: E402
 from repro_torch.kernels.limb_matmul.fold import (  # noqa: E402
     limb_fold_planes, limb_fold_planes_plain)
@@ -54,6 +72,9 @@ from repro_torch.kernels.limb_matmul.limb_matmul import (  # noqa: E402
     limb_matmul_planes, limb_matmul_planes_fused,
     limb_matmul_planes_fused_plain, limb_matmul_planes_plain)
 from repro_torch.models import vgg as V  # noqa: E402
+from repro_torch.runtime.devices import DevicePool  # noqa: E402
+from repro_torch.runtime.faults import (KINDS, DishonestDevice,  # noqa: E402
+                                        FaultSpec)
 from repro_torch.runtime.serving import (PrivateInferenceServer,  # noqa: E402
                                          Request)
 
@@ -69,13 +90,27 @@ REPLACES = {
     "limb_matmul": "src/repro/kernels/limb_matmul/limb_matmul.py:110",
     "limb_matmul_fused": "src/repro/kernels/limb_matmul/limb_matmul.py:133",
     "limb_fold": "src/repro/kernels/limb_matmul/fold.py:37",
+    "blind": "src/repro/kernels/blind/blind.py:106",
+    "unblind": "src/repro/kernels/blind/blind.py:113",
 }
 SOURCES = {
     "blind_encode": "src/repro_torch/kernels/csrc/blind_encode.cu",
     "limb_matmul": "src/repro_torch/kernels/csrc/limb_matmul.cu",
     "limb_matmul_fused": "src/repro_torch/kernels/csrc/limb_matmul.cu",
     "limb_fold": "src/repro_torch/kernels/csrc/limb_fold.cu",
+    "blind": "src/repro_torch/kernels/csrc/blind.cu",
+    "unblind": "src/repro_torch/kernels/csrc/blind.cu",
 }
+# the kernels each path launches (and no other): the fused and unfused
+# data paths, and the offload plane over the fused path (blind on the
+# enclave, the slots' limb matmuls, the shard checks' folds; the unblind is
+# fused into the enclave's float epilogue)
+FUSED_PATH = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold")
+UNFUSED_PATH = ("blind", "limb_matmul", "limb_fold", "unblind")
+PLANE_PATH = ("blind", "limb_matmul", "limb_fold")
+# the kernels whose launches the JSON line reads on the unfused path (the
+# rest on the fused one)
+READ_ON_UNFUSED = ("limb_matmul", "blind", "unblind")
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -92,6 +127,29 @@ def cuda_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def check_launches(launches, path, where):
+    """Fail unless the counts show every kernel of ``path`` launched and
+    no other kernel launched."""
+    for name in KB.KERNELS:
+        if name in path:
+            assert launches[name] > 0, f"kernel {name} was not launched " \
+                f"on the {where}"
+        else:
+            assert launches[name] == 0, f"the {where} launched {name}"
+
+
+def counted(fn):
+    """(launch counts, milliseconds, result) of ``fn``: the counts read
+    from 0 around exactly this call, the time on the host clock,
+    synchronized."""
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return dict(KB.LAUNCHES), (time.perf_counter() - t) * 1e3, out
 
 
 def tier1_shapes(cfg):
@@ -126,9 +184,10 @@ def phase_kernels(cfg, dev):
     acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bytes": 0, "ops": 0, "peak": INT8_OPS_S, "err": 0.0}
            for name in KB.KERNELS}
-    acc["blind_encode"]["peak"] = F32_OPS_S
-    acc["blind_encode"]["library_ms"] = None
-    acc["limb_fold"]["library_ms"] = None
+    for name in ("blind_encode", "blind", "unblind"):
+        acc[name]["peak"] = F32_OPS_S
+    for name in ("blind_encode", "limb_fold", "blind", "unblind"):
+        acc[name]["library_ms"] = None
 
     def add(name, ms, plain_ms, nbytes, nops, err, lib_ms=None):
         a = acc[name]
@@ -214,7 +273,28 @@ def phase_kernels(cfg, dev):
             18 * M * Kf * 2, err)
         print(f"limb_fold {layer} ({M}x{Kf}x2): {ms:.3f} ms, plain "
               f"{pms:.3f} ms")
-        del x, r, xl, xr, u, yx, fl
+
+        # blind: the unfused path's operand over its scale, and its pad
+        xs = x * 3.0
+        got = blind(xs, r, 8)
+        err = compare("blind", got, blind_plain(xs, r, 8))
+        ms = cuda_ms(lambda: blind(xs, r, 8))
+        pms = cuda_ms(lambda: blind_plain(xs, r, 8), reps=5)
+        add("blind", ms, pms, 12 * M * K, 2 * M * K, err)
+        print(f"blind {layer} ({M}x{K}): {ms:.3f} ms, plain {pms:.3f} ms")
+
+        # unblind: a field result of the layer's width against its factor
+        yb = torch.randint(0, ref.P, (M, N), generator=gen, device=dev,
+                           dtype=torch.int32)
+        got = unblind(yb, u, 15)
+        err = compare("unblind", got, unblind_plain(yb, u, 15))
+        if not torch.isfinite(got).all():
+            raise AssertionError("unblind: non-finite output")
+        ms = cuda_ms(lambda: unblind(yb, u, 15))
+        pms = cuda_ms(lambda: unblind_plain(yb, u, 15), reps=5)
+        add("unblind", ms, pms, 12 * M * N, M * N, err)
+        print(f"unblind {layer} ({M}x{N}): {ms:.3f} ms, plain {pms:.3f} ms")
+        del x, r, xl, xr, u, yx, fl, xs, yb, got
     torch.cuda.empty_cache()
     return acc
 
@@ -225,6 +305,20 @@ def _request(cfg, rid, rng):
     key = rng.integers(0, 2 ** 32 - 1, size=(2,), dtype=np.uint32)
     box = PrivateInferenceServer.client_seal(key, img, rid)
     return Request(rid=rid, box=box, shape=img.shape, session_key=key), key, img
+
+
+def _timed(fn):
+    """(milliseconds, result) of ``fn`` on the host clock, synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def _open_all(cfg, keys, responses):
+    return np.stack([PrivateInferenceServer.client_open(
+        k, r.box, (cfg.num_classes,)) for k, r in zip(keys, responses)])
 
 
 def phase_serving(cfg, dev):
@@ -263,20 +357,19 @@ def phase_serving(cfg, dev):
 
     assert all(r.ok for r in responses), [r.error for r in responses]
     assert not bad_resp[0].ok and bad_resp[0].error == "mac_failed", bad_resp
-    logits = np.stack([PrivateInferenceServer.client_open(
-        k, r.box, (cfg.num_classes,)) for k, r in zip(keys, responses)])
+    logits = _open_all(cfg, keys, responses)
     assert logits.shape == (BATCH, cfg.num_classes)
     assert np.isfinite(logits).all()
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the serving path"
-    assert tele.device_matmuls == tele.calls == 4, tele
+    check_launches(launches, FUSED_PATH, "fused serving path")
+    n_ops = len(tier1_shapes(cfg))           # blinded convs of tier-1
+    assert tele.device_matmuls == tele.calls == n_ops, tele
     assert tele.enclave_matmuls == 0, tele
-    assert tele.verify_ops == 4, tele
+    assert tele.verify_ops == n_ops, tele
 
     batch = {"images": torch.from_numpy(np.stack(imgs))}
     res = server.executor.infer(batch, session_key=PRNGKey(SEED + 1))
     rep = res.integrity
-    assert rep.n_ops == 4 and rep.n_checked == 4 and rep.n_failed == 0, rep
+    assert rep.n_ops == rep.n_checked == n_ops and rep.n_failed == 0, rep
     trusted = server.executor.infer(batch, trusted=True)
     if not np.array_equal(trusted.logits.cpu().numpy(), logits):
         raise AssertionError("served logits differ from the enclave "
@@ -297,7 +390,185 @@ def phase_serving(cfg, dev):
     print(f"launches on the serving path: {launches}")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return server, batch, launches
+    return server, batch, launches, (reqs, keys, logits)
+
+
+def phase_unfused_serving(cfg, params, batch, sealed, dev):
+    """The unfused data path behind the server, launch counts read around
+    exactly the two served batches."""
+    reqs, keys, _ = sealed
+    server = PrivateInferenceServer(cfg, params, mode="origami",
+                                    max_batch=BATCH, impl="unfused",
+                                    integrity=IntegrityPolicy.full(k=2),
+                                    device=dev)
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    walls = []
+    for _ in range(2):                       # cold, then warm (prefetched)
+        t = time.perf_counter()
+        responses = server.serve_batch(list(reqs))
+        walls.append((time.perf_counter() - t, dict(server.last_phases)))
+    torch.cuda.synchronize()
+    launches = dict(KB.LAUNCHES)
+    tele = server.executor.telemetry_blinded
+    n_ops = len(tier1_shapes(cfg))
+    assert all(r.ok and not r.flagged for r in responses), responses
+    check_launches(launches, UNFUSED_PATH, "unfused serving path")
+    assert tele.device_matmuls == tele.calls == n_ops, tele
+    assert tele.verify_ops == n_ops, tele
+    tot = server.integrity_totals
+    assert tot.checks == 2 * n_ops and tot.failures == 0, tot
+    logits = _open_all(cfg, keys, responses)
+    assert np.isfinite(logits).all()
+    trusted = server.executor.infer(batch, trusted=True)
+    if not np.array_equal(trusted.logits.cpu().numpy(), logits):
+        raise AssertionError("unfused: served logits differ from the "
+                             "enclave recompute")
+    reference = server.executor.reference(batch).cpu().numpy()
+    rel = float(np.abs(logits - reference).max() / np.abs(reference).max())
+    assert rel < 0.05, rel
+    infer_ms, _ = _timed(lambda: server.executor.infer(
+        batch, session_key=PRNGKey(SEED + 3)))
+    print(f"unfused serving: {BATCH} ok, checks {tot.checks} failed "
+          f"{tot.failures}; device_matmuls {tele.device_matmuls} calls "
+          f"{tele.calls}; logits == enclave recompute; rel err vs float "
+          f"forward {rel:.5f}")
+    for label, (wall, ph) in zip(("cold", "warm"), walls):
+        print(f"unfused serve_batch {label}: {wall * 1e3:.1f} ms a batch of "
+              f"{BATCH}; unseal {ph['unseal'] * 1e3:.1f} ms, infer "
+              f"{ph['infer'] * 1e3:.1f} ms, seal {ph['seal'] * 1e3:.1f} ms")
+    print(f"unfused blinded infer (live factors, batch {BATCH}): "
+          f"{infer_ms:.1f} ms")
+    print(f"launches on the unfused serving path: {launches}")
+    del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fault_drills(cfg, params, batch, dev):
+    """Every fault kind on both data paths under full verification: the
+    checks fail exactly on the corrupted ops."""
+    n_ops = len(tier1_shapes(cfg))
+    for impl, path in (("fused", FUSED_PATH), ("unfused", UNFUSED_PATH)):
+        ex = OrigamiExecutor(cfg, params, mode="origami", impl=impl,
+                             precompute=True,
+                             integrity=IntegrityPolicy.full(k=2), device=dev)
+        line = []
+        for i, kind in enumerate(KINDS):
+            ex.fault = DishonestDevice(FaultSpec(kind))
+            launches, _, res = counted(lambda: ex.infer(
+                batch, session_key=PRNGKey(SEED + 10 + i)))
+            check_launches(launches, path, f"{impl} {kind} fault drill")
+            rep = res.integrity
+            if not torch.equal(rep.failed, rep.corrupted):
+                raise AssertionError(f"{impl}/{kind}: failed "
+                                     f"{rep.failed.tolist()} != corrupted "
+                                     f"{rep.corrupted.tolist()}")
+            assert rep.n_ops == rep.n_checked == n_ops, (impl, kind, rep)
+            want = 0 if kind == "adaptive" else n_ops
+            assert rep.n_corrupted == rep.n_failed == want, (impl, kind, rep)
+            line.append(f"{kind} {rep.n_corrupted}/{rep.n_failed}")
+        print(f"fault drills ({impl}, corrupted/failed of {n_ops} ops): "
+              + ", ".join(line) + f"; launches of the last drill {launches}")
+        del ex
+        torch.cuda.empty_cache()
+
+
+def phase_recovery(cfg, params, sealed, dev):
+    """A stale-replaying device behind the server: the batch is retried
+    once on the device, then recomputed by the enclave, and opens to the
+    honest server's logits."""
+    reqs, keys, honest = sealed
+    server = PrivateInferenceServer(
+        cfg, params, mode="origami", max_batch=BATCH,
+        integrity=IntegrityPolicy.full(k=2),
+        fault=DishonestDevice(FaultSpec("stale")), device=dev)
+    launches, wall_ms, responses = counted(
+        lambda: server.serve_batch(list(reqs)))
+    check_launches(launches, FUSED_PATH, "recovery path")
+    tot = server.integrity_totals
+    assert all(r.ok and r.flagged for r in responses), responses
+    assert tot.retries == 1 and tot.recomputes == 1, tot
+    assert tot.failures == tot.corrupted == 2 * len(tier1_shapes(cfg)), tot
+    if not np.array_equal(_open_all(cfg, keys, responses), honest):
+        raise AssertionError("recovered logits differ from the honest "
+                             "server's")
+    print(f"recovery: {BATCH} ok and flagged; checks {tot.checks} failed "
+          f"{tot.failures} corrupted {tot.corrupted}; retries "
+          f"{tot.retries}, recomputes {tot.recomputes}; logits == honest "
+          f"server; batch {wall_ms:.1f} ms; launches {launches}")
+    del server
+    torch.cuda.empty_cache()
+
+
+def phase_plane(cfg, params, batch, single, dev):
+    """Two simulated slots on the card, slot 1 dishonest, in both shard
+    modes; held bit-for-bit against the pool-less executor. Each session's
+    factors are prefetched before its timed infer, on both sides."""
+    keys = [PRNGKey(SEED + 20 + i) for i in range(3)]
+    want, single_ms = [], []
+    for k in keys:
+        single.prepare_session(k)
+        ms, res = _timed(lambda: single.infer(batch, session_key=k))
+        want.append(res.logits.cpu().numpy())
+        single_ms.append(ms)
+    for shard in ("rows", "shares"):
+        pool = DevicePool(2, faults={
+            1: DishonestDevice(FaultSpec("bit_flip"))})
+        ex = OrigamiExecutor(cfg, params, mode="origami", precompute=True,
+                             integrity=IntegrityPolicy.full(k=2),
+                             devices=pool, shard=shard, hedging=False,
+                             device=dev)
+        ex.build_cache(batch)
+        total = None
+        plane_ms, factor_ms = [], []
+        launches = {name: 0 for name in KB.KERNELS}
+        try:
+            for k, w in zip(keys, want):
+                factor_ms.append(_timed(lambda: ex.prepare_session(k))[0])
+                counts, ms, res = counted(
+                    lambda: ex.infer(batch, session_key=k))
+                plane_ms.append(ms)
+                for name, n in counts.items():
+                    launches[name] += n
+                if not np.array_equal(res.logits.cpu().numpy(), w):
+                    raise AssertionError(f"plane ({shard}): logits differ "
+                                         f"from the pool-less executor")
+                assert res.integrity.ok, res.integrity
+                if total is None:
+                    total = res.sharding
+                else:
+                    total.add(res.sharding)
+            bad, good = pool.slots[1], pool.slots[0]
+            check_launches(launches, PLANE_PATH, f"offload plane ({shard})")
+            # every dispatch came back from its slot's worker and was
+            # checked: a kernel that failed on a worker thread would show
+            # as a contained crash, recovered elsewhere
+            assert total.crashes == total.timeouts == 0, total
+            assert total.checks == total.dispatches > 0, total
+            assert all(s.liveness_failures == 0 for s in pool.slots), \
+                pool.snapshot()
+            assert total.failures > 0, total
+            if shard == "rows":
+                assert total.retries > 0, total
+            else:
+                assert total.enclave_shards > 0 and total.retries == 0, total
+            assert bad.quarantined and bad.quarantines == 1, bad.snapshot()
+            assert good.available and good.verify_failures == 0
+        finally:
+            pool.close()
+        print(f"plane ({shard}, 2 slots, slot 1 bit_flip): logits == "
+              f"pool-less over {len(keys)} infers; ops {total.ops} "
+              f"dispatches {total.dispatches} checks {total.checks} failures "
+              f"{total.failures} retries {total.retries} enclave shards "
+              f"{total.enclave_shards} probes {total.probes}; slot 1 "
+              f"quarantined after {bad.verify_failures} failed checks; "
+              f"ms an infer {[round(m, 1) for m in plane_ms]} vs pool-less "
+              f"{[round(m, 1) for m in single_ms]} (factors prefetched, "
+              f"{[round(m, 1) for m in factor_ms]} ms a session with the "
+              f"shard folds); launches over the 3 infers {launches}")
+        del ex
+        torch.cuda.empty_cache()
 
 
 def phase_breakdown(server, batch):
@@ -305,21 +576,14 @@ def phase_breakdown(server, batch):
     ex = server.executor
     cfg = ex.cfg
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3, out
-
     key = PRNGKey(SEED + 2)
-    factors_ms, _ = timed(lambda: ex.prepare_session(key))
-    infer_ms, res = timed(lambda: ex.infer(batch, session_key=key))
+    factors_ms, _ = _timed(lambda: ex.prepare_session(key))
+    infer_ms, res = _timed(lambda: ex.infer(batch, session_key=key))
     p = cfg.origami.tier1_layers
     with torch.no_grad():
-        tier2_ms, _ = timed(lambda: V.apply_layer_range(
+        tier2_ms, _ = _timed(lambda: V.apply_layer_range(
             ex.params, res.boundary, cfg, p, len(cfg.cnn_layers)))
-        plain_ms, _ = timed(lambda: ex.reference(batch))
+        plain_ms, _ = _timed(lambda: ex.reference(batch))
     print(f"breakdown (warm, batch {BATCH}): session factors "
           f"{factors_ms:.1f} ms; blinded infer {infer_ms:.1f} ms = tier-1 "
           f"{infer_ms - tier2_ms:.1f} ms + tier-2 {tier2_ms:.1f} ms; plain "
@@ -334,8 +598,16 @@ def main():
     phase_card_and_build()
     cfg = get_config("vgg16")
     acc = phase_kernels(cfg, dev)
-    server, batch, launches = phase_serving(cfg, dev)
+    server, batch, fused_launches, sealed = phase_serving(cfg, dev)
     phase_breakdown(server, batch)
+    params = server.executor.params
+    unfused_launches = phase_unfused_serving(cfg, params, batch, sealed, dev)
+    phase_fault_drills(cfg, params, batch, dev)
+    phase_recovery(cfg, params, sealed, dev)
+    phase_plane(cfg, params, batch, server.executor, dev)
+    # each kernel's launches, read on the serving path that uses it
+    launches = {name: (unfused_launches if name in READ_ON_UNFUSED
+                       else fused_launches)[name] for name in KB.KERNELS}
     kernels = []
     for name in KB.KERNELS:
         a = acc[name]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels.blind.blind import blind, unblind
 from repro_torch.kernels.limb_matmul.ops import field_matmul
 from repro_torch.kernels.limb_matmul.ref import HALF, P, from_signed
 
@@ -52,3 +53,15 @@ def quantize_weight(w: torch.Tensor, spec: BlindingSpec):
 def unblinding_factor(r: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """u = (r @ W_q) mod p — the enclave's precomputed factor."""
     return field_matmul(r, w_q)
+
+
+def blind_activations(x: torch.Tensor, r: torch.Tensor,
+                      spec: BlindingSpec) -> torch.Tensor:
+    """(quantize(x, k_act) mod p + r) mod p — the unfused path's blind."""
+    return blind(x, r, spec.k_act)
+
+
+def unblind_result(y_b: torch.Tensor, u: torch.Tensor, spec: BlindingSpec,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """signed((y_b - u) mod p) / 2^(k_act + k_w) — the unfused unblind."""
+    return unblind(y_b, u, spec.k_act + spec.k_w).to(out_dtype)

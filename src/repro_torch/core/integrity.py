@@ -28,6 +28,7 @@ from repro_torch.kernels.limb_matmul.ref import P
 VERIFY_DOMAIN = 0x5ECC
 _SUB_FOLD = 0      # -> fold-vector draw
 _SUB_DECIDE = 1    # -> sampled-mode check/skip decision
+_SUB_SHARD = 2     # -> per-shard fold-vector draws (offload plane)
 
 MODES = ("off", "sampled", "full")
 
@@ -78,6 +79,16 @@ def fold_stream(session_key: np.ndarray, layer_id: int, step: int,
     return B.blinding_stream(key, (d_out, k), device=device)
 
 
+def shard_fold_stream(session_key: np.ndarray, layer_id: int, step: int,
+                      shard: int, d_out: int, k: int,
+                      device="cpu") -> torch.Tensor:
+    """Per-shard fold vectors of the offload plane: each shard of one
+    offloaded matmul is checked with its own (d_out, k) draw."""
+    key = prng.fold_in(prng.fold_in(op_key(session_key, layer_id, step),
+                                    _SUB_SHARD), shard)
+    return B.blinding_stream(key, (d_out, k), device=device)
+
+
 def decide(policy: IntegrityPolicy, session_key: np.ndarray, layer_id: int,
            step: int = 0) -> bool:
     """Per-op check/skip decision: always under "full", never under "off",
@@ -116,12 +127,13 @@ def checked_pair(y_field: torch.Tensor, x_field: torch.Tensor,
 
 @dataclass
 class IntegrityReport:
-    """Per-infer verification outcome: one slot per verified blinded op,
-    in call order (empty when the policy is off)."""
+    """Per-infer verification outcome: one slot per verified or
+    fault-injected blinded op, in call order (empty when the policy is off
+    and no injector is installed)."""
     checked: torch.Tensor          # (n_ops,) bool — check actually ran
     failed: torch.Tensor           # (n_ops,) bool — check ran and mismatched
     corrupted: torch.Tensor        # (n_ops,) bool — fault-injector ground
-                                   # truth; all False (no injector yet)
+                                   # truth; all False on an honest device
 
     @property
     def n_ops(self) -> int:
@@ -134,6 +146,10 @@ class IntegrityReport:
     @property
     def n_failed(self) -> int:
         return int(self.failed.sum().item())
+
+    @property
+    def n_corrupted(self) -> int:
+        return int(self.corrupted.sum().item())
 
     @property
     def ok(self) -> bool:

@@ -12,6 +12,11 @@ compile to plans (``plan.compile_mode``). The port runs eagerly on
 ``device`` (``"cuda"`` by default; the CPU tests pass ``"cpu"``); there
 is no jit and no ahead-of-time compile. On the card the field ops launch
 the port's CUDA kernels; on the CPU they take the kernels' plain versions.
+
+``impl`` picks the fused or unfused Slalom data path, ``fault`` injects a
+dishonest device under every untrusted run, and ``devices`` (a
+runtime/devices.DevicePool) attaches a multi-device offload plane
+(parallel/offload_sharding.py) that shards every blinded matmul.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ class OrigamiResult:
     integrity: IG.IntegrityReport = dfield(
         default_factory=IG.IntegrityReport.empty)
     trusted: bool = False               # enclave-recompute run (no device)
+    sharding: Optional[Any] = None      # offload_sharding.ShardReport
 
 
 def resolve_device(device) -> torch.device:
@@ -69,14 +75,24 @@ class OrigamiExecutor:
     def __init__(self, cfg: ModelConfig, params, mode: str = "origami",
                  partition: Optional[int] = None,
                  spec: Optional[BlindingSpec] = None,
-                 precompute: bool = False,
+                 impl: str = "fused", precompute: bool = False,
                  integrity: Optional[IG.IntegrityPolicy] = None,
+                 fault: Optional[Any] = None,
                  plan: Optional[PL.PlacementPlan] = None,
+                 devices: Optional[Any] = None, shard: str = "rows",
+                 hedging: bool = True, liveness: Optional[Any] = None,
                  device="cuda"):
         """``plan``: an explicit PlacementPlan; when omitted, ``mode`` and
-        ``partition`` compile one. ``integrity``: Freivalds policy of
-        blinded steps without their own (default off). ``precompute``:
-        draw each session's factors through a BlindedLayerCache."""
+        ``partition`` compile one. ``impl``: "fused" | "unfused" data
+        path. ``integrity``: Freivalds policy of blinded steps without
+        their own (default off). ``fault``: a runtime/faults.DishonestDevice
+        under the device matmul (a pool carries per-slot injectors
+        instead). ``precompute``: draw each session's factors through a
+        BlindedLayerCache. ``devices``: a runtime/devices.DevicePool —
+        attaches an offload plane with default shard mode ``shard``
+        ("rows" | "shares"), straggler ``hedging`` and an
+        offload_sharding.LivenessConfig ``liveness``."""
+        assert impl in ("fused", "unfused"), impl
         if plan is None:
             plan = PL.compile_mode(cfg, mode, partition)
         assert plan.n_layers == PL.num_blocks(cfg), plan.n_layers
@@ -87,8 +103,18 @@ class OrigamiExecutor:
         self.plan = plan
         self.partition = plan.boundary
         self.spec = spec or BlindingSpec()
+        self.impl = impl
         self.precompute = precompute
         self.integrity = integrity or IG.IntegrityPolicy.off()
+        self.fault = fault
+        self.plane = None
+        self._plane_live = False
+        if devices is not None:
+            from repro_torch.parallel.offload_sharding import OffloadPlane
+            self.plane = OffloadPlane(devices, mode=shard, hedging=hedging,
+                                      liveness=liveness)
+            # the plane only fires on offloaded steps
+            self._plane_live = plan.has_offload
         self.cache: Optional[BlindedLayerCache] = None
         self._caches: Dict[Any, BlindedLayerCache] = {}
         self._cache_key = None
@@ -114,8 +140,11 @@ class OrigamiExecutor:
     # -- the plan walk -------------------------------------------------------
     def _traced(self, batch, session_key, factors=None, trusted=False):
         tele = SL.Telemetry()
-        ctx = SL.SlalomContext(session_key, self.spec, telemetry=tele,
-                               factors=factors, trusted=trusted)
+        ctx = SL.SlalomContext(
+            session_key, self.spec, telemetry=tele, impl=self.impl,
+            factors=factors, fault=None if trusted else self.fault,
+            trusted=trusted,
+            plane=self.plane if self._plane_live and not trusted else None)
         logits, boundary = self._run(batch, ctx)
         if ctx.integrity_log:
             rep = tuple(torch.stack([entry[i] for entry in ctx.integrity_log])
@@ -142,7 +171,8 @@ class OrigamiExecutor:
                           else self.integrity)
                 with ExitStack() as stack:
                     stack.enter_context(ctx.segment_overrides(
-                        policy, unblinded=(seg.regime == "verified")))
+                        policy, unblinded=(seg.regime == "verified"),
+                        shard=seg.shard))
                     stack.enter_context(L.dense_impl(
                         functools.partial(SL.blinded_dense, ctx)))
                     if prog.blind_convs:
@@ -175,6 +205,9 @@ class OrigamiExecutor:
                              else self.integrity)
         self.cache = BlindedLayerCache.from_records(records, self.spec,
                                                     integrity=self.integrity)
+        if self._plane_live:
+            # per-shard fold vectors ride the session factors
+            self.cache.shards = self.plane.n_shards
         self._cache_key = self._batch_key(batch)
         self._caches[self._cache_key] = self.cache
         return self.cache
@@ -212,18 +245,23 @@ class OrigamiExecutor:
         no device, no blinding, no verification, bit-identical logits."""
         batch = self._on_device(batch)
         key = session_key if session_key is not None else prng.PRNGKey(0)
+        shard_report = None
         with torch.no_grad():
             if trusted:
                 logits, boundary, rep = self._traced(batch, key, None, True)
             else:
                 factors = self._session_factors(batch, key)
+                if self._plane_live:
+                    self.plane.begin_infer()
                 logits, boundary, rep = self._traced(batch, key, factors)
+                if self._plane_live:
+                    shard_report = self.plane.report
         self._tele_last = (self._tele_trusted if trusted
                            else self._tele_blinded)
         return OrigamiResult(logits=logits, boundary=boundary,
                              telemetry=self.telemetry,
                              integrity=IG.IntegrityReport(*rep),
-                             trusted=trusted)
+                             trusted=trusted, sharding=shard_report)
 
     def reference(self, batch) -> torch.Tensor:
         """Plain float forward — the correctness oracle for all plans."""

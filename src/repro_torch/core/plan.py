@@ -22,6 +22,7 @@ from repro_torch.core import integrity as IG
 
 PLACEMENTS = ("open", "enclave", "blinded")
 LEGACY_MODES = ("open", "enclave", "split", "slalom", "origami")
+SHARD_MODES = ("rows", "shares")
 
 
 def num_blocks(cfg: ModelConfig) -> int:
@@ -30,15 +31,35 @@ def num_blocks(cfg: ModelConfig) -> int:
 
 
 @dataclass(frozen=True)
+class ShardPolicy:
+    """Per-step multi-device offload policy (parallel/offload_sharding.py).
+    ``mode``: "rows" (row-shard the blinded operand) | "shares" (additive
+    secret shares: no single device holds the full blinded tensor).
+    ``devices``: the slot indices of the executor's DevicePool this step may
+    dispatch to (``None``: the whole pool). Inert without a plane."""
+    mode: str = "rows"
+    devices: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        assert self.mode in SHARD_MODES, self.mode
+
+
+def _shard_key(s: Optional[ShardPolicy]):
+    return None if s is None else (s.mode, s.devices)
+
+
+@dataclass(frozen=True)
 class LayerStep:
     """One per-layer placement decision. ``integrity``: per-step Freivalds
     policy (``None`` inherits the executor's for blinded steps, means
     unverified for open steps). ``precompute_slot``: index of this step's
-    blinded op in the BlindedLayerCache (``None``: none)."""
+    blinded op in the BlindedLayerCache (``None``: none). ``shard``:
+    per-step ShardPolicy (``None`` inherits the plane's default)."""
     layer_id: int
     placement: str
     integrity: Optional[IG.IntegrityPolicy] = None
     precompute_slot: Optional[int] = None
+    shard: Optional[ShardPolicy] = None
 
     def __post_init__(self):
         assert self.placement in PLACEMENTS, self.placement
@@ -57,11 +78,12 @@ class LayerStep:
 @dataclass(frozen=True)
 class Segment:
     """A maximal run of steps sharing one regime ("plain" | "blinded" |
-    "verified") and one policy override."""
+    "verified"), one policy override and one shard policy."""
     lo: int
     hi: int
     regime: str
     policy: Optional[IG.IntegrityPolicy] = None
+    shard: Optional[ShardPolicy] = None
 
 
 def _policy_key(p: Optional[IG.IntegrityPolicy]):
@@ -94,12 +116,14 @@ class PlacementPlan:
         segs = []
         for i, st in enumerate(self.steps):
             regime, policy = self._regime(st)
+            shard = st.shard if regime != "plain" else None
             if (segs and segs[-1].regime == regime
                     and _policy_key(segs[-1].policy) == _policy_key(policy)
+                    and _shard_key(segs[-1].shard) == _shard_key(shard)
                     and i != self.boundary):
-                segs[-1] = Segment(segs[-1].lo, i + 1, regime, policy)
+                segs[-1] = Segment(segs[-1].lo, i + 1, regime, policy, shard)
             else:
-                segs.append(Segment(i, i + 1, regime, policy))
+                segs.append(Segment(i, i + 1, regime, policy, shard))
         return tuple(segs)
 
     @cached_property
@@ -110,6 +134,11 @@ class PlacementPlan:
             "steps": [(s.layer_id, s.placement, _policy_key(s.integrity))
                       for s in self.steps],
         }
+        if any(s.shard is not None for s in self.steps):
+            # only when present, so shard-free plans keep their digests
+            # (cache keys, attested measurements)
+            body["shards"] = [(s.layer_id, _shard_key(s.shard))
+                              for s in self.steps if s.shard is not None]
         return hashlib.sha256(
             json.dumps(body, sort_keys=True).encode()).hexdigest()
 
@@ -143,26 +172,30 @@ def _assign_slots(cfg: ModelConfig,
         ps = None
         if st.offloaded and linear[st.layer_id]:
             ps, slot = slot, slot + 1
-        out.append(LayerStep(st.layer_id, st.placement, st.integrity, ps))
+        out.append(LayerStep(st.layer_id, st.placement, st.integrity, ps,
+                             st.shard))
     return tuple(out)
 
 
 def make_plan(cfg: ModelConfig, placements: Sequence[str], *,
               integrity: Optional[Dict[int, IG.IntegrityPolicy]] = None,
+              shard: Optional[Dict[int, ShardPolicy]] = None,
               boundary: Optional[int] = None,
               label: str = "custom") -> PlacementPlan:
     """Build a plan from per-layer placement names. ``integrity``:
-    {layer_id: policy} per-step overrides. ``boundary`` defaults to the
-    start of the trailing open suffix."""
+    {layer_id: policy} and ``shard``: {layer_id: ShardPolicy} per-step
+    overrides. ``boundary`` defaults to the start of the trailing open
+    suffix."""
     n = num_blocks(cfg)
     placements = list(placements)
     assert len(placements) == n, (len(placements), n)
     integrity = integrity or {}
+    shard = shard or {}
     if boundary is None:
         boundary = n
         while boundary > 0 and placements[boundary - 1] == "open":
             boundary -= 1
-    steps = [LayerStep(i, p, integrity.get(i))
+    steps = [LayerStep(i, p, integrity.get(i), shard=shard.get(i))
              for i, p in enumerate(placements)]
     return PlacementPlan(cfg.name, cfg.family, _assign_slots(cfg, steps),
                          boundary, label)

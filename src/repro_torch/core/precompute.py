@@ -6,8 +6,10 @@ blinded op, the field weights, their absmax scale and their limb planes
 (computed once per model, ``from_records``), and generates per session
 the blinding stream ``r``, the factor ``u = (r @ W_q) mod p`` and, under
 an integrity policy, the fold vectors ``s`` and ``ws = (W_q @ s) mod p``
-(``session_factors``). ``prefetch`` computes a future session's set ahead
-of its request; ``take`` pops it, or computes it on the spot.
+(``session_factors``), and with an offload plane attached the per-shard
+fold vectors of its shard-local checks. ``prefetch`` computes a future
+session's set ahead of its request; ``take`` pops it, or computes it on
+the spot.
 
 Factor keys are ``stream_key(session_key, layer_index, step)``, the keys
 the live path draws, so cached and live results are bit-identical.
@@ -52,6 +54,9 @@ class BlindedLayerCache:
         self.layers = layers
         self.spec = spec
         self.integrity = integrity or IG.IntegrityPolicy.off()
+        # the offload plane's shard count (core/origami.py sets it): above 1
+        # each factor set also carries per-shard fold vectors
+        self.shards = 1
         self.factor_matmuls = 0          # r@W_q matmuls issued off-path
         self.fold_matmuls = 0            # W_q@s fold matmuls issued off-path
         self._ready: Dict[Tuple[bytes, int], List[Dict[str, Any]]] = {}
@@ -82,8 +87,9 @@ class BlindedLayerCache:
         return np.asarray(session_key, np.uint32).tobytes(), step
 
     def session_factors(self, session_key, step: int = 0) -> List[Dict]:
-        """(r, u) — and, under an integrity policy, (s, ws) — for every
-        cached layer, on the device that holds its weights."""
+        """(r, u) — under an integrity policy (s, ws), and with
+        ``shards`` > 1 the per-shard (s_j, ws_j) — for every cached layer,
+        on the device that holds its weights."""
         factors = []
         for i, lyr in enumerate(self.layers):
             dev = lyr.w_q.device
@@ -102,6 +108,17 @@ class BlindedLayerCache:
                                             pol.k, device=dev)
                 entry["ws"] = field_matmul(lyr.w_q, entry["s"])
                 self.fold_matmuls += 1
+            if self.shards > 1:
+                # shards are always checked: k falls back to 1 with the
+                # policy off
+                k = pol.k if pol.enabled else 1
+                folds = []
+                for j in range(self.shards):
+                    s_j = IG.shard_fold_stream(session_key, i, step, j,
+                                               lyr.d_out, k, device=dev)
+                    folds.append((s_j, field_matmul(lyr.w_q, s_j)))
+                    self.fold_matmuls += 1
+                entry["shard_folds"] = folds
             factors.append(entry)
         return factors
 

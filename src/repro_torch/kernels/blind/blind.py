@@ -1,10 +1,17 @@
-"""Wrapper of the ``blind_encode`` CUDA kernel (``csrc/blind_encode.cu``).
+"""Wrappers of the blinding kernels (``csrc/blind_encode.cu``,
+``csrc/blind.cu``).
 
-Port of ``repro/kernels/blind/blind.py:blind_encode_pallas``: scale,
-quantize, blind and limb-encode the activations in one pass, emitting the
-``(3, M, Kp)`` int8 planes the limb matmul reads. ``blind_encode`` launches
-the kernel for a CUDA tensor and takes ``blind_encode_plain`` for a CPU
-tensor; there is no fallback between the two.
+Ports of ``repro/kernels/blind/blind.py``:
+
+- ``blind_encode`` (``blind_encode_pallas``): scale, quantize, blind and
+  limb-encode the activations in one pass, emitting the ``(3, M, Kp)``
+  int8 planes the limb matmul reads (the fused data path);
+- ``blind`` (``blind_pallas``) and ``unblind`` (``unblind_pallas``): the
+  elementwise blind and unblind + dequantize passes of the unfused data
+  path, on tensors of any shape.
+
+Each launches its kernel for a CUDA tensor and takes the ``*_plain``
+version beside it for a CPU tensor; there is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -12,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as KB
-from repro_torch.kernels.blind.ref import blind_encode_ref
+from repro_torch.kernels.blind.ref import (blind_encode_ref, blind_ref,
+                                           unblind_ref)
 
 
 def blind_encode_plain(x: torch.Tensor, r: torch.Tensor,
@@ -43,5 +51,50 @@ def blind_encode(x: torch.Tensor, r: torch.Tensor, inv_scale: torch.Tensor,
         x.data_ptr(), r.data_ptr(), inv_scale.data_ptr(), out.data_ptr(),
         M, K, Kp, k_bits, KB.stream(x))
     KB.check(code, "blind_encode")
-    KB.LAUNCHES["blind_encode"] += 1
+    KB.count_launch("blind_encode")
+    return out
+
+
+def blind_plain(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of ``blind`` (the oracle)."""
+    return blind_ref(x, r, k_bits)
+
+
+def blind(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
+    """x: float32 (...); r: int32 field (...) in [0, p), same shape.
+    Returns the blinded int32 field ``(quantize(x, k) mod p + r) mod p``."""
+    if KB.on_cpu(x):
+        return blind_plain(x, r, k_bits)
+    KB.require(x, "x", torch.float32, x.device)
+    KB.require(r, "r", torch.int32, x.device)
+    if r.shape != x.shape:
+        raise ValueError(f"shapes x {tuple(x.shape)}, r {tuple(r.shape)}")
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    code = KB.lib().repro_blind(x.data_ptr(), r.data_ptr(), out.data_ptr(),
+                                x.numel(), k_bits, KB.stream(x))
+    KB.check(code, "blind")
+    KB.count_launch("blind")
+    return out
+
+
+def unblind_plain(y: torch.Tensor, u: torch.Tensor,
+                  k_out_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of ``unblind`` (the oracle), float32."""
+    return unblind_ref(y, u, k_out_bits, torch.float32)
+
+
+def unblind(y: torch.Tensor, u: torch.Tensor, k_out_bits: int) -> torch.Tensor:
+    """y, u: int32 field (...) in [0, p), same shape. Returns float32
+    ``signed((y - u + p) mod p) / 2^k_out``."""
+    if KB.on_cpu(y):
+        return unblind_plain(y, u, k_out_bits)
+    KB.require(y, "y", torch.int32, y.device)
+    KB.require(u, "u", torch.int32, y.device)
+    if u.shape != y.shape:
+        raise ValueError(f"shapes y {tuple(y.shape)}, u {tuple(u.shape)}")
+    out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    code = KB.lib().repro_unblind(y.data_ptr(), u.data_ptr(), out.data_ptr(),
+                                  y.numel(), k_out_bits, KB.stream(y))
+    KB.check(code, "unblind")
+    KB.count_launch("unblind")
     return out

@@ -9,8 +9,10 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero code. ``LAUNCHES``
-counts, per kernel, the launches its wrapper made: the wrappers add one
-right after a successful launch and nowhere else.
+counts, per kernel, the launches its wrapper made: the wrappers call
+``count_launch`` right after a successful launch and nowhere else. The
+offload plane launches from several worker threads at once, so the count
+is taken under a lock.
 """
 from __future__ import annotations
 
@@ -32,8 +34,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold")
+KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold",
+           "blind", "unblind")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_launch_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -46,6 +50,8 @@ _SIGNATURES = {
                                 ctypes.c_int, ctypes.c_int, _P),
     "repro_limb_fold": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P),
+    "repro_blind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
+    "repro_unblind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -54,8 +60,15 @@ build_seconds: Optional[float] = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` (thread-safe)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def nvcc_path() -> str:

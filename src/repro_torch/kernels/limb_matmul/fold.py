@@ -49,6 +49,6 @@ def limb_fold_planes(x_limbs: torch.Tensor,
             x_limbs.data_ptr(), s_t.data_ptr(), out.data_ptr(), M, Kp, cols,
             KB.stream(x_limbs))
         KB.check(code, "limb_fold")
-        KB.LAUNCHES["limb_fold"] += 1
+        KB.count_launch("limb_fold")
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -54,7 +54,7 @@ def limb_matmul_planes(x_limbs: torch.Tensor,
         x_limbs.data_ptr(), w_t.data_ptr(), out.data_ptr(), M, N, Kp,
         KB.stream(x_limbs))
     KB.check(code, "limb_matmul")
-    KB.LAUNCHES["limb_matmul"] += 1
+    KB.count_launch("limb_matmul")
     return out
 
 
@@ -91,5 +91,5 @@ def limb_matmul_planes_fused(x_limbs: torch.Tensor, w_limbs: torch.Tensor,
         x_limbs.data_ptr(), w_t.data_ptr(), u.data_ptr(), scale.data_ptr(),
         out.data_ptr(), M, N, Kp, KB.stream(x_limbs))
     KB.check(code, "limb_matmul_fused")
-    KB.LAUNCHES["limb_matmul_fused"] += 1
+    KB.count_launch("limb_matmul_fused")
     return out

@@ -5,6 +5,9 @@ client attests the enclave (core/attestation), seals its input under its
 session key (core/sealing); the enclave unseals, filters failed MACs,
 pads the batch to a power-of-two bucket, runs the OrigamiExecutor (tier-1
 blinded and Freivalds-verified, tier-2 open) and seals each result back.
+A batch whose check fails drains through the recovery ladder: one device
+retry under a fresh blinding session, then the enclave recomputes it;
+either way the response is bit-identical to an honest device's.
 
 Nonces: requests seal under the 64-bit rid split ``[lo, hi]``, responses
 under ``[lo, hi, DIRECTION_RESPONSE]``, so no (key, nonce) pair repeats
@@ -76,15 +79,70 @@ class Response:
 
 @dataclasses.dataclass
 class BatchIntegrity:
-    """Verification outcome of one sealed-batch dispatch."""
+    """Verification outcome of one sealed-batch dispatch (the requests of
+    a batch share one run, so detection and recovery are per batch)."""
     checks: int = 0              # Freivalds checks that ran (all attempts)
     failures: int = 0            # checks that mismatched
+    corrupted: int = 0           # injector ground truth
     retried: bool = False        # one fresh-session device retry happened
     recomputed: bool = False     # enclave recompute produced the response
+    trusted: bool = False        # dispatched straight to the enclave
+    # offload-plane counters (parallel/offload_sharding.py): shard failures
+    # are detected and recovered inside the op, so they never trigger the
+    # batch-level retry, but they still flag the response
+    shard_checks: int = 0        # shard-local Freivalds checks run
+    shard_failures: int = 0      # shard checks that mismatched
+    shard_retries: int = 0       # single-shard re-dispatches
+    shard_hedges: int = 0        # straggler duplicates launched
+    shard_enclave: int = 0       # shards the enclave computed itself
+    shard_crashes: int = 0       # dispatches that raised (contained)
+    shard_timeouts: int = 0      # dispatches abandoned past the deadline
 
     @property
     def flagged(self) -> bool:
-        return self.failures > 0
+        return self.failures > 0 or self.shard_failures > 0
+
+
+@dataclasses.dataclass
+class IntegrityTotals:
+    """Running sums over many dispatches (per-batch flags become counts)."""
+    checks: int = 0
+    failures: int = 0
+    corrupted: int = 0
+    retries: int = 0
+    recomputes: int = 0
+    trusted_batches: int = 0
+    shard_checks: int = 0
+    shard_failures: int = 0
+    shard_retries: int = 0
+    shard_hedges: int = 0
+    shard_enclave: int = 0
+    shard_crashes: int = 0
+    shard_timeouts: int = 0
+
+    def add(self, integ: BatchIntegrity) -> None:
+        self.checks += integ.checks
+        self.failures += integ.failures
+        self.corrupted += integ.corrupted
+        self.retries += integ.retried
+        self.recomputes += integ.recomputed
+        self.trusted_batches += integ.trusted
+        self.shard_checks += integ.shard_checks
+        self.shard_failures += integ.shard_failures
+        self.shard_retries += integ.shard_retries
+        self.shard_hedges += integ.shard_hedges
+        self.shard_enclave += integ.shard_enclave
+        self.shard_crashes += integ.shard_crashes
+        self.shard_timeouts += integ.shard_timeouts
+
+
+def _fresh_session(session_key, used: np.ndarray) -> np.ndarray:
+    """A never-used blinding session for a device retry: the next key of
+    a zero-argument callable, else a tagged derivation of the used key
+    (one-time pads must not repeat across attempts)."""
+    if callable(session_key):
+        return session_key()
+    return prng.fold_in(used, _RETRY_DOMAIN)
 
 
 def _trusted_key() -> np.ndarray:
@@ -138,31 +196,39 @@ def prepare_sealed_batch(requests: List[Request], *,
 
 
 def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
-                            *, session_key: np.ndarray
+                            *, session_key, trusted: bool = False,
+                            retry_device: bool = True
                             ) -> Tuple[List[Optional[SealedBox]], int, int,
                                        BatchIntegrity]:
     """Device stage: blinded infer -> verify -> recovery -> seal.
 
-    A failed Freivalds check discards the device's answer and grants one
-    re-offload under a fresh blinding session (a one-time pad is never
-    reused); if that fails too, the enclave recomputes the batch itself.
-    Every recovery path is bit-identical to an honest device's answer."""
+    ``session_key`` is a key or a zero-argument callable returning a fresh
+    one. A failed Freivalds check discards the device's answer;
+    ``retry_device`` grants one re-offload under a fresh blinding session
+    (a one-time pad is never reused), after which the enclave recomputes
+    the batch itself; ``trusted=True`` skips the device entirely. Every
+    recovery path is bit-identical to an honest device's answer."""
     requests, boxes, integ = prep.requests, prep.boxes, prep.integ
     batch = {"images": prep.x}
     t0 = time.perf_counter()
-    result = executor.infer(batch, session_key=session_key)
-    integ.checks = result.integrity.n_checked
-    integ.failures = result.integrity.n_failed
-    if not result.integrity.ok:
-        result = executor.infer(
-            batch, session_key=prng.fold_in(session_key, _RETRY_DOMAIN))
-        integ.retried = True
-        integ.checks += result.integrity.n_checked
-        integ.failures += result.integrity.n_failed
-    if not result.integrity.ok:
+    if trusted:
+        # the enclave run draws no pads, so it takes no session key
+        integ.trusted = True
         result = executor.infer(batch, session_key=_trusted_key(),
                                 trusted=True)
-        integ.recomputed = True
+    else:
+        sk = session_key() if callable(session_key) else session_key
+        result = executor.infer(batch, session_key=sk)
+        _absorb(integ, result)
+        if not result.integrity.ok and retry_device:
+            sk = _fresh_session(session_key, sk)
+            result = executor.infer(batch, session_key=sk)
+            integ.retried = True
+            _absorb(integ, result)
+        if not result.integrity.ok:
+            result = executor.infer(batch, session_key=_trusted_key(),
+                                    trusted=True)
+            integ.recomputed = True
     logits = result.logits.to(torch.float32).cpu()[:prep.n_valid]
     t1 = time.perf_counter()
     for row, i in enumerate(prep.valid_idx):
@@ -172,37 +238,59 @@ def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
     return boxes, prep.n_valid, prep.pad, integ
 
 
+def _absorb(integ: BatchIntegrity, result) -> None:
+    """Add one untrusted attempt's verification and shard counters."""
+    integ.checks += result.integrity.n_checked
+    integ.failures += result.integrity.n_failed
+    integ.corrupted += result.integrity.n_corrupted
+    sh = result.sharding
+    if sh is not None:
+        integ.shard_checks += sh.checks
+        integ.shard_failures += sh.failures
+        integ.shard_retries += sh.retries
+        integ.shard_hedges += sh.hedges
+        integ.shard_enclave += sh.enclave_shards
+        integ.shard_crashes += sh.crashes
+        integ.shard_timeouts += sh.timeouts
+
+
 def execute_sealed_batch(executor: OrigamiExecutor, requests: List[Request],
-                         *, max_batch: int, session_key: np.ndarray
+                         *, max_batch: int, session_key,
+                         trusted: bool = False, retry_device: bool = True
                          ) -> Tuple[List[Optional[SealedBox]], int, int,
                                     BatchIntegrity]:
     """unseal -> filter failed MACs -> bucket-pad -> verified blinded
     infer -> recover on failure -> seal. Returns ``(boxes, n_valid, pad,
     integrity)``; ``boxes[i] is None`` iff request i failed its MAC (it
-    never reached the executor)."""
+    never reached the executor). A callable ``session_key`` is called only
+    once a valid request will reach the executor."""
     prep = prepare_sealed_batch(requests, max_batch=max_batch)
     if prep.x is None:
         return prep.boxes, 0, 0, prep.integ
-    return complete_prepared_batch(executor, prep, session_key=session_key)
+    return complete_prepared_batch(executor, prep, session_key=session_key,
+                                   trusted=trusted,
+                                   retry_device=retry_device)
 
 
 class PrivateInferenceServer:
     """Batched Origami serving of a VGG model on one device."""
 
     def __init__(self, cfg: ModelConfig, params, *, mode: str = "origami",
-                 max_batch: int = 8, precompute: bool = True, integrity=None, plan=None,
-                 device="cuda"):
+                 max_batch: int = 8, impl: str = "fused",
+                 precompute: bool = True, integrity=None, fault=None,
+                 plan=None, device="cuda"):
         self.cfg = cfg
-        self.executor = OrigamiExecutor(cfg, params, mode=mode,
+        self.executor = OrigamiExecutor(cfg, params, mode=mode, impl=impl,
                                         precompute=precompute,
-                                        integrity=integrity, plan=plan,
-                                        device=device)
+                                        integrity=integrity, fault=fault,
+                                        plan=plan, device=device)
         self.quote = measure_enclave(cfg, self.executor.params,
                                      self.executor.partition,
                                      plan_digest=self.executor.plan.digest)
         self.max_batch = max_batch
         self.processed = 0
         self.batches = 0
+        self.integrity_totals = IntegrityTotals()  # running serve_batch sums
         self.last_phases: Dict[str, float] = {}   # stage seconds, last batch
         # server-side root of the per-batch blinding sessions: batch k runs
         # under fold_in(root, k). Fresh entropy per instance, so one-time
@@ -245,6 +333,7 @@ class PrivateInferenceServer:
             boxes, n_valid, _, integ = complete_prepared_batch(
                 self.executor, prep,
                 session_key=self._blind_session(self.batches))
+        self.integrity_totals.add(integ)
         self.last_phases = prep.phases
         if n_valid:
             self.batches += 1

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import build as KB
-from repro_torch.kernels.blind.blind import blind_encode, blind_encode_plain
+from repro_torch.kernels.blind.blind import (blind, blind_encode,
+                                             blind_encode_plain, blind_plain,
+                                             unblind, unblind_plain)
 from repro_torch.kernels.limb_matmul import ops
 from repro_torch.kernels.limb_matmul import ref
 from repro_torch.kernels.limb_matmul.fold import (limb_fold_planes,
@@ -148,3 +150,88 @@ def test_executor_on_card_matches_cpu(dev):
                                rtol=0, atol=1e-4 * np.abs(ref_logits).max())
     assert out["cuda"].integrity.n_checked == 2
     assert out["cuda"].integrity.n_failed == 0
+
+
+EDGE_FIELD = [0, 1, ref.P - 1, ref.HALF, ref.HALF + 1, ref.HALF - 1]
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (257, 27), (5, 7, 9),
+                                   (4096, 576), (1001, 64)])
+def test_blind_matches_plain(dev, shape):
+    """Random and edge inputs (half-way points, clip edges, field edges);
+    the vector path and, for odd sizes, the scalar tail."""
+    rng = np.random.default_rng(shape[0])
+    x = (rng.normal(size=shape) * 4.0).astype(np.float32)
+    s = 2.0 ** -8
+    edge = np.array([0.5 * s, 1.5 * s, 2.5 * s, -0.5 * s, -2.5 * s,
+                     (ref.HALF + 0.5) * s, -(ref.HALF + 0.5) * s, 1e30,
+                     -1e30, 0.0], np.float32)
+    x.reshape(-1)[:min(x.size, edge.size)] = edge[:min(x.size, edge.size)]
+    r = rng.integers(0, ref.P, size=shape, dtype=np.int32)
+    r.reshape(-1)[:min(r.size, 6)] = EDGE_FIELD[:min(r.size, 6)]
+    xt, rt = torch.from_numpy(x), torch.from_numpy(r)
+    before = KB.LAUNCHES["blind"]
+    got = blind(xt.to(dev), rt.to(dev), 8)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["blind"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  blind_plain(xt, rt, 8).numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), blind_plain(
+        xt.to(dev), rt.to(dev), 8).cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (257, 64), (5, 7, 9),
+                                   (4096, 128)])
+def test_unblind_matches_plain(dev, shape):
+    rng = np.random.default_rng(shape[0] + 1)
+    y = rng.integers(0, ref.P, size=shape, dtype=np.int32)
+    u = rng.integers(0, ref.P, size=shape, dtype=np.int32)
+    yy, uu = np.meshgrid(EDGE_FIELD, EDGE_FIELD)
+    n = min(y.size, yy.size)
+    y.reshape(-1)[:n] = yy.reshape(-1)[:n]
+    u.reshape(-1)[:n] = uu.reshape(-1)[:n]
+    yt, ut = torch.from_numpy(y), torch.from_numpy(u)
+    got = unblind(yt.to(dev), ut.to(dev), 15)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  unblind_plain(yt, ut, 15).numpy())
+
+
+def test_blind_unaligned_views_take_the_scalar_path(dev):
+    """Operands that start 4 bytes into an allocation are not 16-byte
+    aligned: the kernel takes its scalar loop and agrees all the same."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(1031,)).astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.integers(0, ref.P, (1031,),
+                                      dtype=np.int32)).to(dev)
+    got = blind(x[1:], r[1:], 8)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  blind_plain(x[1:], r[1:], 8).cpu().numpy())
+    y = unblind(got[1:], r[2:], 15)
+    np.testing.assert_array_equal(
+        y.cpu().numpy(), unblind_plain(got[1:], r[2:], 15).cpu().numpy())
+
+
+def test_unfused_blinded_dense_on_card_matches_cpu(dev):
+    """One unfused blinded op (blind, limb matmul, unblind, blinded-domain
+    Freivalds check) on the card is bit-equal to the same op on the CPU."""
+    from repro_torch.core import slalom as S
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.prng import PRNGKey
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(64, 72)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(72, 16)) / 8).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(16,)) * 0.1).astype(np.float32))
+    out, logs = {}, {}
+    for d in ("cpu", "cuda"):
+        ctx = S.SlalomContext(PRNGKey(3), impl="unfused",
+                              integrity=IntegrityPolicy.full(2))
+        before = dict(KB.LAUNCHES)
+        out[d] = S.blinded_dense(ctx, {"w": w.to(d), "b": b.to(d)}, x.to(d))
+        logs[d] = [tuple(bool(v) for v in e) for e in ctx.integrity_log]
+        if d == "cuda":
+            torch.cuda.synchronize()
+            for name in ("blind", "unblind", "limb_matmul", "limb_fold"):
+                assert KB.LAUNCHES[name] > before[name], name
+    np.testing.assert_array_equal(out["cuda"].cpu().numpy(),
+                                  out["cpu"].numpy())
+    assert logs["cuda"] == logs["cpu"] == [(True, False, False)]

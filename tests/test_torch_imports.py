@@ -40,10 +40,14 @@ def test_port_files_exist():
                    "core/sealing.py", "core/attestation.py",
                    "core/integrity.py", "models/layers.py", "models/vgg.py",
                    "core/slalom.py", "core/precompute.py", "core/plan.py",
-                   "core/origami.py", "runtime/serving.py"):
+                   "core/origami.py", "runtime/serving.py",
+                   "runtime/faults.py",
+                   "runtime/straggler.py", "runtime/devices.py",
+                   "parallel/offload_sharding.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu"):
+    for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
+                "blind.cu"):
         assert (csrc / src).is_file(), src
 
 

@@ -89,3 +89,23 @@ def test_mul32_wraps_like_uint32(rng):
     got = prng.mul32(torch.from_numpy(a.astype(np.int64)),
                      torch.from_numpy(b.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 23), (0, 2), (1, 2), (1, 7),
+                                   (0, 64), (1, 64), (0, 200_704),
+                                   (1, 200_704), (0, 2 ** 16 + 3)])
+def test_scalar_draws_of_the_fault_injector(lo, hi):
+    """The fault injector's draws: scalar ``()`` shapes over small spans
+    and row counts, from keys split three ways."""
+    for jk, tk in _keys():
+        jsub = jax.random.split(jax.random.fold_in(jk, 1), 3)
+        tsub = prng.split(prng.fold_in(tk, 1), 3)
+        for a, b in zip(tsub, jsub):
+            np.testing.assert_array_equal(a, np.asarray(b))
+            got = prng.randint(a, (), lo, hi)
+            assert got.dtype == torch.int32 and got.shape == ()
+            assert int(got) == int(jax.random.randint(b, (), lo, hi,
+                                                      dtype=jnp.int32))
+            bits = prng.bits(a, ())
+            assert bits.shape == ()
+            assert int(bits) == int(jax.random.bits(b, (), jnp.uint32))
