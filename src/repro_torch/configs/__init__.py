@@ -1,4 +1,4 @@
-"""Config registry of the port: the paper's two CNNs.
+"""Config registry of the port: the paper's two CNNs and the dense LM.
 
 ``get_config(name)`` returns the published configuration;
 ``get_smoke(name)`` a reduced same-family one for CPU tests.
@@ -10,14 +10,16 @@ import importlib
 from repro_torch.configs.base import ModelConfig, OrigamiConfig
 
 PAPER_MODELS = ("vgg16", "vgg19")
-ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19"}
+ARCHS = ("smollm_135m",)
+ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19",
+           "smollm-135m": "smollm_135m"}
 
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name not in PAPER_MODELS:
+    if name not in PAPER_MODELS + ARCHS:
         raise KeyError(f"unknown model {name!r}; the port carries "
-                       f"{PAPER_MODELS}")
+                       f"{PAPER_MODELS + ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -29,5 +31,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["PAPER_MODELS", "ModelConfig", "OrigamiConfig", "get_config",
-           "get_smoke"]
+__all__ = ["ARCHS", "PAPER_MODELS", "ModelConfig", "OrigamiConfig",
+           "get_config", "get_smoke"]

@@ -4,8 +4,10 @@ same order and with the same defaults, so ``to_json()`` — which the
 enclave measurement hashes — is identical for the same model.
 
 The mixture-of-experts, latent-attention and state-space sub-configs
-belong to the language-model families, which this port does not carry
-yet; their fields stay (as ``None``) to keep the JSON identical.
+belong to language-model families this port does not carry yet; their
+fields stay (as ``None``) to keep the JSON identical. The properties
+(``resolved_head_dim``, ``padded_vocab``) are not fields, so they do not
+enter the JSON.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ class OrigamiConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # this port runs "cnn"
+    family: str                    # this port runs "cnn" and "dense"
     num_layers: int
     d_model: int
     num_heads: int
@@ -61,6 +63,14 @@ class ModelConfig:
     origami: OrigamiConfig = field(default_factory=OrigamiConfig)
     remat: str = "block"
     scan_layers: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        return -(-self.vocab_size // self.vocab_pad_to) * self.vocab_pad_to
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), default=str, indent=1)

@@ -1,22 +1,33 @@
 """Origami executor: plan-driven trust-partitioned inference (the paper).
 
-Port of ``repro/core/origami.py`` for CNN plans on one device. The executor
-walks a ``PlacementPlan`` (core/plan.py) segment by segment: plain
-segments run the float layers, blinded and verified segments route every
-conv and dense layer through the Slalom protocol (core/slalom.py) by
-installing it as the layer hook. The legacy mode strings
+Port of ``repro/core/origami.py`` for CNN plans and dense-LM decode on one
+device. The executor walks a ``PlacementPlan`` (core/plan.py) segment by
+segment: plain segments run the float layers, blinded and verified
+segments route every linear op through the Slalom protocol
+(core/slalom.py) by installing it as the layer hook. The legacy mode
+strings
 
     "open" | "enclave" | "split" | "slalom" | "origami"
 
 compile to plans (``plan.compile_mode``). The port runs eagerly on
 ``device`` (``"cuda"`` by default; the CPU tests pass ``"cpu"``); there
-is no jit and no ahead-of-time compile. On the card the field ops launch
-the port's CUDA kernels; on the CPU they take the kernels' plain versions.
+is no jit and no ahead-of-time compile (ROADMAP Queue 1 item 8). On the
+card the field ops and the prefill attention launch the port's CUDA
+kernels; on the CPU they take the kernels' plain versions.
+
+For the dense LM the executor runs private autoregressive decode
+(runtime/generate.py): ``attach_decode_plan`` adopts a DecodePlan,
+``prefill_session`` walks the prompt through the base plan's segments
+(every tier-1 op blinded with its own key, ``step`` 0) and
+``decode_once`` walks one token through the scan segments (``step`` = the
+token's position), its factors from a TokenSlotRing slot or derived live.
+The LM forward ``infer`` is not ported.
 
 ``impl`` picks the fused or unfused Slalom data path, ``fault`` injects a
 dishonest device under every untrusted run, and ``devices`` (a
 runtime/devices.DevicePool) attaches a multi-device offload plane
-(parallel/offload_sharding.py) that shards every blinded matmul.
+(parallel/offload_sharding.py) that shards every blinded matmul of a CNN
+plan.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from repro_torch.core import slalom as SL
 from repro_torch.core.blinding import BlindingSpec
 from repro_torch.core.precompute import BlindedLayerCache
 from repro_torch.models import layers as L
+from repro_torch.models import model as M
 from repro_torch.models import vgg as V
 
 MODES = PL.LEGACY_MODES
@@ -63,10 +75,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def tokens_on(tokens, device: torch.device) -> torch.Tensor:
+    """Token ids (a tensor or array-like) as a long tensor on ``device``."""
+    t = (tokens if isinstance(tokens, torch.Tensor)
+         else torch.from_numpy(np.asarray(tokens, np.int64)))
+    return t.to(device, torch.long)
+
+
 def params_to_device(params, device: torch.device):
-    return {layer: {name: torch.as_tensor(v).to(device)
-                    for name, v in leaves.items()}
-            for layer, leaves in params.items()}
+    """A nested parameter dict on ``device`` (tensors already there are
+    kept, not copied)."""
+    if isinstance(params, dict):
+        return {k: params_to_device(v, device) for k, v in params.items()}
+    return torch.as_tensor(params).to(device)
 
 
 class OrigamiExecutor:
@@ -110,6 +131,10 @@ class OrigamiExecutor:
         self.plane = None
         self._plane_live = False
         if devices is not None:
+            if PL.linear_layers(cfg) is None:
+                raise NotImplementedError(
+                    f"the offload plane (devices=) for the {cfg.family!r} "
+                    f"family is not ported (ROADMAP Queue 1 item 11)")
             from repro_torch.parallel.offload_sharding import OffloadPlane
             self.plane = OffloadPlane(devices, mode=shard, hedging=hedging,
                                       liveness=liveness)
@@ -122,6 +147,10 @@ class OrigamiExecutor:
         self._tele_last = SL.Telemetry()
         self._tele_blinded = SL.Telemetry()
         self._tele_trusted = SL.Telemetry()
+        # decode plane (attach_decode_plan): scan segments + token-slot
+        # factor caches, one per batch size
+        self.dplan: Optional[PL.DecodePlan] = None
+        self._decode_caches: Dict[int, BlindedLayerCache] = {}
 
     # -- telemetry snapshots -------------------------------------------------
     @property
@@ -183,6 +212,184 @@ class OrigamiExecutor:
                 boundary = x
         return prog.epilogue(params, x, batch, memory), boundary
 
+    # -- decode plans: scan segments + token slots ---------------------------
+    def attach_decode_plan(self, dplan: Optional[PL.DecodePlan] = None, *,
+                           max_steps: int = 256) -> PL.DecodePlan:
+        """Adopt a DecodePlan (``plan.make_decode_plan``). When ``dplan`` is
+        omitted one is compiled from this executor's plan, with the
+        executor's Freivalds policy as the per-step policy of every
+        offloaded scan segment. Raises plan.ScanExclusion outside
+        plan.DECODE_FAMILIES."""
+        if dplan is None:
+            dplan = PL.make_decode_plan(
+                self.cfg, self.plan, max_steps=max_steps,
+                integrity=(self.integrity if self.integrity.enabled
+                           else None))
+        assert dplan.base.digest == self.plan.digest, \
+            "decode plan extends a different base plan"
+        self.dplan = dplan
+        return dplan
+
+    def decode_cache(self, batch_size: int) -> Optional[BlindedLayerCache]:
+        """Quantize-once weight material and the per-(session, token, op)
+        factor store of the decode walk, one per batch size. A
+        TokenSlotRing (runtime/sessions.py) streams
+        ``session_factors(key, step=token)`` out of it. None when the
+        decode plan offloads nothing."""
+        assert self.dplan is not None, "attach_decode_plan first"
+        if not self.dplan.has_offload:
+            return None
+        cache = self._decode_caches.get(batch_size)
+        if cache is None:
+            with torch.no_grad():
+                cache = BlindedLayerCache.from_records(
+                    self._decode_records(batch_size), self.spec,
+                    integrity=self.integrity)
+            # copy-on-write rebind: read by a ring's refill thread
+            self._decode_caches = {**self._decode_caches, batch_size: cache}
+        return cache
+
+    def _decode_records(self, batch_size: int):
+        """Per-op descriptors of the decode walk, in call order: one token
+        step run with a recording dense hook. Only offloaded segments
+        record; plain segments touch no factor material."""
+        cfg, params = self.cfg, self.params
+        records = []
+
+        def capture(p, xx):
+            w = p["w"]
+            t = 1
+            for s_ in xx.shape[:-1]:
+                t *= s_
+            records.append({"kind": "dense", "w": w, "t": int(t),
+                            "d_in": int(w.shape[0]),
+                            "d_out": int(w.shape[1])})
+            y = xx @ w.to(xx.dtype)
+            if "b" in p:
+                y = y + p["b"].to(xx.dtype)
+            return y
+
+        caches = M.init_caches(cfg, batch_size, 8, device=self.device)
+        token = torch.zeros((batch_size, 1), dtype=torch.long,
+                            device=self.device)
+        x = M.embed_tokens_at(params, token, 0, cfg)
+        for seg in self.dplan.scan:
+            if seg.regime == "plain":
+                x, caches = M.decode_range(params, x, caches, 0, cfg,
+                                           seg.lo, seg.hi)
+                continue
+            pol = seg.policy if seg.policy is not None else self.integrity
+            start = len(records)
+            with L.dense_impl(capture):
+                x, caches = M.decode_range_unrolled(params, x, caches, 0, cfg,
+                                                    seg.lo, seg.hi)
+            for rec in records[start:]:
+                rec["unblinded"] = seg.regime == "verified"
+                rec["policy"] = pol
+        return records
+
+    def _context(self, session_key, tele, step: int, factors=None,
+                 trusted: bool = False) -> SL.SlalomContext:
+        return SL.SlalomContext(
+            session_key, self.spec, telemetry=tele, step=step,
+            impl=self.impl, factors=factors,
+            fault=None if trusted else self.fault, trusted=trusted)
+
+    def _offloaded(self, ctx, seg):
+        """Scope ``seg``'s policy and regime and install the Slalom hook."""
+        stack = ExitStack()
+        policy = seg.policy if seg.policy is not None else self.integrity
+        stack.enter_context(ctx.segment_overrides(
+            policy, unblinded=(seg.regime == "verified"), shard=seg.shard))
+        stack.enter_context(L.dense_impl(
+            functools.partial(SL.blinded_dense, ctx)))
+        return stack
+
+    def _traced_decode(self, token, caches, pos: int, session_key,
+                       factors=None, trusted: bool = False):
+        """One token step under the decode plan's scan segments; ``step``
+        is the token's position, so the ring's cached factors for
+        ``step == pos`` equal this step's live derivation."""
+        tele = SL.Telemetry()
+        ctx = self._context(session_key, tele, int(pos), factors, trusted)
+        params, cfg = self.params, self.cfg
+        x = M.embed_tokens_at(params, token, pos, cfg)
+        for seg in self.dplan.scan:
+            if seg.regime == "plain":
+                x, caches = M.decode_range(params, x, caches, pos, cfg,
+                                           seg.lo, seg.hi)
+                continue
+            with self._offloaded(ctx, seg):
+                x, caches = M.decode_range_unrolled(params, x, caches, pos,
+                                                    cfg, seg.lo, seg.hi)
+        logits = M.head(params, x, cfg)
+        self._keep_telemetry(tele, trusted)
+        return logits, caches, self._fold_log(ctx)
+
+    def _traced_prefill(self, tokens, session_key, trusted: bool = False,
+                        *, max_seq: int):
+        """The prompt through the base plan's segments ->
+        (last-position logits, decode caches, integrity log). Every prompt
+        op of an offloaded segment draws its own key and fold at
+        ``step`` 0; decode steps use their position (>= the prompt length
+        >= 1), so the two key domains never meet."""
+        tele = SL.Telemetry()
+        ctx = self._context(session_key, tele, 0, None, trusted)
+        params, cfg = self.params, self.cfg
+        x = M.embed_tokens(params, tokens, cfg)
+        parts = []
+        for seg in self.plan.segments:
+            if seg.regime == "plain":
+                x, c = M.prefill_range(params, x, cfg, seg.lo, seg.hi)
+            else:
+                with self._offloaded(ctx, seg):
+                    x, c = M.prefill_range_unrolled(params, x, cfg, seg.lo,
+                                                    seg.hi)
+            parts.append(c)
+        caches = M.concat_layer_caches(parts, max_seq)
+        logits = M.head(params, x[:, -1:], cfg)
+        self._keep_telemetry(tele, trusted)
+        return logits, caches, self._fold_log(ctx)
+
+    def _keep_telemetry(self, tele: SL.Telemetry, trusted: bool) -> None:
+        if trusted:
+            self._tele_trusted = tele
+        else:
+            self._tele_blinded = tele
+        self._tele_last = tele
+
+    def _fold_log(self, ctx):
+        if ctx.integrity_log:
+            return tuple(torch.stack([e[i] for e in ctx.integrity_log])
+                         for i in range(3))
+        z = torch.zeros((0,), dtype=torch.bool, device=self.device)
+        return (z, z, z)
+
+    def prefill_session(self, tokens, session_key, *, max_seq: int,
+                        trusted: bool = False):
+        """The prompt pass: (logits at the last position (B, 1, V), decode
+        caches padded to ``max_seq``, IntegrityReport of the prompt's
+        offloaded ops)."""
+        assert self.dplan is not None, "attach_decode_plan first"
+        with torch.no_grad():
+            logits, caches, rep = self._traced_prefill(
+                tokens_on(tokens, self.device), session_key, trusted,
+                max_seq=int(max_seq))
+        return logits, caches, IG.IntegrityReport(*rep)
+
+    def decode_once(self, token, caches, pos: int, session_key, factors=None,
+                    *, trusted: bool = False):
+        """One token step: (logits (B, 1, V), the caches with this token's
+        K/V written in place, IntegrityReport of this token's offloaded
+        ops). ``factors`` is a TokenSlotRing slot (``take(pos)``) or None
+        for the live and trusted derivations."""
+        assert self.dplan is not None, "attach_decode_plan first"
+        with torch.no_grad():
+            logits, caches, rep = self._traced_decode(
+                tokens_on(token, self.device), caches, int(pos), session_key,
+                factors, trusted)
+        return logits, caches, IG.IntegrityReport(*rep)
+
     # -- precompute pipeline -------------------------------------------------
     def _batch_key(self, batch):
         shapes = tuple(sorted((k, tuple(v.shape)) for k, v in batch.items()))
@@ -243,6 +450,10 @@ class OrigamiExecutor:
         blinding session ``session_key`` (a (2,) uint32 key; PRNGKey(0)
         when omitted). ``trusted=True`` runs the enclave-recompute path:
         no device, no blinding, no verification, bit-identical logits."""
+        if self.cfg.family != "cnn":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the LM forward infer is not ported; LMs "
+                f"run private_generate (ROADMAP Queue 1 item 11)")
         batch = self._on_device(batch)
         key = session_key if session_key is not None else prng.PRNGKey(0)
         shard_report = None
@@ -266,5 +477,9 @@ class OrigamiExecutor:
     def reference(self, batch) -> torch.Tensor:
         """Plain float forward — the correctness oracle for all plans."""
         with torch.no_grad():
+            if self.cfg.family != "cnn":
+                tokens = tokens_on(batch["tokens"], self.device)
+                return M.forward(self.params, {"tokens": tokens},
+                                 self.cfg).logits
             return V.vgg_forward(self.params, self._on_device(batch)["images"],
                                  self.cfg)

@@ -1,13 +1,21 @@
 """PlacementPlan IR: per-layer placement compiled once, interpreted once.
 
-Port of the CNN part of ``repro/core/plan.py`` (a copy: the port imports
-nothing of the reference). Each layer is ``open`` (plain on the untrusted
-device), ``enclave`` or ``blinded`` (Slalom offload); an open layer with an
-enabled integrity policy is a verified-open offload. ``segments`` are the
-maximal runs of one execution regime (``plain`` | ``blinded`` |
-``verified``), split at the revealed ``boundary``. ``digest`` hashes the
-plan exactly as the reference does, so the same plan has the same digest
-(and attestation quote) in both packages.
+Port of the CNN and dense-LM parts of ``repro/core/plan.py`` (a copy: the
+port imports nothing of the reference). Each layer is ``open`` (plain on
+the untrusted device), ``enclave`` or ``blinded`` (Slalom offload); an open
+layer with an enabled integrity policy is a verified-open offload.
+``segments`` are the maximal runs of one execution regime (``plain`` |
+``blinded`` | ``verified``), split at the revealed ``boundary``. ``digest``
+hashes the plan exactly as the reference does, so the same plan has the
+same digest (and attestation quote) in both packages.
+
+Decode plans (``make_decode_plan``) apply a plan token-wise: ``ScanSegment``
+walks blocks [lo, hi) once per token under one regime, binding each
+offloaded op to a per-(session, token, layer) slot of a streaming
+TokenSlotRing (runtime/sessions.py). ``DecodePlan.digest`` extends the base
+plan's digest exactly as the reference does. Families without a per-op
+addressable decode walk raise ``ScanExclusion`` with the reference's
+reason.
 """
 from __future__ import annotations
 
@@ -25,9 +33,34 @@ LEGACY_MODES = ("open", "enclave", "split", "slalom", "origami")
 SHARD_MODES = ("rows", "shares")
 
 
+# families whose decode walk is per-op addressable (every block a uniform
+# stack of static-weight linear ops); the rest raise ScanExclusion
+DECODE_FAMILIES = ("dense",)
+
+_DECODE_EXCLUSIONS = {
+    "cnn": "feed-forward family: no autoregressive decode loop exists",
+    "moe": "expert weights are data-dependent gathers (top-k routing), so "
+           "per-op unblinding factors u = r @ W cannot be precomputed — "
+           "run MoE decode enclave-resident or blinded-unverified",
+    "hybrid": "decode walks grouped mamba super-blocks under lax.scan; the "
+              "recurrent state update is not a static-weight linear map",
+    "ssm": "decode walks grouped m/sLSTM super-blocks under lax.scan; the "
+           "recurrent state update is not a static-weight linear map",
+    "audio": "decoder blocks carry cross-attention against the encoder "
+             "memory and decode under lax.scan (grouped super-blocks)",
+    "vlm": "decoder blocks carry cross-attention against the vision "
+           "memory and decode under lax.scan (grouped super-blocks)",
+}
+
+
+class ScanExclusion(ValueError):
+    """A placement or decode feature is structurally unavailable for this
+    family; the message names the reason."""
+
+
 def num_blocks(cfg: ModelConfig) -> int:
-    assert cfg.family == "cnn", f"the port runs the cnn family, not {cfg.family}"
-    return len(cfg.cnn_layers)
+    """Plan length: CNN layer specs or transformer blocks."""
+    return len(cfg.cnn_layers) if cfg.family == "cnn" else cfg.num_layers
 
 
 @dataclass(frozen=True)
@@ -157,8 +190,15 @@ class PlacementPlan:
         return tuple(sorted(ops, key=lambda s: s.precompute_slot))
 
 
-def linear_layers(cfg: ModelConfig) -> Tuple[bool, ...]:
-    """Per-layer "carries a linear op" mask (conv, fc, logits)."""
+def linear_layers(cfg: ModelConfig) -> Optional[Tuple[bool, ...]]:
+    """Per-layer "carries an individually addressable linear op" mask
+    (conv, fc, logits). ``None`` for the LM families, whose forward trace
+    in the reference runs blocks under ``lax.scan``: their ops are neither
+    cached by slot nor verified per op there, and the port keeps the same
+    plans (and digests). Token-wise verification of LM ops lives in decode
+    plans (``make_decode_plan``)."""
+    if cfg.family != "cnn":
+        return None
     from repro_torch.models import vgg as V
     return tuple(V.layer_kind(cfg, i)[0] in ("conv", "fc", "logits")
                  for i in range(num_blocks(cfg)))
@@ -170,7 +210,7 @@ def _assign_slots(cfg: ModelConfig,
     out, slot = [], 0
     for st in steps:
         ps = None
-        if st.offloaded and linear[st.layer_id]:
+        if linear is not None and st.offloaded and linear[st.layer_id]:
             ps, slot = slot, slot + 1
         out.append(LayerStep(st.layer_id, st.placement, st.integrity, ps,
                              st.shard))
@@ -191,6 +231,16 @@ def make_plan(cfg: ModelConfig, placements: Sequence[str], *,
     assert len(placements) == n, (len(placements), n)
     integrity = integrity or {}
     shard = shard or {}
+    if linear_layers(cfg) is None and any(
+            p is not None and p.enabled for p in integrity.values()):
+        # an enabled per-step policy could not bind per op in the LM
+        # forward trace; on an open step the op would run unblinded and
+        # unchecked while the digest advertised verified offload
+        raise ScanExclusion(
+            f"{cfg.name} ({cfg.family}): per-step integrity policies need "
+            "per-op verification, which the forward trace of this family "
+            "does not have; use 'blinded' placements with an executor-wide "
+            "policy, or a decode plan (make_decode_plan)")
     if boundary is None:
         boundary = n
         while boundary > 0 and placements[boundary - 1] == "open":
@@ -240,6 +290,95 @@ class PlanProgram:
 
 
 def program_for(cfg: ModelConfig) -> PlanProgram:
-    from repro_torch.models import vgg as V
-    pro, seg, epi = V.layer_program(cfg)
-    return PlanProgram(num_blocks(cfg), True, pro, seg, epi)
+    if cfg.family == "cnn":
+        from repro_torch.models import vgg as V
+        pro, seg, epi = V.layer_program(cfg)
+        return PlanProgram(num_blocks(cfg), True, pro, seg, epi)
+    from repro_torch.models import model as M
+    pro, seg, epi = M.layer_program(cfg)
+    return PlanProgram(cfg.num_layers, False, pro, seg, epi)
+
+
+@dataclass(frozen=True)
+class ScanSegment:
+    """The per-token walk of blocks [lo, hi) under one regime, for decode
+    steps [steps[0], steps[1]). ``policy`` is per step: each token
+    re-derives its fold vectors and check decisions from (session, op,
+    token). ``slot_binding``: "token" (blinded and verified segments take
+    the per-(session, token, layer) slot of a TokenSlotRing) or "none"
+    (plain segments touch no factor material)."""
+    lo: int
+    hi: int
+    regime: str
+    steps: Tuple[int, int]
+    policy: Optional[IG.IntegrityPolicy] = None
+    shard: Optional[ShardPolicy] = None
+    slot_binding: str = "token"
+
+    def __post_init__(self):
+        assert self.regime in ("plain", "blinded", "verified"), self.regime
+        assert self.slot_binding in ("token", "none"), self.slot_binding
+        assert 0 <= self.steps[0] <= self.steps[1], self.steps
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """A PlacementPlan applied token-wise: the decode loop walks ``scan``
+    once per token. ``digest`` extends the base plan's with the scan
+    structure and the step range, so a decode plan is attested distinctly
+    from its base plan."""
+    base: PlacementPlan
+    scan: Tuple[ScanSegment, ...]
+    max_steps: int
+
+    @cached_property
+    def digest(self) -> str:
+        body = {
+            "base": self.base.digest,
+            "max_steps": self.max_steps,
+            "scan": [(s.lo, s.hi, s.regime, list(s.steps),
+                      _policy_key(s.policy), _shard_key(s.shard),
+                      s.slot_binding) for s in self.scan],
+        }
+        return hashlib.sha256(
+            json.dumps(body, sort_keys=True).encode()).hexdigest()
+
+    @property
+    def has_offload(self) -> bool:
+        return any(s.regime != "plain" for s in self.scan)
+
+    @property
+    def has_verification(self) -> bool:
+        return any(s.regime != "plain" and s.policy is not None
+                   and s.policy.enabled for s in self.scan)
+
+    def summary(self) -> str:
+        segs = " ".join(f"[{s.lo},{s.hi}){s.regime[0]}" for s in self.scan)
+        return (f"{self.base.model}[decode] {segs} steps={self.max_steps} "
+                f"plan={self.digest[:12]}")
+
+
+def make_decode_plan(cfg: ModelConfig, plan: Optional[PlacementPlan] = None,
+                     *, max_steps: int, partition: Optional[int] = None,
+                     integrity: Optional[IG.IntegrityPolicy] = None
+                     ) -> DecodePlan:
+    """The base plan's segments applied token-wise. ``plan`` defaults to
+    ``compile_mode(cfg, "origami", partition)``; ``integrity`` becomes the
+    per-step policy of every offloaded segment without its own. Raises
+    ScanExclusion outside DECODE_FAMILIES."""
+    if cfg.family not in DECODE_FAMILIES:
+        reason = _DECODE_EXCLUSIONS.get(cfg.family, "no decode walk")
+        raise ScanExclusion(f"{cfg.name} ({cfg.family}): private decode "
+                            f"unavailable — {reason}")
+    assert max_steps >= 1, max_steps
+    if plan is None:
+        plan = compile_mode(cfg, "origami", partition)
+    scan = []
+    for seg in plan.segments:
+        policy = seg.policy
+        if policy is None and seg.regime != "plain":
+            policy = integrity
+        scan.append(ScanSegment(
+            seg.lo, seg.hi, seg.regime, (0, max_steps), policy, seg.shard,
+            slot_binding="none" if seg.regime == "plain" else "token"))
+    return DecodePlan(plan, tuple(scan), max_steps)

@@ -12,10 +12,15 @@ session's set ahead of its request; ``take`` pops it, or computes it on
 the spot.
 
 Factor keys are ``stream_key(session_key, layer_index, step)``, the keys
-the live path draws, so cached and live results are bit-identical.
+the live path draws, so cached and live results are bit-identical. For
+the decode walk ``step`` is the token index: a TokenSlotRing
+(runtime/sessions.py) prefetches ``session_factors(key, step=token)`` from
+its refill thread while the consumer takes them, so the buffer is guarded
+by a lock.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -60,6 +65,8 @@ class BlindedLayerCache:
         self.factor_matmuls = 0          # r@W_q matmuls issued off-path
         self.fold_matmuls = 0            # W_q@s fold matmuls issued off-path
         self._ready: Dict[Tuple[bytes, int], List[Dict[str, Any]]] = {}
+        self._max_prefetched = self.MAX_PREFETCHED
+        self._lock = threading.Lock()
 
     @classmethod
     def from_records(cls, records: List[Dict[str, Any]], spec: B.BlindingSpec,
@@ -99,7 +106,8 @@ class BlindedLayerCache:
                 key = B.stream_key(session_key, i, step)
                 r = B.blinding_stream(key, (lyr.t, lyr.d_in), device=dev)
                 u = field_matmul(r, lyr.w_q)
-                self.factor_matmuls += 1
+                with self._lock:     # a ring's refill thread counts too
+                    self.factor_matmuls += 1
             entry = {"r": r, "u": u, "w_q": lyr.w_q,
                      "w_limbs": lyr.w_limbs, "w_scale": lyr.w_scale}
             pol = lyr.policy if lyr.policy is not None else self.integrity
@@ -107,7 +115,8 @@ class BlindedLayerCache:
                 entry["s"] = IG.fold_stream(session_key, i, step, lyr.d_out,
                                             pol.k, device=dev)
                 entry["ws"] = field_matmul(lyr.w_q, entry["s"])
-                self.fold_matmuls += 1
+                with self._lock:
+                    self.fold_matmuls += 1
             if self.shards > 1:
                 # shards are always checked: k falls back to 1 with the
                 # policy off
@@ -117,26 +126,41 @@ class BlindedLayerCache:
                     s_j = IG.shard_fold_stream(session_key, i, step, j,
                                                lyr.d_out, k, device=dev)
                     folds.append((s_j, field_matmul(lyr.w_q, s_j)))
-                    self.fold_matmuls += 1
+                    with self._lock:
+                        self.fold_matmuls += 1
                 entry["shard_folds"] = folds
             factors.append(entry)
         return factors
 
+    @property
+    def max_prefetched(self) -> int:
+        """Buffered factor sets before the oldest is evicted (a
+        TokenSlotRing raises it to its depth)."""
+        return self._max_prefetched
+
+    @max_prefetched.setter
+    def max_prefetched(self, n: int) -> None:
+        self._max_prefetched = max(1, int(n))
+
     def prefetch(self, session_key, step: int = 0) -> None:
         """Compute a future session's factors now (evicting the oldest
-        buffered set beyond ``MAX_PREFETCHED``)."""
+        buffered set beyond ``max_prefetched``)."""
         k = self._skey(session_key, step)
-        if k in self._ready:
-            return
+        with self._lock:
+            if k in self._ready:
+                return
         factors = self.session_factors(session_key, step)
-        while len(self._ready) >= self.MAX_PREFETCHED:
-            self._ready.pop(next(iter(self._ready)))
-        self._ready[k] = factors
+        with self._lock:
+            while len(self._ready) >= self._max_prefetched:
+                self._ready.pop(next(iter(self._ready)))
+            self._ready.setdefault(k, factors)
 
     def prefetched(self, session_key, step: int = 0) -> bool:
-        return self._skey(session_key, step) in self._ready
+        with self._lock:
+            return self._skey(session_key, step) in self._ready
 
     def take(self, session_key, step: int = 0) -> List[Dict]:
         """Pop prefetched factors for this session, or compute them now."""
-        hit = self._ready.pop(self._skey(session_key, step), None)
+        with self._lock:
+            hit = self._ready.pop(self._skey(session_key, step), None)
         return hit or self.session_factors(session_key, step)

@@ -26,6 +26,17 @@ runs the field matmul inside the enclave instead (the recovery path,
 bit-identical output) and ``ctx.plane`` shards the device matmul across an
 offload plane's device pool (parallel/offload_sharding.py).
 
+The LM path calls ``blinded_dense`` on (B, S, d) bf16 activations: the
+op runs on the float32 rows (B*S, d) and its result is cast back to the
+activations' dtype, as in the reference. A decode op's ``step`` is its
+token position (a prompt op's is 0), so every (session, token, op) draws
+its own pad, fold vectors and check decision. The reference also takes a
+``scanned`` verdict (and ``SlalomContext.per_op``) to skip verification
+of ops traced once under ``lax.scan`` for many layers; the port runs
+eagerly, every call is exactly one op, and the switch has no counterpart:
+ops are numbered by ``_layer_counter`` in call order, the numbering the
+reference's per-op decode and prefill traces use.
+
 The float op order is the reference's, which is what keeps the fused,
 unfused, trusted and cross-framework results bit-equal: the fused path
 scales the activations by a reciprocal, the unfused path divides, and the

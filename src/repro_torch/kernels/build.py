@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold",
-           "blind", "unblind")
+           "blind", "unblind", "flash_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
 
@@ -52,6 +52,11 @@ _SIGNATURES = {
                         ctypes.c_int, _P),
     "repro_blind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     "repro_unblind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
+    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, causal, the (b, s, h)
+    # element strides of q, k and v, the score scale, the stream
+    "repro_flash_attention": (_P, _P, _P, _P) + (ctypes.c_int,) * 8
+                             + (ctypes.c_longlong,) * 9
+                             + (ctypes.c_float, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

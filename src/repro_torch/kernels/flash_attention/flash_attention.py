@@ -1,0 +1,77 @@
+"""Wrapper of the flash-attention forward kernel
+(``csrc/flash_attention.cu``).
+
+Port of ``repro/kernels/flash_attention/flash_attention.py``
+(``flash_attention_fwd``): causal or non-causal GQA softmax attention,
+q (B, Sq, H, D) against k, v (B, Skv, KH, D), bf16 or float32 in, float32
+online-softmax statistics, the output in q's dtype. Layouts are the
+reference's; the kernel reads q, k and v through their strides (the last
+dim must be unit-stride), so the projections' views go in as they are.
+Unlike the TPU kernel, no length has to divide a tile: the kernel masks
+ragged ``Sq`` and ``Skv`` itself.
+
+A CUDA tensor launches the kernel, a CPU tensor takes
+``flash_attention_plain`` (``ref.mha_ref``) beside it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build as KB
+from repro_torch.kernels.flash_attention.ref import mha_ref
+
+HEAD_DIMS = (32, 64)            # the kernel's compiled head widths
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version: materialized float32 softmax attention."""
+    return mha_ref(q, k, v, causal=causal)
+
+
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """q: (B,Sq,H,D); k,v: (B,Skv,KH,D) -> (B,Sq,H,D) in q's dtype.
+    Causal masking is ``qpos >= kpos`` with both positions from 0."""
+    if KB.on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes q, k, v of one dtype in "
+                        f"{tuple(_DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}: need (B,Sq,H,D) and two "
+                         f"(B,Skv,KH,D)")
+    B, Sq, H, D = q.shape
+    _, Skv, KH, Dk = k.shape
+    if k.shape[0] != B or Dk != D or KH == 0 or H % KH:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}: "
+                         f"batch and head dim must match and KH divide H")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    code = KB.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, int(causal),
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        1.0 / math.sqrt(D), KB.stream(q))
+    KB.check(code, "flash_attention")
+    KB.count_launch("flash_attention")
+    return out

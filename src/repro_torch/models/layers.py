@@ -1,58 +1,85 @@
-"""Base layers of the CNN path: plain functions over parameter dicts.
+"""Base layers: plain functions over parameter dicts.
 
-Port of the dense / conv / pool part of ``repro/models/layers.py``. Public
-layouts are the reference's: NHWC activations, HWIO conv weights,
-(d_in, d_out) dense weights. ``dense_impl`` / ``conv_impl`` are the
-override hooks through which the Origami executor routes tier-1 linear ops
-into the Slalom protocol (core/origami.py).
+Port of ``repro/models/layers.py``: the dense / conv / pool part the CNN
+path runs and the LM part (RMS/layer norm in float32, embedding, the
+activations, rotary position embedding). Public layouts are the
+reference's: NHWC activations, HWIO conv weights, (d_in, d_out) dense
+weights, (..., seq, heads, head_dim) rope inputs. ``dense_impl`` /
+``conv_impl`` are the override hooks through which the Origami executor
+routes tier-1 linear ops into the Slalom protocol (core/origami.py).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+# stacking axes: not part of a leaf's fan-in
+_STACK_AXES = ("layers", "experts")
+
 
 class ParamDef(NamedTuple):
     shape: Tuple[int, ...]
-    init: str                      # "scaled" (normal / sqrt(fan_in)) | "zeros"
+    init: str                      # normal | zeros | ones | embed | scaled
+    axes: Tuple[Optional[str], ...] = ()   # logical axis name per dim
+    dtype: Any = None              # overrides the model dtype (f32 norms)
 
 
-def init_params(defs: Dict[str, Dict[str, ParamDef]],
-                generator: torch.Generator, device="cuda",
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def _fan_in(d: ParamDef) -> int:
+    """Product of the non-output dims, stacking axes excluded (the
+    reference's rule); a 1-D leaf's fan-in is its length."""
+    if len(d.shape) <= 1:
+        return max(d.shape[-1] if d.shape else 1, 1)
+    axes = d.axes or (None,) * len(d.shape)
+    n = 1
+    for dim, ax in zip(d.shape[:-1], axes[:-1]):
+        if ax not in _STACK_AXES:
+            n *= dim
+    return max(n, 1)
+
+
+def init_params(defs, generator: torch.Generator, device="cuda",
                 dtype: torch.dtype = torch.float32):
-    """Materialize a {layer: {name: ParamDef}} tree with ``generator`` (on
-    ``device``): "scaled" leaves are normal / sqrt(fan_in), where fan_in is
-    the product of all but the last dim; "zeros" leaves are zero."""
-    out = {}
-    for layer in sorted(defs):
-        out[layer] = {}
-        for name in sorted(defs[layer]):
-            d = defs[layer][name]
-            if d.init == "zeros":
-                out[layer][name] = torch.zeros(d.shape, dtype=dtype,
-                                               device=device)
-                continue
-            fan_in = max(math.prod(d.shape[:-1]), 1)
-            out[layer][name] = (torch.randn(d.shape, generator=generator,
-                                            dtype=torch.float32, device=device)
-                                / math.sqrt(fan_in)).to(dtype)
-    return out
+    """Materialize a nested {name: ... ParamDef} tree with ``generator``
+    (on ``device``), walking keys in sorted order: "zeros"/"ones" are
+    constant, "normal"/"embed" are normal * 0.02, "scaled" is normal /
+    sqrt(fan_in). A leaf's own ``dtype`` overrides ``dtype``."""
+    if is_def(defs):
+        d = defs
+        dt = d.dtype or dtype
+        if d.init in ("zeros", "ones"):
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(d.shape, dtype=dt, device=device)
+        z = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        if d.init == "scaled":
+            return (z / math.sqrt(_fan_in(d))).to(dt)
+        if d.init in ("normal", "embed"):
+            return (z * 0.02).to(dt)
+        raise ValueError(f"unknown init {d.init!r}")
+    return {name: init_params(defs[name], generator, device, dtype)
+            for name in sorted(defs)}
 
 
-def dense_def(d_in: int, d_out: int, bias: bool = False):
-    d = {"w": ParamDef((d_in, d_out), "scaled")}
+def dense_def(d_in: int, d_out: int, axes=("embed", "ffn"),
+              bias: bool = False):
+    d = {"w": ParamDef((d_in, d_out), "scaled", tuple(axes))}
     if bias:
-        d["b"] = ParamDef((d_out,), "zeros")
+        d["b"] = ParamDef((d_out,), "zeros", (axes[1],))
     return d
 
 
 def conv_def(c_in: int, c_out: int, k: int = 3):
-    return {"w": ParamDef((k, k, c_in, c_out), "scaled"),
-            "b": ParamDef((c_out,), "zeros")}
+    return {"w": ParamDef((k, k, c_in, c_out), "scaled",
+                          (None, None, None, "ffn")),
+            "b": ParamDef((c_out,), "zeros", ("ffn",))}
 
 
 # Override point: the Origami executor installs the Slalom blinded-offload
@@ -99,6 +126,63 @@ def conv2d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  padding="same")
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
+
+
+def norm_def(dim: int, kind: str) -> Dict[str, ParamDef]:
+    d = {"scale": ParamDef((dim,), "ones", ("embed",), torch.float32)}
+    if kind == "layernorm":
+        d["bias"] = ParamDef((dim,), "zeros", ("embed",), torch.float32)
+    return d
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
+    """RMS or layer norm over the last dim, computed in float32 and cast
+    back to ``x.dtype``."""
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"]
+    if "bias" in p:
+        y = y + p["bias"]
+    return y.to(x.dtype)
+
+
+def embed_def(vocab: int, dim: int) -> Dict[str, ParamDef]:
+    return {"table": ParamDef((vocab, dim), "embed", ("vocab", "embed"))}
+
+
+def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["table"][ids]
+
+
+def activation(name: str):
+    """The reference's activations; its gelu is jax.nn.gelu's default,
+    the tanh approximation."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": torch.relu}[name]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    ang = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., :, None, :]          # broadcast over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def maxpool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:

@@ -1,0 +1,120 @@
+"""Decoder stack of the dense LM family.
+
+Port of the dense part of ``repro/models/transformer.py``: the gated MLP,
+the pre-norm decoder block's forward / prefill / decode, stacked parameter
+definitions and ``lm_defs``. The reference scans blocks with ``lax.scan``
+over stacked parameters; the port keeps the stacked layout (a leading
+layer dim on every block leaf) and walks it with a Python loop
+(models/model.py). Mixture-of-experts, latent attention and the other
+families wait (ROADMAP Queue 1 items 11-12).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the dense GQA family, not "
+            f"{cfg.family}/{cfg.attention} (ROADMAP Queue 1 items 11-12)")
+
+
+def _gated(cfg: ModelConfig) -> bool:
+    return cfg.activation == "silu"
+
+
+def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None):
+    d_ff = d_ff or cfg.d_ff
+    d = cfg.d_model
+    if _gated(cfg):
+        return {"w_gate": L.dense_def(d, d_ff, ("embed", "ffn")),
+                "w_up": L.dense_def(d, d_ff, ("embed", "ffn")),
+                "w_down": L.dense_def(d_ff, d, ("ffn", "embed"))}
+    return {"w_up": L.dense_def(d, d_ff, ("embed", "ffn")),
+            "w_down": L.dense_def(d_ff, d, ("ffn", "embed"))}
+
+
+def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = L.activation(cfg.activation)
+    if "w_gate" in p:
+        h = act(L.dense(p["w_gate"], x)) * L.dense(p["w_up"], x)
+    else:
+        h = act(L.dense(p["w_up"], x))
+    return L.dense(p["w_down"], h)
+
+
+def decoder_block_defs(cfg: ModelConfig):
+    _supported(cfg)
+    return {"ln1": L.norm_def(cfg.d_model, cfg.norm), "attn": A.gqa_defs(cfg),
+            "ln2": L.norm_def(cfg.d_model, cfg.norm), "mlp": mlp_defs(cfg)}
+
+
+def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+    h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
+    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + y, 0.0
+
+
+def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+    a, cache = A.gqa_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                             cfg)
+    h = x + a
+    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + y, cache, 0.0
+
+
+def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos: int,
+                         cfg: ModelConfig):
+    a, cache = A.gqa_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                            cache, pos, cfg)
+    h = x + a
+    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + y, cache
+
+
+def stacked_defs(defs, n: int):
+    """Prepend a layer dimension to every ParamDef in ``defs``."""
+    return tree_map(lambda d: L.ParamDef((n,) + d.shape, d.init,
+                                         ("layers",) + tuple(d.axes), d.dtype),
+                    defs)
+
+
+def slice_layers(stacked, lo: int, hi: int):
+    return tree_map(lambda a: a[lo:hi], stacked)
+
+
+def layer_params(stacked, i: int):
+    """Block ``i``'s parameters: views into the stacked leaves."""
+    return tree_map(lambda a: a[i], stacked)
+
+
+class LMOutputs(NamedTuple):
+    logits: torch.Tensor
+    aux_loss: Any
+
+
+def lm_defs(cfg: ModelConfig) -> Dict[str, object]:
+    _supported(cfg)
+    d: Dict[str, object] = {
+        "embed": L.embed_def(cfg.padded_vocab, cfg.d_model),
+        "final_norm": L.norm_def(cfg.d_model, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        d["lm_head"] = L.dense_def(cfg.d_model, cfg.padded_vocab,
+                                   ("embed", "vocab"))
+    d["blocks"] = stacked_defs(decoder_block_defs(cfg), cfg.num_layers)
+    return d

@@ -235,3 +235,86 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(out["cuda"].cpu().numpy(),
                                   out["cpu"].numpy())
     assert logs["cuda"] == logs["cpu"] == [(True, False, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal", [
+    (4, 1024, 1024, 9, 3, 64, True),      # the smollm prefill shape
+    (2, 6, 6, 9, 3, 64, True),            # a smoke prompt
+    (1, 1000, 1000, 4, 4, 64, True),      # MHA, ragged
+    (2, 130, 130, 6, 3, 32, False),       # non-causal, ragged
+    (1, 37, 200, 8, 1, 64, False),        # one KV head, Sq != Skv
+    (1, 200, 70, 8, 2, 64, True),         # causal, Sq > Skv
+])
+def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
+                                       D, causal):
+    """The kernel against its plain version (float32 matmuls, TF32 off) on
+    the card: 2e-5 in float32, 2e-2 in bf16 (the reference's tolerances)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq * 7 + H)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                         (B, Skv, KH, D)))
+    before = KB.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    # deterministic: a second launch is bit-equal
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+
+
+def test_flash_attention_strided_views_and_rejects(dev):
+    """Projection views (unit-stride last dim) go in as they are; bad
+    operands raise instead of launching."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy(rng.normal(size=(2, 50, 15, 32)).astype(
+        np.float32)).to(dev)
+    q, k, v = qkv[:, :, :9], qkv[:, :, 9:12], qkv[:, :, 12:]
+    np.testing.assert_allclose(
+        flash_attention_fwd(q, k, v).cpu().numpy(),
+        flash_attention_plain(q, k, v).cpu().numpy(), rtol=2e-5, atol=2e-5)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                            v[..., :16].contiguous())         # D = 16
+
+
+def test_private_generate_on_card(dev):
+    """Smoke smollm private decode on the card: private and trusted
+    bit-equal, every op checked, the prefill attention through the kernel,
+    logits within the bf16 tolerance (3e-2 of the largest) of the same run
+    on the CPU."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models import model as M
+    from repro_torch.runtime.generate import private_generate
+    cfg = get_smoke("smollm_135m")
+    params = M.init_params(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6))
+    kw = dict(max_new_tokens=4, integrity=IntegrityPolicy.full(k=2),
+              session_key=PRNGKey(9))
+    before = KB.LAUNCHES["flash_attention"]
+    priv = private_generate(params, prompt, cfg, device="cuda", **kw)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + cfg.num_layers
+    oracle = private_generate(params, prompt, cfg, device="cuda",
+                              trusted=True, **kw)
+    assert torch.equal(priv.logits, oracle.logits)
+    assert torch.equal(priv.tokens, oracle.tokens)
+    assert priv.integrity.n_checked == priv.integrity.n_ops > 0
+    assert priv.integrity.ok
+    cpu = private_generate(params, prompt, cfg, device="cpu", **kw)
+    first = cpu.logits[:, 0].float().numpy()
+    np.testing.assert_allclose(priv.logits[:, 0].float().cpu().numpy(), first,
+                               rtol=0, atol=3e-2 * np.abs(first).max())

@@ -43,11 +43,17 @@ def test_port_files_exist():
                    "core/origami.py", "runtime/serving.py",
                    "runtime/faults.py",
                    "runtime/straggler.py", "runtime/devices.py",
-                   "parallel/offload_sharding.py"):
+                   "parallel/offload_sharding.py",
+                   "configs/smollm_135m.py",
+                   "kernels/flash_attention/ref.py",
+                   "kernels/flash_attention/flash_attention.py",
+                   "models/attention.py", "models/transformer.py",
+                   "models/model.py", "runtime/sessions.py",
+                   "runtime/generate.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
-                "blind.cu"):
+                "blind.cu", "flash_attention.cu"):
         assert (csrc / src).is_file(), src
 
 
