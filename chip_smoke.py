@@ -10,14 +10,19 @@ Phases (any failure is fatal and exits non-zero):
 
 1. card and build — the card's name and power limit; nvcc builds the
    kernel library from ``src/repro_torch/kernels/csrc`` (one process per
-   source, in parallel);
+   source, in parallel); each kernel's registers and stack and local
+   (spill) bytes, from ``cuobjdump -res-usage``;
 2. kernels — each of the six kernels (blind_encode, limb_matmul,
    limb_matmul_fused, limb_fold, blind, unblind) at the VGG-16 tier-1
    shapes of a batch of 4, bit-for-bit against its plain version on the
-   card, with its time (CUDA events, median of 10 after warm-up), the
-   plain version's time, the card's bound for the same work and, for the
+   card, with its time (CUDA events, median of 10 after warm-up) and its
+   device time (``torch.profiler``, 10 calls back to back), the plain
+   version's time, the card's bound for the same work and, for the
    matmuls, nine ``torch._int_mm`` calls of one limb pair as a library
-   yardstick;
+   yardstick, timed with B row-major and column-major (the faster
+   layout's sum is the library time); then limb_matmul at the SmolLM-135M
+   shapes (decode and prefill factors, fold material), bit-for-bit
+   against its plain version, on lines of their own;
 3. fused serving — a full-width VGG-16 (224x224, 1000 classes, random
    weights from a seed) behind ``PrivateInferenceServer`` with tier-1
    blinded and Freivalds-verified (full, k=2): sealed requests, one
@@ -42,8 +47,9 @@ Phases (any failure is fatal and exits non-zero):
    matmuls, TF32 off) at the SmolLM-135M prefill shape (batch 4, 1024
    tokens, 9 query and 3 KV heads of 64, bf16, causal, 2e-2) and a sweep
    (float32 at 2e-5, non-causal, MHA, ragged 6 and 1000 tokens), with its
-   time, the plain version's, one ``scaled_dot_product_attention`` call's
-   (timed only) and the card's bound;
+   time and device time, the plain version's time, one
+   ``scaled_dot_product_attention`` call's (timed only) and the card's
+   bound;
 10. private generation — full-width, full-depth SmolLM-135M (random bf16
    weights from a seed) generating 16 tokens for a batch of 4 1024-token
    prompts through ``private_generate`` under full(k=2) verification:
@@ -71,6 +77,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -161,6 +168,39 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel="", reps=10, windows=3):
+    """Device milliseconds a call of ``fn`` from ``torch.profiler`` over
+    ``reps`` calls launched back to back: of the kernels whose name holds
+    ``kernel``, or of every kernel when it is empty. A window in which the
+    profiler saw no such kernel is taken again, up to ``windows`` times;
+    then None (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                t = getattr(ev, "device_time_total", None)
+                us += ev.cuda_time_total if t is None else t
+        if us > 0.0:
+            return us / reps / 1e3
+    return None
+
+
+def timed(fn, kernel=""):
+    """(median event ms a call, profiler device ms a call) of ``fn``: the
+    timing of every kernel and library call on the kernels' lines."""
+    return cuda_ms(fn), device_ms(fn, kernel)
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_launches(launches, path, where):
     """Fail unless the counts show every kernel of ``path`` launched and
     no other kernel launched."""
@@ -206,30 +246,73 @@ def phase_card_and_build():
     KB.lib()
     print(f"build: kernel library ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {KB.build_seconds:.2f} s)")
+    print("registers a thread, stack and local (spill) bytes of each kernel: "
+          + "; ".join(f"{name} REG {r} STACK {s} LOCAL {loc}"
+                      for name, r, s, loc in resource_usage()))
     return card
+
+
+def resource_usage():
+    """(kernel, registers, stack bytes, local bytes) of every kernel in the
+    built library, from ``cuobjdump -res-usage``."""
+    dump = subprocess.run([KB.cuda_tool("cuobjdump"), "-res-usage",
+                           str(KB.build())], capture_output=True, text=True,
+                          check=True).stdout
+    rows, name = [], None
+    for line in dump.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif name and line.startswith("REG:"):
+            f = dict(kv.split(":", 1) for kv in line.split()
+                     if kv.split(":", 1)[0] in ("REG", "STACK", "LOCAL"))
+            rows.append((name, f["REG"], f["STACK"], f["LOCAL"]))
+            name = None
+    names = subprocess.run([KB.cuda_tool("cu++filt")],
+                           input="\n".join(r[0] for r in rows),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return [(_kernel_name(n),) + r[1:] for n, r in zip(names, rows)]
+
+
+def _kernel_name(demangled):
+    """"void <unnamed>::kernel<(bool)1, 64>(int const*, ...)" -> the kernel
+    and its template arguments, "kernel<(bool)1, 64>"."""
+    depth = 0
+    for i in range(len(demangled) - 1, -1, -1):   # the parameter list's "("
+        depth += {")": 1, "(": -1}.get(demangled[i], 0)
+        if depth == 0:
+            break
+    name = demangled[:i].removeprefix("void ")
+    for anonymous in ("<unnamed>::", "(anonymous namespace)::"):
+        name = name.replace(anonymous, "")
+    return name
 
 
 def phase_kernels(cfg, dev):
     """Each kernel against its plain version at the tier-1 shapes."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    acc = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bytes": 0, "ops": 0, "peak": INT8_OPS_S, "err": 0.0}
+    acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": None, "bytes": 0, "ops": 0,
+                  "peak": INT8_OPS_S, "err": 0.0}
            for name in KB.KERNELS if name != "flash_attention"}
     for name in ("blind_encode", "blind", "unblind"):
         acc[name]["peak"] = F32_OPS_S
-    for name in ("blind_encode", "limb_fold", "blind", "unblind"):
-        acc[name]["library_ms"] = None
+    lib_sums = {"row-major": 0.0, "column-major": 0.0}
+    lib_device = {"row-major": 0.0, "column-major": 0.0}
 
-    def add(name, ms, plain_ms, nbytes, nops, err, lib_ms=None):
+    def dsum(total, ms):
+        return None if total is None or ms is None else total + ms
+
+    def add(name, ms, dms, plain_ms, nbytes, nops, err):
         a = acc[name]
         a["ms"] += ms
+        a["device_ms"] = dsum(a["device_ms"], dms)
         a["plain_ms"] += plain_ms
         a["bytes"] += nbytes
         a["ops"] += nops
         a["err"] = max(a["err"], err)
-        if lib_ms is not None:
-            a["library_ms"] += lib_ms
 
     def compare(name, got, want):
         if not torch.equal(got, want):
@@ -252,16 +335,29 @@ def phase_kernels(cfg, dev):
         # blind_encode
         xl = blind_encode(x, r, inv, 8, Kp)
         err = compare("blind_encode", xl, blind_encode_plain(x, r, inv, 8, Kp))
-        ms = cuda_ms(lambda: blind_encode(x, r, inv, 8, Kp))
+        ms, dms = timed(lambda: blind_encode(x, r, inv, 8, Kp),
+                        "blind_encode_kernel")
         pms = cuda_ms(lambda: blind_encode_plain(x, r, inv, 8, Kp), reps=5)
-        add("blind_encode", ms, pms, 8 * M * K + 3 * M * Kp + 4, 2 * M * K,
-            err)
-        print(f"blind_encode {layer} ({M}x{K} -> 3x{M}x{Kp}): {ms:.3f} ms, "
-              f"plain {pms:.3f} ms")
+        add("blind_encode", ms, dms, pms, 8 * M * K + 3 * M * Kp + 4,
+            2 * M * K, err)
+        print(f"blind_encode {layer} ({M}x{K} -> 3x{M}x{Kp}): {ms:.3f} ms "
+              f"(device {fmt_ms(dms)}), plain {pms:.3f} ms")
 
-        # library yardstick: nine int8 GEMMs of one limb pair
+        # library yardstick: nine int8 GEMMs of one limb pair, with B
+        # row-major as the planes lie and column-major ("TN", the layout
+        # of cuBLASLt's int8 tensor-core kernels); the faster layout's sum
+        # is library_ms
         a8, b8 = xl[0], wl[0]
-        lib_ms = cuda_ms(lambda: [torch._int_mm(a8, b8) for _ in range(9)])
+        b8_col = b8.t().contiguous().t()
+        lib_row, dev_row = timed(lambda: [torch._int_mm(a8, b8)
+                                          for _ in range(9)])
+        lib_col, dev_col = timed(lambda: [torch._int_mm(a8, b8_col)
+                                          for _ in range(9)])
+        lib_sums["row-major"] += lib_row
+        lib_sums["column-major"] += lib_col
+        lib_device["row-major"] = dsum(lib_device["row-major"], dev_row)
+        lib_device["column-major"] = dsum(lib_device["column-major"],
+                                          dev_col)
         mm_ops = 18 * M * Kp * N
 
         # limb_matmul (the u = r @ W_q product)
@@ -269,12 +365,16 @@ def phase_kernels(cfg, dev):
         got = limb_matmul_planes(xr, wl)
         err = compare("limb_matmul", got, limb_matmul_planes_plain(xr, wl))
         u = got
-        ms = cuda_ms(lambda: limb_matmul_planes(xr, wl))
+        ms, dms = timed(lambda: limb_matmul_planes(xr, wl),
+                        "limb_matmul_mma_kernel")
         pms = cuda_ms(lambda: limb_matmul_planes_plain(xr, wl), reps=5)
-        add("limb_matmul", ms, pms, 3 * M * Kp + 3 * Kp * N + 4 * M * N,
-            mm_ops, err, lib_ms)
-        print(f"limb_matmul {layer} ({M}x{Kp}x{N}): {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, 9x _int_mm {lib_ms:.3f} ms")
+        add("limb_matmul", ms, dms, pms,
+            3 * M * Kp + 3 * Kp * N + 4 * M * N, mm_ops, err)
+        print(f"limb_matmul {layer} ({M}x{Kp}x{N}): {ms:.3f} ms (device "
+              f"{fmt_ms(dms)}), plain {pms:.3f} ms, 9x _int_mm {lib_row:.3f} "
+              f"ms (device {fmt_ms(dev_row)}) with B row-major, "
+              f"{lib_col:.3f} ms (device {fmt_ms(dev_col)}) with B "
+              f"column-major")
 
         # limb_matmul_fused
         got = limb_matmul_planes_fused(xl, wl, u, scale)
@@ -282,13 +382,14 @@ def phase_kernels(cfg, dev):
         err = compare("limb_matmul_fused", got, want)
         if not torch.isfinite(got).all():
             raise AssertionError("limb_matmul_fused: non-finite output")
-        ms = cuda_ms(lambda: limb_matmul_planes_fused(xl, wl, u, scale))
+        ms, dms = timed(lambda: limb_matmul_planes_fused(xl, wl, u, scale),
+                        "limb_matmul_fused_kernel")
         pms = cuda_ms(lambda: limb_matmul_planes_fused_plain(xl, wl, u, scale),
                       reps=5)
-        add("limb_matmul_fused", ms, pms,
-            3 * M * Kp + 3 * Kp * N + 8 * M * N + 4, mm_ops, err, lib_ms)
-        print(f"limb_matmul_fused {layer} ({M}x{Kp}x{N}): {ms:.3f} ms, plain "
-              f"{pms:.3f} ms")
+        add("limb_matmul_fused", ms, dms, pms,
+            3 * M * Kp + 3 * Kp * N + 8 * M * N + 4, mm_ops, err)
+        print(f"limb_matmul_fused {layer} ({M}x{Kp}x{N}): {ms:.3f} ms "
+              f"(device {fmt_ms(dms)}), plain {pms:.3f} ms")
 
         # limb_fold: [y | x] against a k=2 fold matrix
         yx = torch.cat([u, r], dim=1)
@@ -298,22 +399,23 @@ def phase_kernels(cfg, dev):
         fl = ops.field_planes(yx, sl.shape[1])
         got = limb_fold_planes(fl, sl)
         err = compare("limb_fold", got, limb_fold_planes_plain(fl, sl))
-        ms = cuda_ms(lambda: limb_fold_planes(fl, sl))
+        ms, dms = timed(lambda: limb_fold_planes(fl, sl), "limb_fold_kernel")
         pms = cuda_ms(lambda: limb_fold_planes_plain(fl, sl), reps=5)
         Kf = sl.shape[1]
-        add("limb_fold", ms, pms, 3 * M * Kf + 3 * Kf * 2 + 4 * M * 2,
+        add("limb_fold", ms, dms, pms, 3 * M * Kf + 3 * Kf * 2 + 4 * M * 2,
             18 * M * Kf * 2, err)
-        print(f"limb_fold {layer} ({M}x{Kf}x2): {ms:.3f} ms, plain "
-              f"{pms:.3f} ms")
+        print(f"limb_fold {layer} ({M}x{Kf}x2): {ms:.3f} ms (device "
+              f"{fmt_ms(dms)}), plain {pms:.3f} ms")
 
         # blind: the unfused path's operand over its scale, and its pad
         xs = x * 3.0
         got = blind(xs, r, 8)
         err = compare("blind", got, blind_plain(xs, r, 8))
-        ms = cuda_ms(lambda: blind(xs, r, 8))
+        ms, dms = timed(lambda: blind(xs, r, 8), "blind_kernel")
         pms = cuda_ms(lambda: blind_plain(xs, r, 8), reps=5)
-        add("blind", ms, pms, 12 * M * K, 2 * M * K, err)
-        print(f"blind {layer} ({M}x{K}): {ms:.3f} ms, plain {pms:.3f} ms")
+        add("blind", ms, dms, pms, 12 * M * K, 2 * M * K, err)
+        print(f"blind {layer} ({M}x{K}): {ms:.3f} ms (device {fmt_ms(dms)}), "
+              f"plain {pms:.3f} ms")
 
         # unblind: a field result of the layer's width against its factor
         yb = torch.randint(0, ref.P, (M, N), generator=gen, device=dev,
@@ -322,13 +424,59 @@ def phase_kernels(cfg, dev):
         err = compare("unblind", got, unblind_plain(yb, u, 15))
         if not torch.isfinite(got).all():
             raise AssertionError("unblind: non-finite output")
-        ms = cuda_ms(lambda: unblind(yb, u, 15))
+        ms, dms = timed(lambda: unblind(yb, u, 15), "unblind_kernel")
         pms = cuda_ms(lambda: unblind_plain(yb, u, 15), reps=5)
-        add("unblind", ms, pms, 12 * M * N, M * N, err)
-        print(f"unblind {layer} ({M}x{N}): {ms:.3f} ms, plain {pms:.3f} ms")
+        add("unblind", ms, dms, pms, 12 * M * N, M * N, err)
+        print(f"unblind {layer} ({M}x{N}): {ms:.3f} ms (device "
+              f"{fmt_ms(dms)}), plain {pms:.3f} ms")
         del x, r, xl, xr, u, yx, fl, xs, yb, got
+    layout = min(lib_sums, key=lib_sums.get)
+    for name in ("limb_matmul", "limb_matmul_fused"):
+        acc[name]["library_ms"] = lib_sums[layout]
+    print(f"library yardstick, 9x _int_mm summed over the shapes: "
+          f"{lib_sums['row-major']:.3f} ms (device "
+          f"{fmt_ms(lib_device['row-major'])}) with B row-major, "
+          f"{lib_sums['column-major']:.3f} ms (device "
+          f"{fmt_ms(lib_device['column-major'])}) with B column-major; "
+          f"library_ms takes {layout}")
+    print("device time (torch.profiler) summed over the shapes: "
+          + "; ".join(f"{name} {fmt_ms(a['device_ms'])}"
+                      for name, a in acc.items()))
+    phase_lm_limb_shapes(gen, dev)
     torch.cuda.empty_cache()
     return acc
+
+
+# (label, M, K, N) of the SmolLM-135M tier-1 field products at batch 4:
+# the widest decode factor u = r @ W_q (gate and up), the prefill factor of
+# a 1024-token prompt, and the fold material ws = W_q @ s
+LM_LIMB_SHAPES = (("decode factor", 4, 576, 1536),
+                  ("prefill factor", 4096, 576, 1536),
+                  ("fold material", 1536, 576, 2))
+
+
+def phase_lm_limb_shapes(gen, dev):
+    """limb_matmul at the SmolLM-135M shapes, bit-for-bit against its plain
+    version; timed on lines of their own (not in the VGG sums)."""
+    for label, M, K, N in LM_LIMB_SHAPES:
+        x = torch.randint(0, ref.P, (M, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w = torch.randint(0, ref.P, (K, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+        Kp = ops.block_plan(M, K, N)[4]
+        xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+        got = limb_matmul_planes(xl, wl)
+        if not torch.equal(got, limb_matmul_planes_plain(xl, wl)):
+            raise AssertionError(f"limb_matmul {label} ({M}x{Kp}x{N}): "
+                                 f"kernel differs from its plain version")
+        ms, dms = timed(lambda: limb_matmul_planes(xl, wl),
+                        "limb_matmul_mma_kernel")
+        pms = cuda_ms(lambda: limb_matmul_planes_plain(xl, wl), reps=5)
+        nbytes = 3 * M * Kp + 3 * Kp * N + 4 * M * N
+        bound = max(nbytes / BYTES_S, 18 * M * Kp * N / INT8_OPS_S) * 1e3
+        print(f"limb_matmul smollm {label} ({M}x{Kp}x{N}): {ms:.4f} ms "
+              f"(device {fmt_ms(dms)}), plain {pms:.4f} ms, bound "
+              f"{bound:.4f} ms; bit-equal")
 
 
 def _request(cfg, rid, rng):
@@ -676,17 +824,19 @@ def phase_flash(dev):
             raise AssertionError(f"flash_attention {label}: two launches "
                                  f"differ")
         err_max = max(err_max, err)
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal))
+        ms, dms = timed(lambda: flash_attention_fwd(q, k, v, causal=causal),
+                        "flash_fwd")
         plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
                                                          causal=causal))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
         bound, by = flash_bound(B, S, H, KH, HEAD_DIM, dtype, causal)
         print(f"flash_attention {label} (B {B}, S {S}, H {H}, KH {KH}, D "
               f"{HEAD_DIM}, {str(dtype)[6:]}, "
-              f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+              f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
+              f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
+              f"ms (device {fmt_ms(sdpa_dms)}), bound "
               f"{bound:.4f} ms ({by}); max abs err {err:.3g} (tol {tol})")
         if main_case is None:
             main_case = {"ms": ms, "plain_ms": plain_ms,

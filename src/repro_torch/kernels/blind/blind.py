@@ -47,11 +47,8 @@ def blind_encode(x: torch.Tensor, r: torch.Tensor, inv_scale: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, r {tuple(r.shape)}, "
                          f"inv_scale {tuple(inv_scale.shape)}")
     out = torch.empty((3, M, Kp), dtype=torch.int8, device=x.device)
-    code = KB.lib().repro_blind_encode(
-        x.data_ptr(), r.data_ptr(), inv_scale.data_ptr(), out.data_ptr(),
-        M, K, Kp, k_bits, KB.stream(x))
-    KB.check(code, "blind_encode")
-    KB.count_launch("blind_encode")
+    KB.launch("blind_encode", x, x.data_ptr(), r.data_ptr(),
+              inv_scale.data_ptr(), out.data_ptr(), M, K, Kp, k_bits)
     return out
 
 
@@ -70,10 +67,8 @@ def blind(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
     if r.shape != x.shape:
         raise ValueError(f"shapes x {tuple(x.shape)}, r {tuple(r.shape)}")
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    code = KB.lib().repro_blind(x.data_ptr(), r.data_ptr(), out.data_ptr(),
-                                x.numel(), k_bits, KB.stream(x))
-    KB.check(code, "blind")
-    KB.count_launch("blind")
+    KB.launch("blind", x, x.data_ptr(), r.data_ptr(), out.data_ptr(),
+              x.numel(), k_bits)
     return out
 
 
@@ -93,8 +88,6 @@ def unblind(y: torch.Tensor, u: torch.Tensor, k_out_bits: int) -> torch.Tensor:
     if u.shape != y.shape:
         raise ValueError(f"shapes y {tuple(y.shape)}, u {tuple(u.shape)}")
     out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
-    code = KB.lib().repro_unblind(y.data_ptr(), u.data_ptr(), out.data_ptr(),
-                                  y.numel(), k_out_bits, KB.stream(y))
-    KB.check(code, "unblind")
-    KB.count_launch("unblind")
+    KB.launch("unblind", y, y.data_ptr(), u.data_ptr(), out.data_ptr(),
+              y.numel(), k_out_bits)
     return out

@@ -7,12 +7,13 @@ library for ``sm_90a`` and loads it with ``ctypes``. The library lands in
 ``kernels/_build/`` under a name derived from the hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on a non-zero code. ``LAUNCHES``
-counts, per kernel, the launches its wrapper made: the wrappers call
-``count_launch`` right after a successful launch and nowhere else. The
-offload plane launches from several worker threads at once, so the count
-is taken under a lock.
+Every C entry point launches on the stream it is given, on the current
+device, and returns ``cudaGetLastError()``. The wrappers go through
+``launch``, which makes the operands' card current, passes its current
+stream, raises on a non-zero code and then counts the launch: ``LAUNCHES``
+counts, per kernel, the launches its wrapper made. The offload plane
+launches from several worker threads at once, so the count is taken under a
+lock.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -87,6 +89,15 @@ def nvcc_path() -> str:
         raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
                            "toolkit that builds the port's kernels")
     return found
+
+
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``cuobjdump``, ``cu++filt``) beside
+    the nvcc that builds the kernels."""
+    path = Path(nvcc_path()).parent / name
+    if not path.is_file():
+        raise RuntimeError(f"{name} not found beside {nvcc_path()}")
+    return str(path)
 
 
 def _digest() -> str:
@@ -158,9 +169,17 @@ def check(code: int, name: str) -> None:
                            f"{code} ({msg})")
 
 
-def stream(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry ``repro_<name>`` with ``args`` and the current
+    stream of ``t``'s card, that card current (a launch goes to the current
+    device, and a kernel's shared-memory limit is set per device); raise on
+    a CUDA error, else count one launch of ``name``."""
+    other = t.device.index != torch.cuda.current_device()
+    with torch.cuda.device(t.device) if other else nullcontext():
+        code = getattr(lib(), f"repro_{name}")(
+            *args, torch.cuda.current_stream(t.device).cuda_stream)
+    check(code, name)
+    count_launch(name)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -175,6 +194,17 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{ndim} dimensions")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when a kernel can copy it in 16-byte chunks (the last
+    dim unit-stride, the start and every other stride a multiple of 16
+    bytes); else a contiguous copy, whose fresh storage is aligned."""
+    size = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -36,6 +36,26 @@ __device__ __forceinline__ int recombine(const long long g[5]) {
   return static_cast<int>(acc % P);
 }
 
+// v mod p in [0, p) for any int32 v, without 64-bit arithmetic: with
+// v = hi * 2^23 + lo and 2^23 = 15 (mod p), v is congruent to lo + 15 hi,
+// which lies in [-3840, p + 3840), one correction from [0, p).
+__device__ __forceinline__ int reduce32(int v) {
+  int r = (v & ((1 << 23) - 1)) + 15 * (v >> 23);
+  r = r < 0 ? r + P : r;
+  return r >= P ? r - P : r;
+}
+
+// recombine() in 32-bit arithmetic: the shifts 256^s mod p (1, 256, 65536,
+// 30, 7680) as steps of * 256 and * 30 on residues below p < 2^23, so
+// every product stays below 2^31; the five terms sum below 5p.
+__device__ __forceinline__ int recombine32(const int g[5]) {
+  const int t1 = reduce32(reduce32(g[1]) * 256);
+  const int t2 = reduce32(reduce32(reduce32(g[2]) * 256) * 256);
+  const int t3 = reduce32(reduce32(g[3]) * 30);
+  const int t4 = reduce32(reduce32(reduce32(g[4]) * 30) * 256);
+  return reduce32(reduce32(g[0]) + t1 + t2 + t3 + t4);
+}
+
 // The nine limb dot products of four packed k positions, added into the
 // five power groups: a[i] holds four int8 digits of x-plane i, b[j] the
 // matching four digits of w-plane j.

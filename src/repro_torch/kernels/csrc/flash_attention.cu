@@ -13,26 +13,46 @@
 // Bound on the H100: operations. Causal attention at the smollm prefill shape
 // (B 4, S 1024, H 9, D 64) does 4 B H S^2 D / 2 = 4.8 GFLOP on 14 MB of
 // inputs and output, some 340 operations a byte, above the bf16 tensor cores'
-// ~295 a byte. This first kernel runs the products as float32 FMAs on the
-// CUDA cores (67 TFLOP/s, not 989), so it is far above its bound; wgmma tiles
-// fed by TMA, with bf16 operands, are the later redesign.
+// ~295 a byte: 4.9 us at 989 TFLOP/s.
 //
-// Design. One CTA per (q block of BQ = 64 rows, group of GB query heads of one
-// KV head, batch). Its BQ * GB threads each own one (query row, head) pair and
-// hold that row's q and its f32 accumulator in registers. The CTA loops over
-// KV tiles of BK = 64 keys — the loop replaces the TPU
-// grid's sequential third dimension — staging each K and V tile once in shared
-// memory as f32 for all GB heads (the TPU kernel packs the G heads of a KV head
-// into its lanes for the same reason). Causal CTAs stop at the tile holding the
-// diagonal of their last row. Inside a tile the online softmax advances in
-// chunks of 16 keys: 16 scores in registers, one max, one rescale of the
-// accumulator. Every thread of a warp reads the same K or V row, so the shared
-// loads are float4 broadcasts. Ragged Sq and Skv are masked here (the TPU
-// kernel asserted divisibility): rows past Sq compute and are not stored, keys
-// past Skv are staged as zeros and masked to -1e30.
+// bf16: the tensor cores, FlashAttention-2's register-resident form with
+// mma.sync m16n8k16 (bf16 in, f32 sums). mma.sync and not wgmma: at D = 32
+// and 64 a warp's 16 query rows against a 64-key tile are a handful of
+// m16n8k16 products, P goes from the S accumulators to the A fragment of
+// P.V in registers, and wgmma would need P staged in the swizzled shared
+// layout of its descriptors. One CTA per (q block of 64 positions, group of
+// GB <= 3 query heads of one KV head, batch): the GB heads' rows are stacked
+// into the M dimension (GB x 4 warps, 16 rows each, a warp one head), as the
+// TPU kernel packs them into its lanes, so each K and V tile is loaded once
+// per KV head and q block. K and V tiles of 64 keys arrive by cp.async into
+// a ring of two stages, the next tile in flight while this one is
+// multiplied; rows are padded by 16 bytes so ldmatrix reads without bank
+// conflicts. S = Q.K^T reads K non-transposed as the B operand; P is
+// repacked from S's accumulator fragment into P.V's A fragment, in two bf16
+// parts (hi = bf16(P), lo = bf16(P - hi): 16 significant bits, so the
+// result keeps the TPU kernel's f32 accuracy up to the output's one bf16
+// rounding; P in one bf16 part put one output ulp, 0.0156 at |o| in [2, 4),
+// against the 2e-2 tolerance); V is read with ldmatrix.trans as P.V's B
+// operand, once for both parts. Only tiles that cross the diagonal or the
+// ragged end of Skv are masked; a warp whose 16 rows all lie above a tile
+// skips it (all its scores would be masked: exp gives exact zeros and the
+// running max does not move, so skipping changes no bit). The grid walks the
+// q blocks heaviest first, so the long causal rows start before the short
+// ones fill the gaps. Rows past Sq and keys past Skv are zero-filled by the
+// copies (source size 0) and never stored or seen. The statistics are f32 in
+// the exp2 domain (scores scaled by log2(e) / sqrt(D), exp2f). D = 64 takes
+// ~160 registers a thread, so one 384-thread CTA an SM; q blocks of 32
+// (two CTAs an SM) measured the same.
 //
-// Numbers. Scores and statistics stay f32 with expf (not __expf); masked
-// scores are the TPU kernel's finite -1e30, never -inf, and the first chunk of
+// float32: the CUDA cores (its tolerance, 2e-5, rules out bf16 and TF32
+// operands; at the prefill shape it takes 0.56 ms against 0.90 ms for
+// scaled_dot_product_attention in float32 on an H100 80GB HBM3 at 700 W).
+// One CTA per (q block of 64 rows, group of up to 4 query heads of
+// one KV head, batch); a thread owns one (row, head) pair with its q and f32
+// accumulator in registers; each 64-key K/V tile is staged once in shared
+// memory for all heads; the online softmax advances in chunks of 16 keys.
+//
+// Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
 // the first tile always holds key 0, which every row sees, so no exp argument
 // is ever -1e30 - (-1e30) on a real row. Sums run in a fixed order with no
 // atomics: the result is deterministic, so two runs of one prompt agree bit
@@ -41,42 +61,258 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
-constexpr int BQ = 64;         // query rows a CTA
-constexpr int CHUNK = 16;      // keys per online-softmax step
-constexpr int MAX_GB = 4;      // query heads a CTA (BQ * MAX_GB threads)
+constexpr int BQ = 64;         // query positions a CTA (both kernels)
+constexpr int BK = 64;         // keys a tile
 constexpr float NEG = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {
   long long b, s, h;
 };
 
-template <typename T, int D, bool CAUSAL>
+// ---- bf16: tensor cores ----
+
+constexpr int MMA_MAX_GB = 3;               // query heads a CTA
+constexpr int WARPS_PER_HEAD = BQ / 16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int ROW = 2 * D + 16;    // padded row, bytes
+  static constexpr int CHUNKS = 2 * D / 16; // 16-byte chunks a row
+  static constexpr int TILE = BK * ROW;
+  // q rows of GB heads, then K and V of two stages
+  static constexpr int bytes(int GB) { return GB * BQ * ROW + 4 * TILE; }
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// (a, b) = hi + lo in two packed bf16 pairs: lo is the rounding error of hi
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+template <int D>
+__device__ __forceinline__ void load_kv(char* kbuf, char* vbuf, const __nv_bfloat16* kb,
+                                        const __nv_bfloat16* vb, Strides ks, Strides vs,
+                                        int k0, int Skv, int nthreads) {
+  using S = Smem<D>;
+  for (int e = threadIdx.x; e < 2 * BK * S::CHUNKS; e += nthreads) {
+    const bool is_v = e >= BK * S::CHUNKS;
+    const int rem = is_v ? e - BK * S::CHUNKS : e;
+    const int row = rem / S::CHUNKS, c = rem % S::CHUNKS;
+    const int kp = k0 + row;
+    const bool ok = kp < Skv;
+    const __nv_bfloat16* src =
+        is_v ? vb + (ok ? kp : 0) * vs.s + 8 * c : kb + (ok ? kp : 0) * ks.s + 8 * c;
+    tiles::cp_async16((is_v ? vbuf : kbuf) + row * S::ROW + 16 * c, src, ok);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(MMA_MAX_GB * WARPS_PER_HEAD * 32, 1)
+    flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int G,
+                              int GB, int n_qblocks, int n_heads_b, Strides qs, Strides ks,
+                              Strides vs, float scale) {
+  using S = Smem<D>;
+  constexpr int DT = D / 8;     // n8 tiles of the output
+  constexpr int DK = D / 16;    // k16 steps of Q.K^T
+  constexpr int NT = BK / 8;    // n8 tiles of S
+  extern __shared__ __align__(128) char smem[];
+  char* qbuf = smem;
+  char* kvbuf = smem + GB * BQ * S::ROW;  // stage s: K at 2s TILE, V at 2s+1
+
+  // heaviest q blocks first: block index -> (q block from the end, batch,
+  // KV head, group of GB of its G query heads)
+  const int qb = n_qblocks - 1 - static_cast<int>(blockIdx.x / n_heads_b);
+  const int hb = blockIdx.x % n_heads_b;
+  const int groups = G / GB;
+  const int per_batch = (H / G) * groups;
+  const int bidx = hb / per_batch;
+  const int kh = (hb % per_batch) / groups;
+  const int h0 = kh * G + (hb % groups) * GB;
+  const int q0 = qb * BQ;
+  const int nthreads = blockDim.x;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gi = warp / WARPS_PER_HEAD;               // head within the group
+  const int p0 = (warp % WARPS_PER_HEAD) * 16;        // warp's first position
+  const int g = lane / 4, t = lane % 4;
+
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const __nv_bfloat16* kb = k + bidx * ks.b + kh * ks.h;
+  const __nv_bfloat16* vb = v + bidx * vs.b + kh * vs.h;
+
+  // q rows of the GB heads, then K/V tile 0: one copy group
+  for (int e = threadIdx.x; e < GB * BQ * S::CHUNKS; e += nthreads) {
+    const int row = e / S::CHUNKS, c = e % S::CHUNKS;
+    const int qpos = q0 + row % BQ;
+    const bool ok = qpos < Sq;
+    const __nv_bfloat16* src =
+        q + bidx * qs.b + (ok ? qpos : 0) * qs.s + (h0 + row / BQ) * qs.h + 8 * c;
+    tiles::cp_async16(qbuf + row * S::ROW + 16 * c, src, ok);
+  }
+  if (n_tiles > 0) load_kv<D>(kvbuf, kvbuf + S::TILE, kb, vb, ks, vs, 0, Skv, nthreads);
+  tiles::cp_async_commit();
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
+  float m_row[2] = {NEG, NEG}, l_row[2] = {0.f, 0.f};   // rows g, g + 8 (l per lane)
+  unsigned qf[DK][4];
+  const float sl2 = scale * LOG2E;
+  const int row_lo = q0 + p0;                          // the warp's first position
+  const bool warp_live = row_lo < Sq;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * BK;
+    if (tile + 1 < n_tiles) {
+      char* nb = kvbuf + 2 * ((tile + 1) & 1) * S::TILE;
+      load_kv<D>(nb, nb + S::TILE, kb, vb, ks, vs, k0 + BK, Skv, nthreads);
+    }
+    tiles::cp_async_commit();
+    tiles::cp_async_wait<1>();   // tile `tile` (and q) have landed
+    __syncthreads();
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+        tiles::ldmatrix_x4(qf[kk], qbuf + (gi * BQ + p0 + (lane & 15)) * S::ROW +
+                                       2 * (16 * kk + (lane >> 4) * 8));
+    }
+    const bool skip = !warp_live || (CAUSAL && k0 > row_lo + 15);
+    if (!skip) {
+      const char* kt = kvbuf + 2 * (tile & 1) * S::TILE;
+      const char* vt = kt + S::TILE;
+
+      // S = Q K^T: K rows (keys) as the col-major B operand
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int jj = 0; jj < NT / 2; ++jj) {
+          unsigned kf[4];
+          tiles::ldmatrix_x4(kf, kt + (16 * jj + (lane & 7) + (lane >> 4) * 8) * S::ROW +
+                                     2 * (16 * kk + ((lane >> 3) & 1) * 8));
+          tiles::mma_bf16_16816(s[2 * jj], qf[kk], &kf[0]);
+          tiles::mma_bf16_16816(s[2 * jj + 1], qf[kk], &kf[2]);
+        }
+
+      // scale, mask, online softmax (exp2 domain)
+      const bool masked = k0 + BK > Skv || (CAUSAL && k0 + BK - 1 > row_lo);
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x = s[j][r] * sl2;
+          if (masked) {
+            const int kpos = k0 + 8 * j + 2 * t + (r & 1);
+            const int qpos = row_lo + g + 8 * (r >> 1);
+            if (kpos >= Skv || (CAUSAL && kpos > qpos)) x = NEG;
+          }
+          s[j][r] = x;
+          mx[r >> 1] = fmaxf(mx[r >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_row[h], mx[h]);
+        corr[h] = exp2f(m_row[h] - m_new);
+        m_row[h] = m_new;
+        l_row[h] *= corr[h];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float p = exp2f(s[j][r] - m_row[r >> 1]);
+          s[j][r] = p;
+          l_row[r >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) o[j][r] *= corr[r >> 1];
+
+      // O += P V: P from S's accumulators as the A fragment, in two bf16
+      // parts (P = hi + lo, 16 significant bits), V by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned hi[4], lo[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int u = 0; u < DT / 2; ++u) {
+          unsigned vf[4];
+          tiles::ldmatrix_x4_trans(
+              vf, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::ROW +
+                      2 * (16 * u + (lane >> 4) * 8));
+          tiles::mma_bf16_16816(o[2 * u], hi, &vf[0]);
+          tiles::mma_bf16_16816(o[2 * u], lo, &vf[0]);
+          tiles::mma_bf16_16816(o[2 * u + 1], hi, &vf[2]);
+          tiles::mma_bf16_16816(o[2 * u + 1], lo, &vf[2]);
+        }
+      }
+    }
+    __syncthreads();   // the slot is free for the copy of tile + 2
+  }
+  tiles::cp_async_wait<0>();
+
+  // the four lanes of a row hold its l in parts
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 1);
+    l_row[h] += __shfl_xor_sync(0xffffffffu, l_row[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row_lo + g + 8 * h;
+    if (qpos >= Sq) continue;
+    const float inv_l = 1.f / fmaxf(l_row[h], 1e-30f);
+    __nv_bfloat16* op = out + (static_cast<long long>(bidx) * Sq + qpos) * H * D +
+                        static_cast<long long>(h0 + gi) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<unsigned*>(op + 8 * j) =
+          pack_bf16(o[j][2 * h] * inv_l, o[j][2 * h + 1] * inv_l);
+  }
+}
+
+// ---- float32: CUDA cores ----
+
+constexpr int CHUNK = 16;      // keys per online-softmax step
+constexpr int MAX_GB = 4;      // query heads a CTA (BQ * MAX_GB threads)
+
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(BQ * MAX_GB)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-                     int H, int G, int GB, Strides qs, Strides ks, Strides vs,
-                     float scale) {
-  constexpr int BK = 64;
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out, int Sq,
+                         int Skv, int H, int G, int GB, Strides qs, Strides ks, Strides vs,
+                         float scale) {
   constexpr int D4 = D / 4;
   __shared__ float4 k_tile[BK][D4];
   __shared__ float4 v_tile[BK][D4];
@@ -91,11 +327,11 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
   float qv[D];
   float acc[D];
   {
-    const T* qp = q + b * qs.b + static_cast<long long>(min(qpos, Sq - 1)) * qs.s +
-                  h * qs.h;
+    const float* qp = q + b * qs.b + static_cast<long long>(min(qpos, Sq - 1)) * qs.s +
+                      h * qs.h;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qv[d] = to_f32(qp[d]);
+      qv[d] = qp[d];
       acc[d] = 0.f;
     }
   }
@@ -104,8 +340,8 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
   const int q_last = min(q0 + BQ, Sq) - 1;         // last stored row
   const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
   const int n_tiles = (kv_end + BK - 1) / BK;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
+  const float* kb = k + b * ks.b + kh * ks.h;
+  const float* vb = v + b * vs.b + kh * vs.h;
   float* k_flat = reinterpret_cast<float*>(k_tile);
   float* v_flat = reinterpret_cast<float*>(v_tile);
 
@@ -117,8 +353,8 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
       const int kp = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kp < Skv) {
-        kx = to_f32(kb[kp * ks.s + d]);
-        vx = to_f32(vb[kp * vs.s + d]);
+        kx = kb[kp * ks.s + d];
+        vx = vb[kp * vs.s + d];
       }
       k_flat[e] = kx;
       v_flat[e] = vx;
@@ -172,56 +408,75 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
 
   if (qpos < Sq) {
     const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    T* op = out + (static_cast<long long>(b) * Sq + qpos) * H * D +
-            static_cast<long long>(h) * D;
+    float* op = out + (static_cast<long long>(b) * Sq + qpos) * H * D +
+                static_cast<long long>(h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv_l);
+    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv_l;
   }
 }
 
-// Query heads a CTA holds: the largest divisor of G up to MAX_GB.
-int heads_per_cta(int G) {
-  for (int gb = MAX_GB; gb > 1; --gb)
+// Query heads a CTA holds: the largest divisor of G up to `most`.
+int heads_per_cta(int G, int most) {
+  for (int gb = most; gb > 1; --gb)
     if (G % gb == 0) return gb;
   return 1;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-           int Skv, int H, int KH, int causal, Strides qs, Strides ks, Strides vs,
-           float scale, cudaStream_t stream) {
+template <int D, bool CAUSAL>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+                cudaStream_t stream) {
   const int G = H / KH;
-  const int GB = heads_per_cta(G);
-  const dim3 grid(static_cast<unsigned>((Sq + BQ - 1) / BQ),
-                  static_cast<unsigned>(KH * (G / GB)), static_cast<unsigned>(B));
-  const dim3 block(BQ * GB);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  if (causal)
-    flash_fwd_kernel<T, D, true><<<grid, block, 0, stream>>>(qp, kp, vp, op, Sq, Skv, H,
-                                                             G, GB, qs, ks, vs, scale);
-  else
-    flash_fwd_kernel<T, D, false><<<grid, block, 0, stream>>>(qp, kp, vp, op, Sq, Skv, H,
-                                                              G, GB, qs, ks, vs, scale);
+  const int GB = heads_per_cta(G, MMA_MAX_GB);
+  const int n_qblocks = (Sq + BQ - 1) / BQ;
+  const int n_heads_b = B * KH * (G / GB);            // (batch, head group) pairs
+  const long long blocks = static_cast<long long>(n_qblocks) * n_heads_b;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_bf16_mma_kernel<D, CAUSAL>;
+  // the limit is per device: set it on the current one at every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes(MMA_MAX_GB));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, Smem<D>::bytes(GB),
+           stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                     static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq,
+                     Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Skv, int H, int KH, int causal, Strides qs, Strides ks,
-               Strides vs, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, KH, causal, qs, ks, vs, scale,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KH, causal, qs, ks, vs, scale,
-                           stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D, bool CAUSAL>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+               int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+               cudaStream_t stream) {
+  const int G = H / KH;
+  const int GB = heads_per_cta(G, MAX_GB);
+  const dim3 grid(static_cast<unsigned>((Sq + BQ - 1) / BQ),
+                  static_cast<unsigned>(KH * (G / GB)), static_cast<unsigned>(B));
+  flash_fwd_f32_kernel<D, CAUSAL><<<grid, BQ * GB, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Skv, H, G, GB, qs, ks, vs, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int D>
+int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
+             int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
+             float scale, cudaStream_t st) {
+  if (dtype == 0)
+    return causal ? launch_f32<D, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
+                  : launch_f32<D, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
+                                         st);
+  // bf16: 16-byte copies of rows need 16-byte-aligned rows
+  const Strides all[3] = {qs, ks, vs};
+  for (const Strides& s : all)
+    if (s.b % 8 || s.s % 8 || s.h % 8) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return causal ? launch_bf16<D, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
+                : launch_bf16<D, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
+                                        st);
 }
 
 }  // namespace
@@ -235,14 +490,16 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      long long vss, long long vsh, float scale,
                                      void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (KH <= 0 || H % KH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, Sq, Skv, H, KH, causal, qs, ks, vs,
-                             scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, KH, causal, qs, ks,
-                                     vs, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 32:
+      return dispatch<32>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
+    case 64:
+      return dispatch<64>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,0 +1,73 @@
+// Building blocks of the tensor-core kernels (limb_matmul.cu,
+// flash_attention.cu), as inline PTX for sm_90a:
+//
+//   cp_async16      one 16-byte global -> shared copy (cp.async.cg), with the
+//                   source size 0 when `valid` is false: the hardware then
+//                   writes 16 zero bytes and reads nothing, which is how the
+//                   kernels zero-fill rows and k past a ragged edge;
+//   ldmatrix_x4     four 8x8 b16 matrices from shared memory into the
+//   (_trans)        register fragments of mma.sync, optionally transposed;
+//   mma_s8_16832    D += A (16x32 s8, row) * B (32x8 s8, col), s32 sums that
+//                   wrap on overflow (no .satfinite);
+//   mma_bf16_16816  D += A (16x16 bf16, row) * B (16x8 bf16, col), f32 sums.
+//
+// Fragment layouts are PTX ISA's "Matrix Fragments for mma.m16n8k32" and
+// "... for mma.m16n8k16": a lane (group g = lane / 4, t = lane % 4) holds
+// rows g and g + 8 of A and of D, and column g of B.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tiles {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+__device__ __forceinline__ void mma_s8_16832(int d[4], const unsigned a[4],
+                                             const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float d[4], const unsigned a[4],
+                                               const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace tiles

@@ -5,8 +5,10 @@ Port of ``repro/kernels/flash_attention/flash_attention.py``
 (``flash_attention_fwd``): causal or non-causal GQA softmax attention,
 q (B, Sq, H, D) against k, v (B, Skv, KH, D), bf16 or float32 in, float32
 online-softmax statistics, the output in q's dtype. Layouts are the
-reference's; the kernel reads q, k and v through their strides (the last
-dim must be unit-stride), so the projections' views go in as they are.
+reference's; the kernel reads q, k and v through their strides, so the
+projections' views go in as they are. The last dim must be unit-stride,
+and for bf16 (copied in 16-byte rows) the start and the (b, s, h) strides
+must be multiples of 16 bytes: a view that is not is copied first.
 Unlike the TPU kernel, no length has to divide a tile: the kernel masks
 ragged ``Sq`` and ``Skv`` itself.
 
@@ -61,17 +63,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for "
                          f"{HEAD_DIMS}")
-    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    fit = KB.aligned16 if q.dtype == torch.bfloat16 else _unit_last
+    q, k, v = fit(q), fit(k), fit(v)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    code = KB.lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, int(causal),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        1.0 / math.sqrt(D), KB.stream(q))
-    KB.check(code, "flash_attention")
-    KB.count_launch("flash_attention")
+    KB.launch("flash_attention", q,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, int(causal),
+              q.stride(0), q.stride(1), q.stride(2),
+              k.stride(0), k.stride(1), k.stride(2),
+              v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(D))
     return out

@@ -45,10 +45,7 @@ def limb_fold_planes(x_limbs: torch.Tensor,
         cols = s_t.shape[1]
         out = torch.empty((M, cols), dtype=torch.int32,
                           device=x_limbs.device)
-        code = KB.lib().repro_limb_fold(
-            x_limbs.data_ptr(), s_t.data_ptr(), out.data_ptr(), M, Kp, cols,
-            KB.stream(x_limbs))
-        KB.check(code, "limb_fold")
-        KB.count_launch("limb_fold")
+        KB.launch("limb_fold", x_limbs, x_limbs.data_ptr(), s_t.data_ptr(),
+                  out.data_ptr(), M, Kp, cols)
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -48,13 +48,12 @@ def limb_matmul_planes(x_limbs: torch.Tensor,
     _check_planes(x_limbs, w_limbs)
     _, M, Kp = x_limbs.shape
     N = w_limbs.shape[2]
-    w_t = w_limbs.transpose(1, 2).contiguous()
+    # the kernel copies the planes in 16-byte chunks
+    x_limbs = KB.aligned16(x_limbs)
+    w_t = KB.aligned16(w_limbs.transpose(1, 2).contiguous())
     out = torch.empty((M, N), dtype=torch.int32, device=x_limbs.device)
-    code = KB.lib().repro_limb_matmul(
-        x_limbs.data_ptr(), w_t.data_ptr(), out.data_ptr(), M, N, Kp,
-        KB.stream(x_limbs))
-    KB.check(code, "limb_matmul")
-    KB.count_launch("limb_matmul")
+    KB.launch("limb_matmul", x_limbs, x_limbs.data_ptr(), w_t.data_ptr(),
+              out.data_ptr(), M, N, Kp)
     return out
 
 
@@ -87,9 +86,7 @@ def limb_matmul_planes_fused(x_limbs: torch.Tensor, w_limbs: torch.Tensor,
                          f"{tuple(scale.shape)}")
     w_t = w_limbs.transpose(1, 2).contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=x_limbs.device)
-    code = KB.lib().repro_limb_matmul_fused(
-        x_limbs.data_ptr(), w_t.data_ptr(), u.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), M, N, Kp, KB.stream(x_limbs))
-    KB.check(code, "limb_matmul_fused")
-    KB.count_launch("limb_matmul_fused")
+    KB.launch("limb_matmul_fused", x_limbs, x_limbs.data_ptr(),
+              w_t.data_ptr(), u.data_ptr(), scale.data_ptr(), out.data_ptr(),
+              M, N, Kp)
     return out

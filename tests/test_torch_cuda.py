@@ -45,7 +45,11 @@ def _field(rng, shape):
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (300, 72, 8), (257, 27, 64),
-                                   (130, 576, 130), (64, 1152, 128)])
+                                   (130, 576, 130), (64, 1152, 128),
+                                   (4, 576, 1536),       # smollm decode u
+                                   (1536, 576, 2),       # smollm ws
+                                   (4097, 576, 1536),    # off the tile edges
+                                   (129, 96, 65)])
 def test_limb_matmul_matches_plain_and_int64(dev, M, K, N):
     rng = np.random.default_rng(M * 7 + K)
     x, w = _field(rng, (M, K)), _field(rng, (K, N))
@@ -69,6 +73,52 @@ def test_limb_matmul_extreme_digits(dev):
     wl = torch.full((3, K, N), -128, dtype=torch.int8, device=dev)
     np.testing.assert_array_equal(limb_matmul_planes(xl, wl).cpu().numpy(),
                                   limb_matmul_planes_plain(xl, wl).cpu().numpy())
+
+
+def test_limb_matmul_extreme_digits_wide(dev):
+    """The same extreme digits across whole tiles (N >= 64) with ragged
+    edges: every accumulator of a block at its largest group sums."""
+    M, K, N = 130, 40000, 72
+    xl = torch.full((3, M, K), -128, dtype=torch.int8, device=dev)
+    wl = torch.full((3, K, N), -128, dtype=torch.int8, device=dev)
+    np.testing.assert_array_equal(limb_matmul_planes(xl, wl).cpu().numpy(),
+                                  limb_matmul_planes_plain(xl, wl).cpu().numpy())
+
+
+def test_limb_matmul_unaligned_planes(dev):
+    """Planes that do not start on 16 bytes are copied, not refused."""
+    rng = np.random.default_rng(5)
+    x, w = _field(rng, (70, 64)), _field(rng, (64, 9))
+    xl = ops.field_planes(x, 64).to(dev)
+    buf = torch.empty(xl.numel() + 1, dtype=torch.int8, device=dev)
+    shifted = buf[1:].view(xl.shape)
+    shifted.copy_(xl)
+    wl = ops.encode_weight_planes(w).to(dev)
+    np.testing.assert_array_equal(limb_matmul_planes(shifted, wl).cpu().numpy(),
+                                  _oracle(x.numpy(), w.numpy()))
+
+
+def test_tensor_core_kernels_in_sass(dev):
+    """The built library's SASS: the bf16 flash kernels issue HMMA/HGMMA
+    and the plain limb matmul IMMA/IGMMA, and both copy their tiles with
+    cp.async (LDGSTS) or TMA (UTMALDG), so neither can quietly go back to
+    the CUDA cores."""
+    import re
+    import subprocess
+    sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
+                          capture_output=True, text=True, check=True).stdout
+    bodies = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = part.partition("\n")
+        bodies[name.strip()] = body
+    flash = [b for n, b in bodies.items() if "flash_fwd_bf16_mma_kernel" in n]
+    limb = [b for n, b in bodies.items() if "limb_matmul_mma_kernel" in n]
+    assert len(flash) == 4 and len(limb) == 1, sorted(bodies)
+    for body in flash:
+        assert re.search(r"\bHG?MMA\b", body)
+        assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
+    assert re.search(r"\bIG?MMA\b", limb[0])
+    assert re.search(r"\b(LDGSTS|UTMALDG)\b", limb[0])
 
 
 @pytest.mark.parametrize("M,K,N", [(300, 72, 8), (200, 27, 64),
@@ -246,6 +296,9 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     (2, 130, 130, 6, 3, 32, False),       # non-causal, ragged
     (1, 37, 200, 8, 1, 64, False),        # one KV head, Sq != Skv
     (1, 200, 70, 8, 2, 64, True),         # causal, Sq > Skv
+    (2, 100, 100, 6, 3, 32, True),        # D 32, causal, ragged
+    (3, 1, 1, 9, 3, 64, True),            # Sq = 1
+    (2, 1, 50, 9, 3, 64, True),           # Sq = 1 against 50 keys
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                        D, causal):
@@ -289,6 +342,31 @@ def test_flash_attention_strided_views_and_rejects(dev):
                             v[..., :16].contiguous())         # D = 16
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_misaligned_views(dev, dtype, tol):
+    """Views whose start or row strides are not multiples of 16 bytes are
+    copied by the wrapper and still go through the kernel."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    B, S, H, KH, D = 2, 77, 6, 2, 64
+    rng = np.random.default_rng(17)
+    row = H * D + 1                        # an odd row stride
+    base = torch.from_numpy(rng.normal(size=B * S * row + 1).astype(
+        np.float32)).to(dev, dtype)
+    q = base[1:].as_strided((B, S, H, D), (S * row, row, D, 1))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KH, D)).astype(
+        np.float32)).to(dev, dtype) for _ in range(2))
+    k = torch.cat([k.new_zeros(1), k.flatten()])[1:].view(B, S, KH, D)
+    before = KB.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               flash_attention_plain(q, k, v).float().cpu()
+                               .numpy(), rtol=tol, atol=tol)
+
+
 def test_private_generate_on_card(dev):
     """Smoke smollm private decode on the card: private and trusted
     bit-equal, every op checked, the prefill attention through the kernel,
@@ -318,3 +396,74 @@ def test_private_generate_on_card(dev):
     first = cpu.logits[:, 0].float().numpy()
     np.testing.assert_allclose(priv.logits[:, 0].float().cpu().numpy(), first,
                                rtol=0, atol=3e-2 * np.abs(first).max())
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+
+
+def test_tensor_core_kernels_on_every_card(dev):
+    """The tensor-core kernels take more shared memory than a launch gets
+    by default, a limit each card keeps for itself: every card runs them,
+    with another card current, as the first card does."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    _second_card()
+    n = torch.cuda.device_count()
+    rng = np.random.default_rng(23)
+    x, w = _field(rng, (130, 576)), _field(rng, (576, 130))
+    Kp = ops.block_plan(130, 576, 130)[4]
+    xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(torch.bfloat16) for s in ((2, 100, 6, 64), (2, 100, 3, 64),
+                                             (2, 100, 3, 64)))
+    first = flash_attention_fwd(q.to(dev), k.to(dev), v.to(dev)).cpu()
+    np.testing.assert_allclose(
+        first.float().numpy(),
+        flash_attention_plain(q, k, v).float().numpy(), rtol=2e-2, atol=2e-2)
+    for i in range(n):
+        card = torch.device("cuda", i)
+        with torch.cuda.device((i + 1) % n):
+            got = limb_matmul_planes(xl.to(card), wl.to(card))
+            att = flash_attention_fwd(q.to(card), k.to(card), v.to(card))
+        assert got.device == att.device == card
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      _oracle(x.numpy(), w.numpy()))
+        assert torch.equal(att.cpu(), first)
+
+
+def test_offload_plane_over_every_card(dev):
+    """DevicePool.from_torch: one slot per card, each shard launched on its
+    slot's card. No dispatch crashes into the enclave's hands, every shard
+    is checked, and the logits equal the pool-less executor's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models import vgg as V
+    from repro_torch.runtime.devices import DevicePool
+    _second_card()
+    cfg = get_smoke("vgg16")
+    params = V.init_params(cfg, 0, device="cpu")
+    batch = {"images": torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, cfg.image_size, cfg.image_size, 3)).astype(np.float32))}
+    kw = dict(mode="origami", precompute=True,
+              integrity=IntegrityPolicy.full(k=2), device="cuda")
+    want = OrigamiExecutor(cfg, params, **kw).infer(
+        batch, session_key=PRNGKey(5)).logits
+    pool = DevicePool.from_torch()
+    try:
+        ex = OrigamiExecutor(cfg, params, devices=pool, shard="rows",
+                             hedging=False, **kw)
+        before = KB.LAUNCHES["limb_matmul"]
+        res = ex.infer(batch, session_key=PRNGKey(5))
+        assert KB.LAUNCHES["limb_matmul"] > before
+        assert res.sharding.crashes == res.sharding.timeouts == 0, \
+            res.sharding
+        assert res.sharding.checks == res.sharding.dispatches > 0
+        assert res.sharding.enclave_shards == 0, res.sharding
+        assert res.integrity.ok
+        assert torch.equal(res.logits, want)
+    finally:
+        pool.close()

@@ -1,0 +1,90 @@
+"""The plain versions of the two tensor-core kernels against the JAX
+package on the CPU, at the shapes those kernels serve on the main path.
+
+- ``limb_matmul_planes_plain`` bit-for-bit against
+  ``repro.kernels.limb_matmul.ref.field_matmul_ref`` and an int64 oracle at
+  the SmolLM-135M tier-1 shapes (the widest decode factor 4x576x1536, the
+  fold material 1536x576x2) and at a shape off every tile edge
+  (129x96x65), on random field elements and on the field's extremes (the
+  digits -128 and 127, the largest group sums);
+- ``flash_attention_plain`` against ``repro.kernels.flash_attention.ref.
+  mha_ref`` at head dims 32 and 64, bf16 (2e-2: one bf16 rounding of the
+  output on values of order 1) and float32 (2e-5: float32 on both sides,
+  other summation orders), ragged lengths, Sq > Skv and Sq = 1.
+
+The CUDA kernels are held against these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core  # noqa: E402,F401  (the reference's ops need core first)
+from repro.kernels.flash_attention.ref import mha_ref as jmha_ref  # noqa: E402
+from repro.kernels.limb_matmul import ref as jref  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_fwd, flash_attention_plain)
+from repro_torch.kernels.limb_matmul import ops as tops  # noqa: E402
+from repro_torch.kernels.limb_matmul.limb_matmul import (  # noqa: E402
+    limb_matmul_planes, limb_matmul_planes_plain)
+
+P, HALF = jref.P, jref.HALF
+# field elements whose balanced digits hit -128 and 127
+EXTREMES = np.asarray([0, 1, P - 1, HALF, HALF + 1, P - 2, 128, P - 128,
+                       32768, P - 32768], np.int32)
+
+
+def _field(rng, shape, kind):
+    if kind == "extreme":
+        return rng.choice(EXTREMES, size=shape)
+    return rng.integers(0, P, shape, dtype=np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+@pytest.mark.parametrize("M,K,N", [(4, 576, 1536),     # decode factor
+                                   (1536, 576, 2),     # fold material ws
+                                   (129, 96, 65)])     # off every tile edge
+def test_limb_matmul_plain_matches_reference_and_int64(M, K, N, kind):
+    rng = np.random.default_rng(M * 31 + K + N)
+    x, w = _field(rng, (M, K), kind), _field(rng, (K, N), kind)
+    Kp = tops.block_plan(M, K, N)[4]
+    xl = tops.field_planes(torch.from_numpy(x), Kp)
+    wl = tops.encode_weight_planes(torch.from_numpy(w))
+    got = limb_matmul_planes_plain(xl, wl).numpy()
+    oracle = (x.astype(np.int64) @ w.astype(np.int64)) % P
+    np.testing.assert_array_equal(got, oracle)
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.field_matmul_ref(jnp.asarray(x), jnp.asarray(w))))
+    # a CPU tensor takes the plain version through the wrapper
+    np.testing.assert_array_equal(limb_matmul_planes(xl, wl).numpy(), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal", [
+    (2, 100, 100, 6, 3, 32, True),       # D 32, ragged
+    (1, 130, 130, 9, 3, 64, True),       # smollm heads, ragged
+    (1, 70, 40, 4, 2, 64, True),         # causal, Sq > Skv
+    (2, 1, 50, 9, 3, 64, True),          # Sq = 1
+    (2, 37, 90, 4, 1, 32, False),        # non-causal, one KV head
+])
+def test_flash_plain_matches_reference(dtype, tol, B, Sq, Skv, H, KH, D,
+                                       causal):
+    rng = np.random.default_rng(Sq * 13 + Skv + D)
+    q, k, v = (rng.normal(size=s).astype(np.float32)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(jmha_ref(*(jnp.asarray(a, jdtype) for a in (q, k, v)),
+                               causal=causal).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    # a CPU tensor takes the plain version through the wrapper
+    assert torch.equal(flash_attention_fwd(tq, tk, tv, causal=causal), got)
