@@ -20,9 +20,12 @@ Phases (any failure is fatal and exits non-zero):
    version's time, the card's bound for the same work and, for the
    matmuls, nine ``torch._int_mm`` calls of one limb pair as a library
    yardstick, timed with B row-major and column-major (the faster
-   layout's sum is the library time); then limb_matmul at the SmolLM-135M
-   shapes (decode and prefill factors, fold material), bit-for-bit
-   against its plain version, on lines of their own;
+   layout's sum is the library time); then, on lines of their own, the
+   three field-product kernels at the SmolLM-135M shapes, bit-for-bit
+   against their plain versions: limb_matmul (decode and prefill factors,
+   fold material), limb_matmul_fused (the gate/up op in a token step and
+   in the prompt pass, with the ``_int_mm`` yardstick at the prefill) and
+   limb_fold (that op's check, [y | x] of 2112 digits, k = 2);
 3. fused serving — a full-width VGG-16 (224x224, 1000 classes, random
    weights from a seed) behind ``PrivateInferenceServer`` with tier-1
    blinded and Freivalds-verified (full, k=2): sealed requests, one
@@ -383,7 +386,7 @@ def phase_kernels(cfg, dev):
         if not torch.isfinite(got).all():
             raise AssertionError("limb_matmul_fused: non-finite output")
         ms, dms = timed(lambda: limb_matmul_planes_fused(xl, wl, u, scale),
-                        "limb_matmul_fused_kernel")
+                        "limb_matmul_fused_mma_kernel")
         pms = cuda_ms(lambda: limb_matmul_planes_fused_plain(xl, wl, u, scale),
                       reps=5)
         add("limb_matmul_fused", ms, dms, pms,
@@ -399,7 +402,8 @@ def phase_kernels(cfg, dev):
         fl = ops.field_planes(yx, sl.shape[1])
         got = limb_fold_planes(fl, sl)
         err = compare("limb_fold", got, limb_fold_planes_plain(fl, sl))
-        ms, dms = timed(lambda: limb_fold_planes(fl, sl), "limb_fold_kernel")
+        ms, dms = timed(lambda: limb_fold_planes(fl, sl),
+                        "limb_fold_mma_kernel")
         pms = cuda_ms(lambda: limb_fold_planes_plain(fl, sl), reps=5)
         Kf = sl.shape[1]
         add("limb_fold", ms, dms, pms, 3 * M * Kf + 3 * Kf * 2 + 4 * M * 2,
@@ -453,30 +457,86 @@ def phase_kernels(cfg, dev):
 LM_LIMB_SHAPES = (("decode factor", 4, 576, 1536),
                   ("prefill factor", 4096, 576, 1536),
                   ("fold material", 1536, 576, 2))
+# (label, M, K, N) of the widest SmolLM-135M blinded op (gate and up) as
+# the fused kernel serves it, in a token step and in the prompt pass
+LM_FUSED_SHAPES = (("decode op", 4, 576, 1536),
+                   ("prefill op", 4096, 576, 1536))
+# (label, M, Kf, kf) of its check: [y | x] is K + N = 2112 digits wide,
+# folded against k = 2 columns
+LM_FOLD_SHAPES = (("decode check", 4, 2112, 2),
+                  ("prefill check", 4096, 2112, 2))
+
+
+def _bound_ms(nbytes, nops):
+    return max(nbytes / BYTES_S, nops / INT8_OPS_S) * 1e3
 
 
 def phase_lm_limb_shapes(gen, dev):
-    """limb_matmul at the SmolLM-135M shapes, bit-for-bit against its plain
-    version; timed on lines of their own (not in the VGG sums)."""
+    """The three field-product kernels at the SmolLM-135M shapes, each
+    bit-for-bit against its plain version; timed on lines of their own
+    (not in the VGG sums)."""
+    def field(rows, cols):
+        return torch.randint(0, ref.P, (rows, cols), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def check(name, label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: kernel differs from its "
+                                 f"plain version")
+
     for label, M, K, N in LM_LIMB_SHAPES:
-        x = torch.randint(0, ref.P, (M, K), generator=gen, device=dev,
-                          dtype=torch.int32)
-        w = torch.randint(0, ref.P, (K, N), generator=gen, device=dev,
-                          dtype=torch.int32)
+        x, w = field(M, K), field(K, N)
         Kp = ops.block_plan(M, K, N)[4]
         xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
-        got = limb_matmul_planes(xl, wl)
-        if not torch.equal(got, limb_matmul_planes_plain(xl, wl)):
-            raise AssertionError(f"limb_matmul {label} ({M}x{Kp}x{N}): "
-                                 f"kernel differs from its plain version")
+        check("limb_matmul", f"{label} ({M}x{Kp}x{N})",
+              limb_matmul_planes(xl, wl), limb_matmul_planes_plain(xl, wl))
         ms, dms = timed(lambda: limb_matmul_planes(xl, wl),
                         "limb_matmul_mma_kernel")
         pms = cuda_ms(lambda: limb_matmul_planes_plain(xl, wl), reps=5)
-        nbytes = 3 * M * Kp + 3 * Kp * N + 4 * M * N
-        bound = max(nbytes / BYTES_S, 18 * M * Kp * N / INT8_OPS_S) * 1e3
+        bound = _bound_ms(3 * M * Kp + 3 * Kp * N + 4 * M * N,
+                          18 * M * Kp * N)
         print(f"limb_matmul smollm {label} ({M}x{Kp}x{N}): {ms:.4f} ms "
               f"(device {fmt_ms(dms)}), plain {pms:.4f} ms, bound "
-              f"{bound:.4f} ms; bit-equal")
+              f"{bound:.4g} ms; bit-equal")
+
+    scale = torch.tensor(3.1e-6, device=dev)
+    for label, M, K, N in LM_FUSED_SHAPES:
+        x, w, u = field(M, K), field(K, N), field(M, N)
+        Kp = ops.block_plan(M, K, N)[4]
+        xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+        check("limb_matmul_fused", f"{label} ({M}x{Kp}x{N})",
+              limb_matmul_planes_fused(xl, wl, u, scale),
+              limb_matmul_planes_fused_plain(xl, wl, u, scale))
+        ms, dms = timed(lambda: limb_matmul_planes_fused(xl, wl, u, scale),
+                        "limb_matmul_fused_mma_kernel")
+        pms = cuda_ms(lambda: limb_matmul_planes_fused_plain(xl, wl, u,
+                                                             scale), reps=5)
+        bound = _bound_ms(3 * M * Kp + 3 * Kp * N + 8 * M * N + 4,
+                          18 * M * Kp * N)
+        lib = ""
+        if M > 16:       # _int_mm takes more than 16 rows
+            a8, b8_col = xl[0], wl[0].t().contiguous().t()
+            lib_ms, lib_dms = timed(lambda: [torch._int_mm(a8, b8_col)
+                                             for _ in range(9)])
+            lib = (f", 9x _int_mm {lib_ms:.4f} ms (device "
+                   f"{fmt_ms(lib_dms)}) with B column-major")
+        print(f"limb_matmul_fused smollm {label} ({M}x{Kp}x{N}): {ms:.4f} "
+              f"ms (device {fmt_ms(dms)}), plain {pms:.4f} ms{lib}, bound "
+              f"{bound:.4g} ms; bit-equal")
+
+    for label, M, Kf, kf in LM_FOLD_SHAPES:
+        fl = ops.field_planes(field(M, Kf), Kf)
+        sl = ops.encode_weight_planes(field(Kf, kf))
+        check("limb_fold", f"{label} ({M}x{Kf}x{kf})",
+              limb_fold_planes(fl, sl), limb_fold_planes_plain(fl, sl))
+        ms, dms = timed(lambda: limb_fold_planes(fl, sl),
+                        "limb_fold_mma_kernel")
+        pms = cuda_ms(lambda: limb_fold_planes_plain(fl, sl), reps=5)
+        bound = _bound_ms(3 * M * Kf + 3 * Kf * kf + 4 * M * kf,
+                          18 * M * Kf * kf)
+        print(f"limb_fold smollm {label} ({M}x{Kf}x{kf}): {ms:.4f} ms "
+              f"(device {fmt_ms(dms)}), plain {pms:.4f} ms, bound "
+              f"{bound:.4g} ms; bit-equal")
 
 
 def _request(cfg, rid, rng):

@@ -8,66 +8,46 @@
 //
 // Bound on the H100: bytes. Every digit of Y is read once and meets at most
 // four fold columns: about 18 * kf int8 ops a 3 bytes read, far below the
-// card's ops-per-byte line. Design: one warp a row of Y, the 32 lanes on
-// neighbouring 4-byte words (coalesced 128-byte reads), the fold columns read
-// through the read-only cache (3 * kf * Kp bytes, shared by every row). Each
-// lane keeps five int32 power-group sums a fold column (a lane sees at most
-// Kp / 32 words, so the sums stay below 2^31 for Kp <= 2^20, which the
-// wrapper checks), the warp adds them in int64 with shuffles, and lane 0
-// recombines and writes.
-#include "field.cuh"
+// card's ops-per-byte line (743 MB over the VGG-16 tier-1 folds of a batch
+// of 4: 0.223 ms at 3.35 TB/s).
+//
+// Design: the fold is a field product with at most four output columns, so
+// it runs the tensor-core main loop of limb_mma.cuh over one n8 tile of
+// columns, the fold columns zero-padded from kf to 8 (the padding costs
+// tensor-core work, which is idle here, and no bytes). Y comes once, in
+// 16-byte cp.async chunks, into a 3-stage ring, with the fold columns'
+// digits of the stage staged beside it, so any Kp takes the same path.
+// The tensor cores do the k reduction and the groups are reduced mod p
+// every 32,768 k, so a row costs nothing at its end beyond its
+// recombination (field::recombine32, in registers) and one store of each
+// column < kf. The CUDA-core form it replaces gave a warp to a row, read
+// 4-byte words and ended every row with an int64 shuffle tree and lane 0's
+// int64 modulo: as long as the row itself at the VGG widths (Kp 96-1280).
+//
+// Two tilings, by the number of rows. Many rows (the VGG checks): 64 rows
+// a block, 8 warps, the k of each 128-digit stage split between two groups
+// of four (16 rows and 64 digits a warp), 24 KB of Y a stage, two blocks
+// an SM. Few rows (fewer 64-row tiles than two an SM: the SmolLM checks, 4
+// rows a token step and 4096 in the prompt pass): 16 rows a block and a
+// stage of 512 digits split among 8 warps, so a 4-row fold of 2112 digits
+// is 5 stages of one block. In both the warps' group sums meet in shared
+// memory at the end. Of the tilings timed on the H100 over the VGG-16
+// folds (64 to 128 rows a block, 1 to 8 warps along k, 2 to 6 stages),
+// these were the fastest for their rows.
+#include "limb_mma.cuh"
 
 namespace {
 
 constexpr int MAX_COLS = 4;
-constexpr int THREADS = 256;
+using FoldTiles = limb_mma::Tiles<64, 8, 4, 1, 3, 2>;
+using FewRowsTiles = limb_mma::Tiles<16, 8, 1, 1, 3, 8>;
 
-__global__ void __launch_bounds__(THREADS)
-limb_fold_kernel(const int8_t* __restrict__ y, const int8_t* __restrict__ sT,
-                 int* __restrict__ out, long long M, int Kp, int kf) {
-  const long long row = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;                         // warp-uniform
-  const size_t plane = static_cast<size_t>(M) * Kp;
-  const int words = Kp / 4;
-  const int* y0 = reinterpret_cast<const int*>(y + row * Kp);
-  const int* y1 = reinterpret_cast<const int*>(y + plane + row * Kp);
-  const int* y2 = reinterpret_cast<const int*>(y + 2 * plane + row * Kp);
-
-  int g[MAX_COLS][5];
-#pragma unroll
-  for (int f = 0; f < MAX_COLS; ++f)
-#pragma unroll
-    for (int s = 0; s < 5; ++s) g[f][s] = 0;
-
-  for (int w = lane; w < words; w += 32) {
-    const int a[3] = {__ldg(y0 + w), __ldg(y1 + w), __ldg(y2 + w)};
-#pragma unroll
-    for (int f = 0; f < MAX_COLS; ++f) {
-      if (f < kf) {
-        int b[3];
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-          b[p] = __ldg(reinterpret_cast<const int*>(
-                           sT + (static_cast<size_t>(p) * kf + f) * Kp) + w);
-        field::dp4a_groups(a, b, g[f]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int f = 0; f < MAX_COLS; ++f) {
-    if (f >= kf) break;
-    long long tot[5];
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      long long v = g[f][s];
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
-      tot[s] = v;
-    }
-    if (lane == 0) out[row * kf + f] = field::recombine(tot);
-  }
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+limb_fold_mma_kernel(const int8_t* __restrict__ y, const int8_t* __restrict__ sT,
+                     int* __restrict__ out, long long M, int kf, int Kp, int n_tiles) {
+  extern __shared__ __align__(128) int8_t smem[];
+  limb_mma::field_product<T>(y, sT, out, M, kf, Kp, n_tiles, smem);
 }
 
 }  // namespace
@@ -76,10 +56,15 @@ extern "C" int repro_limb_fold(const void* y, const void* sT, void* out, long lo
                                int Kp, int kf, void* stream) {
   if (M == 0) return 0;
   if (kf < 1 || kf > MAX_COLS) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (M * 32 + THREADS - 1) / THREADS;
-  limb_fold_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(y), static_cast<const int8_t*>(sT),
-      static_cast<int*>(out), M, Kp, kf);
-  return static_cast<int>(cudaGetLastError());
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((M + FoldTiles::TBM - 1) / FoldTiles::TBM < 2 * sms)
+    return limb_mma::launch<FewRowsTiles>(limb_fold_mma_kernel<FewRowsTiles>, y, sT, M, kf,
+                                          Kp, s, static_cast<int*>(out));
+  return limb_mma::launch<FoldTiles>(limb_fold_mma_kernel<FoldTiles>, y, sT, M, kf, Kp, s,
+                                     static_cast<int*>(out));
 }

@@ -1,12 +1,14 @@
-// Building blocks of the tensor-core kernels (limb_matmul.cu,
-// flash_attention.cu), as inline PTX for sm_90a:
+// Building blocks of the tensor-core kernels (limb_mma.cuh, which
+// limb_matmul.cu and limb_fold.cu share, and flash_attention.cu), as inline
+// PTX for sm_90a:
 //
 //   cp_async16      one 16-byte global -> shared copy (cp.async.cg), with the
 //                   source size 0 when `valid` is false: the hardware then
 //                   writes 16 zero bytes and reads nothing, which is how the
 //                   kernels zero-fill rows and k past a ragged edge;
-//   ldmatrix_x4     four 8x8 b16 matrices from shared memory into the
-//   (_trans)        register fragments of mma.sync, optionally transposed;
+//   ldmatrix_x4     four (or two) 8x8 b16 matrices from shared memory into
+//   (_x2, _trans)   the register fragments of mma.sync, optionally
+//                   transposed;
 //   mma_s8_16832    D += A (16x32 s8, row) * B (32x8 s8, col), s32 sums that
 //                   wrap on overflow (no .satfinite);
 //   mma_bf16_16816  D += A (16x16 bf16, row) * B (16x8 bf16, col), f32 sums.
@@ -43,6 +45,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* smem) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(smem)));
+}
+
+// Two matrices: lanes 0-15 give the row addresses (the others are ignored).
+__device__ __forceinline__ void ldmatrix_x2(unsigned r[2], const void* smem) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(smem)));
 }
 

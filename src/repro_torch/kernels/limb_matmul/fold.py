@@ -3,7 +3,8 @@
 Port of ``repro/kernels/limb_matmul/fold.py:limb_fold_planes``: the
 Freivalds fold ``(Y @ S) mod p`` of a (3, M, Kp) limb-plane operand against
 a skinny (3, Kp, kf) fold matrix. The kernel folds up to ``FOLD_COLS``
-columns a launch (one warp a row of Y); wider fold matrices go in groups.
+columns a launch (on the tensor cores, 16 or 64 rows of Y a block); wider
+fold matrices go in groups.
 A CPU tensor takes ``limb_fold_planes_plain``.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ from repro_torch.kernels.limb_matmul.limb_matmul import K_ALIGN
 from repro_torch.kernels.limb_matmul.ref import limb_product
 
 FOLD_COLS = 4
-MAX_KP = 1 << 20        # keeps the kernel's per-lane int32 sums exact
+MAX_KP = 1 << 20        # the deepest fold a launch takes
 
 
 def limb_fold_planes_plain(x_limbs: torch.Tensor,
@@ -39,9 +40,12 @@ def limb_fold_planes(x_limbs: torch.Tensor,
         raise ValueError(f"fold planes {tuple(x_limbs.shape)} x "
                          f"{tuple(s_limbs.shape)}: need (3, M, Kp) x "
                          f"(3, Kp, kf), Kp % {K_ALIGN} == 0, Kp <= {MAX_KP}")
+    # the kernel copies the planes in 16-byte chunks
+    x_limbs = KB.aligned16(x_limbs)
     outs = []
     for c0 in range(0, kf, FOLD_COLS):
-        s_t = s_limbs[:, :, c0:c0 + FOLD_COLS].transpose(1, 2).contiguous()
+        s_t = KB.aligned16(
+            s_limbs[:, :, c0:c0 + FOLD_COLS].transpose(1, 2).contiguous())
         cols = s_t.shape[1]
         out = torch.empty((M, cols), dtype=torch.int32,
                           device=x_limbs.device)

@@ -72,7 +72,8 @@ def limb_matmul_planes_fused(x_limbs: torch.Tensor, w_limbs: torch.Tensor,
                              scale: torch.Tensor) -> torch.Tensor:
     """Field matmul with the fused unblind + dequantize epilogue.
 
-    u: (M, N) int32 unblinding factors in [0, p); scale: 0-d float32 on the
+    u: (M, N) int32 unblinding factors in [0, p) (the kernel reduces
+    acc - u with one conditional add of p); scale: 0-d float32 on the
     planes' device. Returns (M, N) float32."""
     if KB.on_cpu(x_limbs):
         return limb_matmul_planes_fused_plain(x_limbs, w_limbs, u, scale)
@@ -84,7 +85,9 @@ def limb_matmul_planes_fused(x_limbs: torch.Tensor, w_limbs: torch.Tensor,
     if tuple(u.shape) != (M, N) or scale.numel() != 1:
         raise ValueError(f"u {tuple(u.shape)} (want {(M, N)}), scale "
                          f"{tuple(scale.shape)}")
-    w_t = w_limbs.transpose(1, 2).contiguous()
+    # the kernel copies the planes in 16-byte chunks
+    x_limbs = KB.aligned16(x_limbs)
+    w_t = KB.aligned16(w_limbs.transpose(1, 2).contiguous())
     out = torch.empty((M, N), dtype=torch.float32, device=x_limbs.device)
     KB.launch("limb_matmul_fused", x_limbs, x_limbs.data_ptr(),
               w_t.data_ptr(), u.data_ptr(), scale.data_ptr(), out.data_ptr(),

@@ -85,6 +85,126 @@ def test_limb_matmul_extreme_digits_wide(dev):
                                   limb_matmul_planes_plain(xl, wl).cpu().numpy())
 
 
+def _digits(kind, shape, rng):
+    """Limb planes of the extreme digits: all -128 (the largest group sums)
+    or a mix of -128 and 127."""
+    if kind == "-128":
+        return np.full(shape, -128, np.int8)
+    return rng.choice(np.array([-128, 127], np.int8), size=shape)
+
+
+def _from_digits(planes):
+    """The int64 values of (3, ...) limb planes: l0 + 256 l1 + 65536 l2,
+    canonical or not."""
+    p = planes.astype(np.int64)
+    return p[0] + 256 * p[1] + 65536 * p[2]
+
+
+def _fused_oracle(acc, u, scale):
+    """The fused epilogue in numpy on an exact field product."""
+    d = (acc - u.astype(np.int64)) % ref.P
+    s = np.where(d > ref.HALF, d - ref.P, d).astype(np.float32)
+    return s * np.float32(scale)
+
+
+@pytest.mark.parametrize("kind", ["-128", "mixed"])
+def test_fused_extreme_digits_wide(dev, kind):
+    """The fused kernel at the extreme digits across whole tiles (N >= 64)
+    with ragged edges and K = 40,000 (one mod-p reduction of the group
+    sums): bit-equal to its plain version and the int64 oracle."""
+    M, K, N = 130, 40000, 72
+    rng = np.random.default_rng(41)
+    xd, wd = _digits(kind, (3, M, K), rng), _digits(kind, (3, K, N), rng)
+    u = _field(rng, (M, N))
+    scale = torch.tensor(3.1e-6)
+    xl, wl = torch.from_numpy(xd).to(dev), torch.from_numpy(wd).to(dev)
+    got = limb_matmul_planes_fused(xl, wl, u.to(dev), scale.to(dev)).cpu()
+    np.testing.assert_array_equal(
+        got.numpy(), limb_matmul_planes_fused_plain(
+            xl, wl, u.to(dev), scale.to(dev)).cpu().numpy())
+    acc = (_from_digits(xd) @ _from_digits(wd)) % ref.P
+    np.testing.assert_array_equal(got.numpy(),
+                                  _fused_oracle(acc, u.numpy(), 3.1e-6))
+
+
+@pytest.mark.parametrize("kf", [2, 5])
+@pytest.mark.parametrize("kind", ["-128", "mixed"])
+@pytest.mark.parametrize("M", [130,        # the few-row tiles
+                               16897])     # the 64-row tiles: more of them
+                                           # than two an H100 SM, ragged
+def test_fold_extreme_digits_past_reduction(dev, M, kind, kf):
+    """The fold at the extreme digits past 32,768 k (one mod-p reduction)
+    on both of its tilings: bit-equal to its plain version, and to the
+    int64 oracle on the first and last 64 rows; kf = 5 takes two
+    launches."""
+    Kp = 32800
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(M + kf)
+
+    def digits(shape):
+        if kind == "-128":
+            return torch.full(shape, -128, dtype=torch.int8, device=dev)
+        bits = torch.randint(0, 2, shape, generator=gen, device=dev,
+                             dtype=torch.int8).bool()
+        return torch.where(bits, torch.tensor(127, dtype=torch.int8,
+                                              device=dev),
+                           torch.tensor(-128, dtype=torch.int8, device=dev))
+
+    yl, sl = digits((3, M, Kp)), digits((3, Kp, kf))
+    got = limb_fold_planes(yl, sl)
+    assert torch.equal(got, limb_fold_planes_plain(yl, sl))
+    rows = np.r_[0:64, M - 64:M]
+    want = (_from_digits(yl[:, rows].cpu().numpy())
+            @ _from_digits(sl.cpu().numpy())) % ref.P
+    np.testing.assert_array_equal(got[rows].cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 27, 1), (4, 576, 1536),
+                                   (129, 96, 65), (200, 40, 7),
+                                   (4097, 576, 130)])
+def test_fused_off_tile_edges(dev, M, K, N):
+    """The fused kernel off every edge of its 64x64 tile, at M = 1 and the
+    decode's 4 rows: bit-equal to its plain version and the int64 oracle,
+    one launch."""
+    rng = np.random.default_rng(M + 3 * N)
+    x, w, u = _field(rng, (M, K)), _field(rng, (K, N)), _field(rng, (M, N))
+    Kp = ops.block_plan(M, K, N)[4]
+    xl, wl = ops.field_planes(x, Kp).to(dev), ops.encode_weight_planes(w).to(dev)
+    scale = torch.tensor(2.7e-5, device=dev)
+    before = KB.LAUNCHES["limb_matmul_fused"]
+    got = limb_matmul_planes_fused(xl, wl, u.to(dev), scale)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["limb_matmul_fused"] == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        limb_matmul_planes_fused_plain(xl, wl, u.to(dev), scale).cpu().numpy())
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        _fused_oracle(_oracle(x.numpy(), w.numpy()), u.numpy(), 2.7e-5))
+
+
+@pytest.mark.parametrize("M,Kf,kf", [(1, 32, 1), (4, 2112, 2), (129, 704, 3),
+                                     (257, 96, 4), (130, 640, 5),
+                                     (16897, 96, 2), (17000, 704, 3)])
+def test_fold_off_tile_edges(dev, M, Kf, kf):
+    """The fold off its tiles (16 rows for few rows, 64 rows from 16,896
+    rows on an H100), at M = 1 and the decode's 4 rows, for kf = 1..5
+    (the padded n8 tile, and two launches at kf = 5): bit-equal to its
+    plain version and the int64 oracle."""
+    rng = np.random.default_rng(M * 5 + kf)
+    y, s = _field(rng, (M, Kf)), _field(rng, (Kf, kf))
+    yl = ops.field_planes(y, Kf).to(dev)
+    sl = ops.encode_weight_planes(s).to(dev)
+    before = KB.LAUNCHES["limb_fold"]
+    got = limb_fold_planes(yl, sl)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["limb_fold"] == before + (kf + 3) // 4
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), limb_fold_planes_plain(yl, sl).cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle(y.numpy(), s.numpy()))
+
+
 def test_limb_matmul_unaligned_planes(dev):
     """Planes that do not start on 16 bytes are copied, not refused."""
     rng = np.random.default_rng(5)
@@ -99,10 +219,10 @@ def test_limb_matmul_unaligned_planes(dev):
 
 
 def test_tensor_core_kernels_in_sass(dev):
-    """The built library's SASS: the bf16 flash kernels issue HMMA/HGMMA
-    and the plain limb matmul IMMA/IGMMA, and both copy their tiles with
-    cp.async (LDGSTS) or TMA (UTMALDG), so neither can quietly go back to
-    the CUDA cores."""
+    """The built library's SASS: the bf16 flash kernels issue HMMA/HGMMA and
+    the limb kernels (plain, fused, fold) IMMA/IGMMA with no IDP
+    (dp4a), and all copy their tiles with cp.async (LDGSTS) or TMA
+    (UTMALDG), so none can quietly go back to the CUDA cores."""
     import re
     import subprocess
     sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
@@ -112,13 +232,19 @@ def test_tensor_core_kernels_in_sass(dev):
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
     flash = [b for n, b in bodies.items() if "flash_fwd_bf16_mma_kernel" in n]
-    limb = [b for n, b in bodies.items() if "limb_matmul_mma_kernel" in n]
-    assert len(flash) == 4 and len(limb) == 1, sorted(bodies)
+    limb = [b for n, b in bodies.items()
+            if any(k in n for k in ("limb_matmul_mma_kernel",
+                                    "limb_matmul_fused_mma_kernel",
+                                    "limb_fold_mma_kernel"))]
+    # the fold has two tilings, one kernel each
+    assert len(flash) == 4 and len(limb) == 4, sorted(bodies)
     for body in flash:
         assert re.search(r"\bHG?MMA\b", body)
         assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
-    assert re.search(r"\bIG?MMA\b", limb[0])
-    assert re.search(r"\b(LDGSTS|UTMALDG)\b", limb[0])
+    for body in limb:
+        assert re.search(r"\bIG?MMA\b", body)
+        assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
+        assert not re.search(r"\bIDP", body)
 
 
 @pytest.mark.parametrize("M,K,N", [(300, 72, 8), (200, 27, 64),
@@ -404,9 +530,10 @@ def _second_card():
 
 
 def test_tensor_core_kernels_on_every_card(dev):
-    """The tensor-core kernels take more shared memory than a launch gets
-    by default, a limit each card keeps for itself: every card runs them,
-    with another card current, as the first card does."""
+    """The tensor-core kernels (limb matmul, fused, fold, flash) take more
+    shared memory than a launch gets by default, a limit each card keeps
+    for itself: every card runs them, with another card current, as the
+    first card does."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_fwd, flash_attention_plain)
     _second_card()
@@ -415,6 +542,12 @@ def test_tensor_core_kernels_on_every_card(dev):
     x, w = _field(rng, (130, 576)), _field(rng, (576, 130))
     Kp = ops.block_plan(130, 576, 130)[4]
     xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+    acc = _oracle(x.numpy(), w.numpy())
+    u, scale = _field(rng, (130, 130)), torch.tensor(3.1e-6)
+    # the fold on both of its tilings: 16-row and 64-row tiles
+    y, s = _field(rng, (17000, 704)), _field(rng, (704, 2))
+    yl, sl = ops.field_planes(y, 704), ops.encode_weight_planes(s)
+    fold_want = _oracle(y.numpy(), s.numpy())
     q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                .to(torch.bfloat16) for s in ((2, 100, 6, 64), (2, 100, 3, 64),
                                              (2, 100, 3, 64)))
@@ -426,10 +559,18 @@ def test_tensor_core_kernels_on_every_card(dev):
         card = torch.device("cuda", i)
         with torch.cuda.device((i + 1) % n):
             got = limb_matmul_planes(xl.to(card), wl.to(card))
+            fused = limb_matmul_planes_fused(xl.to(card), wl.to(card),
+                                             u.to(card), scale.to(card))
+            fold = limb_fold_planes(yl.to(card), sl.to(card))
+            few = limb_fold_planes(yl[:, :300].contiguous().to(card),
+                                   sl.to(card))
             att = flash_attention_fwd(q.to(card), k.to(card), v.to(card))
-        assert got.device == att.device == card
-        np.testing.assert_array_equal(got.cpu().numpy(),
-                                      _oracle(x.numpy(), w.numpy()))
+        assert got.device == fused.device == fold.device == att.device == card
+        np.testing.assert_array_equal(got.cpu().numpy(), acc)
+        np.testing.assert_array_equal(fused.cpu().numpy(),
+                                      _fused_oracle(acc, u.numpy(), 3.1e-6))
+        np.testing.assert_array_equal(fold.cpu().numpy(), fold_want)
+        np.testing.assert_array_equal(few.cpu().numpy(), fold_want[:300])
         assert torch.equal(att.cpu(), first)
 
 

@@ -1,5 +1,5 @@
-"""The plain versions of the two tensor-core kernels against the JAX
-package on the CPU, at the shapes those kernels serve on the main path.
+"""The plain versions of the tensor-core kernels against the JAX package on
+the CPU, at the shapes those kernels serve on the main path.
 
 - ``limb_matmul_planes_plain`` bit-for-bit against
   ``repro.kernels.limb_matmul.ref.field_matmul_ref`` and an int64 oracle at
@@ -7,6 +7,14 @@ package on the CPU, at the shapes those kernels serve on the main path.
   fold material 1536x576x2) and at a shape off every tile edge
   (129x96x65), on random field elements and on the field's extremes (the
   digits -128 and 127, the largest group sums);
+- ``limb_matmul_planes_fused_plain`` bit-for-bit against the reference's
+  ``limb_matmul_planes_fused`` (Pallas, interpret mode) and an int64 oracle
+  with the same epilogue in numpy, at the SmolLM-135M decode op
+  (4x576x1536) and off every tile edge (129x96x65), random and extreme;
+- ``limb_fold_planes_plain`` bit-for-bit against the reference's
+  ``field_fold`` and an int64 oracle at the SmolLM-135M decode check
+  (4x2112x2: [y | x] of the gate/up op, k = 2) and a VGG-16 width off the
+  kernel's 128-row tile (129x704x2), random and extreme;
 - ``flash_attention_plain`` against ``repro.kernels.flash_attention.ref.
   mha_ref`` at head dims 32 and 64, bf16 (2e-2: one bf16 rounding of the
   output on values of order 1) and float32 (2e-5: float32 on both sides,
@@ -27,12 +35,18 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core  # noqa: E402,F401  (the reference's ops need core first)
 from repro.kernels.flash_attention.ref import mha_ref as jmha_ref  # noqa: E402
+from repro.kernels.limb_matmul import ops as jops  # noqa: E402
 from repro.kernels.limb_matmul import ref as jref  # noqa: E402
+from repro.kernels.limb_matmul.limb_matmul import (  # noqa: E402
+    limb_matmul_planes_fused as jlimb_matmul_planes_fused)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.limb_matmul import ops as tops  # noqa: E402
+from repro_torch.kernels.limb_matmul.fold import (  # noqa: E402
+    limb_fold_planes, limb_fold_planes_plain)
 from repro_torch.kernels.limb_matmul.limb_matmul import (  # noqa: E402
-    limb_matmul_planes, limb_matmul_planes_plain)
+    limb_matmul_planes, limb_matmul_planes_fused,
+    limb_matmul_planes_fused_plain, limb_matmul_planes_plain)
 
 P, HALF = jref.P, jref.HALF
 # field elements whose balanced digits hit -128 and 127
@@ -63,6 +77,56 @@ def test_limb_matmul_plain_matches_reference_and_int64(M, K, N, kind):
         got, np.asarray(jref.field_matmul_ref(jnp.asarray(x), jnp.asarray(w))))
     # a CPU tensor takes the plain version through the wrapper
     np.testing.assert_array_equal(limb_matmul_planes(xl, wl).numpy(), got)
+
+
+def _oracle(x, w):
+    return (x.astype(np.int64) @ w.astype(np.int64)) % P
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+@pytest.mark.parametrize("M,K,N", [(4, 576, 1536),     # decode op (gate/up)
+                                   (129, 96, 65)])     # off every tile edge
+def test_fused_plain_matches_reference_and_int64(M, K, N, kind):
+    rng = np.random.default_rng(M * 17 + K + N)
+    x, w = _field(rng, (M, K), kind), _field(rng, (K, N), kind)
+    u = _field(rng, (M, N), kind)
+    scale = np.float32(3.1e-6)
+    Kp = tops.block_plan(M, K, N)[4]
+    xl = tops.field_planes(torch.from_numpy(x), Kp)
+    wl = tops.encode_weight_planes(torch.from_numpy(w))
+    ut, st = torch.from_numpy(u), torch.tensor(scale)
+    got = limb_matmul_planes_fused_plain(xl, wl, ut, st).numpy()
+    assert got.dtype == np.float32 and got.shape == (M, N)
+    # the epilogue in numpy: signed((acc - u) mod p), one f32 multiply
+    d = (_oracle(x, w) - u) % P
+    s = np.where(d > HALF, d - P, d).astype(np.float32)
+    np.testing.assert_array_equal(got, s * scale)
+    # the reference's Pallas kernel on the same planes (one block: the
+    # shapes are its exact fit)
+    want = jlimb_matmul_planes_fused(
+        jnp.asarray(xl.numpy()), jnp.asarray(wl.numpy()), jnp.asarray(u),
+        jnp.full((1, 1), scale, jnp.float32), bm=M, bn=min(N, 256), bk=Kp,
+        interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    # a CPU tensor takes the plain version through the wrapper
+    np.testing.assert_array_equal(
+        limb_matmul_planes_fused(xl, wl, ut, st).numpy(), got)
+
+
+@pytest.mark.parametrize("kind", ["random", "extreme"])
+@pytest.mark.parametrize("M,Kf,kf", [(4, 2112, 2),     # decode check
+                                     (129, 704, 2)])   # VGG width, ragged
+def test_fold_plain_matches_reference_and_int64(M, Kf, kf, kind):
+    rng = np.random.default_rng(M * 13 + Kf + kf)
+    y, s = _field(rng, (M, Kf), kind), _field(rng, (Kf, kf), kind)
+    yl = tops.field_planes(torch.from_numpy(y), Kf)
+    sl = tops.encode_weight_planes(torch.from_numpy(s))
+    got = limb_fold_planes_plain(yl, sl).numpy()
+    np.testing.assert_array_equal(got, _oracle(y, s))
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.field_fold(jnp.asarray(y), jnp.asarray(s))))
+    # a CPU tensor takes the plain version through the wrapper
+    np.testing.assert_array_equal(limb_fold_planes(yl, sl).numpy(), got)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
