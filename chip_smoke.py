@@ -20,7 +20,9 @@ Phases (any failure is fatal and exits non-zero):
    version's time, the card's bound for the same work and, for the
    matmuls, nine ``torch._int_mm`` calls of one limb pair as a library
    yardstick, timed with B row-major and column-major (the faster
-   layout's sum is the library time); then, on lines of their own, the
+   layout's sum is the library time); the fused kernel also bit-equal
+   to its plain version for u drawn over all of int32 (the reference's
+   epilogue wraps in int32); then, on lines of their own, the
    three field-product kernels at the SmolLM-135M shapes, bit-for-bit
    against their plain versions: limb_matmul (decode and prefill factors,
    fold material), limb_matmul_fused (the gate/up op in a token step and
@@ -62,18 +64,44 @@ Phases (any failure is fatal and exits non-zero):
    the reference's tests/test_generate.py), the first new token's logits
    within 0.25 of the open float prefill, no failed ring refill, a
    bit-flipping device caught op by op; prefill and per-token decode
-   times.
+   times;
+11. planned serving (run after the plane, before generation) — the
+   engine's device stage without its queues, on the same VGG-16 weights:
+   ``PartitionPlanner.plan`` picks the partition on the card (its
+   leakage profile, choice, feasible set and modeled runtime printed);
+   the executor warms every bucket of ``bucket_ladder(4)`` and both
+   trace kinds through a ``CompileCache`` as CUDA graphs (exactly 6
+   captures); 8 sealed batches of 4 go through
+   ``prepare_sealed_batch``/``complete_prepared_batch`` with keys from a
+   ``SessionPool(depth=4)`` under a ``Tracer``. Gates: no request-path
+   capture and no fallback; each batch's replay bit-equal to an eager
+   infer of the same session in logits, boundary, report and launch
+   counts, and to the enclave recompute; no failed refill; a re-issued
+   key raises ``SessionReuseError``; the serving spans present and no
+   inner span on a replay; on an eager run each ``kernel.*`` span count
+   equal to its launches; the Chrome trace written by ``dump_chrome``
+   parses and holds no tensor; a two-slot plane with
+   slot 1 flipping bits logs a ``shard_*`` event for slot 1 in its
+   ``FlightRecorder``; mixed and verified-open plans, eager and
+   replayed, bit-equal to the trusted boundary with every check
+   passing. Printed, not gated: eager and replayed infer times, the
+   factor copy into the graph, the first request with and without
+   ``warm_aot``, the device-busy share and top device ops of one infer
+   from ``torch.profiler``, and ``planner.calibrate``'s fit.
 
-Phases 3, 5-8 and 10 each read the launch counts around exactly the calls
-they drive and fail unless their path launched its kernels and no other.
+Phases 3, 5-8, 10 and 11 each read the launch counts around exactly the
+calls they drive and fail unless their path launched its kernels and no
+other.
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -391,8 +419,15 @@ def phase_kernels(cfg, dev):
                       reps=5)
         add("limb_matmul_fused", ms, dms, pms,
             3 * M * Kp + 3 * Kp * N + 8 * M * N + 4, mm_ops, err)
+        # the epilogue's contract holds for any int32 u, not only [0, p)
+        u_any = torch.randint(-(2 ** 31), 2 ** 31, (M, N), generator=gen,
+                              device=dev, dtype=torch.int64).to(torch.int32)
+        compare("limb_matmul_fused (u over int32)",
+                limb_matmul_planes_fused(xl, wl, u_any, scale),
+                limb_matmul_planes_fused_plain(xl, wl, u_any, scale))
         print(f"limb_matmul_fused {layer} ({M}x{Kp}x{N}): {ms:.3f} ms "
-              f"(device {fmt_ms(dms)}), plain {pms:.3f} ms")
+              f"(device {fmt_ms(dms)}), plain {pms:.3f} ms; bit-equal for u "
+              f"in [0, p) and over int32")
 
         # limb_fold: [y | x] against a k=2 fold matrix
         yx = torch.cat([u, r], dim=1)
@@ -811,6 +846,366 @@ def phase_plane(cfg, params, batch, single, dev):
         torch.cuda.empty_cache()
 
 
+PLANNED_BATCHES = 8
+SERVING_SPANS = ("request", "unseal", "session.acquire", "infer", "verify",
+                 "seal")
+INNER_SPANS = ("plan.segment", "op.blinded", "op.trusted")
+# kernel span -> the kernels its wrapper launches once a call
+KERNEL_SPANS = {"kernel.fused_blind_matmul": ("blind_encode",
+                                              "limb_matmul_fused"),
+                "kernel.limb_matmul": ("limb_matmul",),
+                "kernel.fold": ("limb_fold",)}
+
+
+def _result_equal(a, b):
+    """Logits, boundary and integrity report bit-equal."""
+    return (torch.equal(a.logits, b.logits)
+            and torch.equal(a.boundary, b.boundary)
+            and all(torch.equal(getattr(a.integrity, f),
+                                getattr(b.integrity, f))
+                    for f in ("checked", "failed", "corrupted")))
+
+
+def _busy_share(fn, top=6):
+    """(device-busy share, top device ops) of one call of ``fn``: the union
+    of the device activity intervals ``torch.profiler`` saw over the
+    call's wall interval (the call synchronizes at its end), None when it
+    saw none; and the ``top`` device ops by device time, as (name, ms,
+    count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.window"):
+            fn()
+            torch.cuda.synchronize()
+    ops = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        t = ev.cuda_time_total if t is None else t
+        if t > 0 and ev.key != "smoke.window":
+            ops.append((ev.key[:48], t / 1e3, ev.count))
+    ops = sorted(ops, key=lambda o: -o[1])[:top]
+    events = prof.events()
+    win = [e for e in events if e.name == "smoke.window"]
+    if not win:
+        return None, ops
+    lo, hi = win[0].time_range.start, win[0].time_range.end
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events if e.device_type == DeviceType.CUDA)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in spans:
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    return (busy / (hi - lo) if busy > 0 and hi > lo else None), ops
+
+
+def _free():
+    """Collect dropped executors (their CUDA graphs' private pools) and
+    return the memory; print what the card still holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory held: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
+def _spread(ms):
+    return (f"{statistics.median(ms):.2f} ms (median of {len(ms)}, range "
+            f"{min(ms):.2f}-{max(ms):.2f})")
+
+
+def _planned_readings(ex, batch, card):
+    """Warm blinded infer eager and replayed (factors prefetched), the
+    factor copy into the graph's buffers and the device-busy share of one
+    of each, printed, not gated."""
+    keys = [PRNGKey(SEED + 50 + i) for i in range(10)]
+    eager_ms, replay_ms = [], []
+    for k in keys:
+        ex.prepare_session(k)
+        eager_ms.append(_timed(lambda: ex.infer(batch, k, jit=False))[0])
+        ex.prepare_session(k)
+        replay_ms.append(_timed(lambda: ex.infer(batch, k))[0])
+    step = ex._executables[(False, ex.plan.digest, ex._shapes(batch))]
+    factors = ex.cache.session_factors(keys[0])
+    copy_ms = cuda_ms(lambda: step.load((batch, keys[0], factors)))
+    nbytes = sum(v.numel() * v.element_size() for e in factors
+                 for kk, v in e.items()
+                 if kk in ("r", "u", "s", "ws") and v is not None)
+    del factors
+    busy, tops = [], []
+    for jit in (False, True):
+        ex.prepare_session(keys[0])
+        share, ops = _busy_share(lambda: ex.infer(batch, keys[0], jit=jit))
+        busy.append("not measured" if share is None else f"{share:.4f}")
+        tops.append("; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in ops))
+    print(f"planned serving readings on {card}, {ex.plan.summary()} "
+          f"(batch {BATCH}, factors prefetched): warm blinded infer eager "
+          f"{_spread(eager_ms)}, replayed {_spread(replay_ms)}; factor "
+          f"copy into the graph {copy_ms:.3f} ms for "
+          f"{nbytes / 2 ** 20:.1f} MiB; device-busy share eager {busy[0]}, "
+          f"replayed {busy[1]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"  top device ops, eager infer: {tops[0]}")
+    print(f"  top device ops, replayed infer: {tops[1]}")
+
+
+def phase_planned_serving(cfg, params, dev, card):
+    """The engine's device stage without its queues: the partition planner
+    picks the plan, the executor is warmed through a CompileCache (CUDA
+    graphs of every bucket and trace kind), a SessionPool hands out the
+    session keys and sealed batches are served under a Tracer; the
+    profiler folds the trees and the planner re-prices from them."""
+    from repro_torch.core import plan as PL
+    from repro_torch.core import tracing
+    from repro_torch.core.planner import PartitionPlanner
+    from repro_torch.runtime.aot import CompileCache, bucket_ladder
+    from repro_torch.runtime.observability import MetricsRegistry
+    from repro_torch.runtime.profiling import (CriticalPathProfiler,
+                                               FlightRecorder)
+    from repro_torch.runtime.serving import (complete_prepared_batch,
+                                             prepare_sealed_batch)
+    from repro_torch.runtime.sessions import SessionPool, SessionReuseError
+    tag = f"planned serving on {card}"
+    policy = IntegrityPolicy.full(k=2)
+    shape = (cfg.image_size, cfg.image_size, cfg.image_channels)
+    t0 = time.perf_counter()
+    planner = PartitionPlanner()
+    pplan = planner.plan(cfg, params)
+    plan_s = time.perf_counter() - t0
+    print(f"{tag}: leakage profile "
+          f"{ {p: round(v, 5) for p, v in pplan.leakage.items()} }; "
+          f"{pplan.summary()}; feasible {pplan.feasible}; modeled runtime "
+          f"of the chosen partition {pplan.runtime_s[pplan.partition]:.6f} s"
+          f"; planned in {plan_s:.2f} s")
+    plan = pplan.to_placement(cfg)
+
+    # warm every (bucket, trace kind) through one CompileCache
+    tracer = tracing.Tracer()
+    registry = MetricsRegistry()
+    cache = CompileCache(registry=registry)
+    ex = OrigamiExecutor(cfg, params, plan=plan, precompute=True,
+                         integrity=policy, device=dev)
+    ex.attach_aot(cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tracing.activate(tracer):
+        warm_ms, n_warm = _timed(lambda: ex.warm_aot(
+            "images", shape, bucket_ladder(BATCH)))
+    assert n_warm == 6 and cache.counters["compiles"] == 6, cache.stats()
+    print(f"{tag}: warm_aot {n_warm} signatures in {warm_ms:.1f} "
+          f"ms ({plan.summary()}); peak device memory after warming "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # serve sealed batches with pool keys under the tracer
+    rng = np.random.default_rng(SEED + 7)
+    pool = SessionPool(ex, depth=4)
+    served = []                              # (key, batch, keys, responses)
+    taken = []
+
+    def acquire():
+        taken.append(pool.acquire())
+        return taken[-1]
+
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    t = time.perf_counter()
+    for b in range(PLANNED_BATCHES):
+        reqs, ckeys, _ = zip(*[_request(cfg, 1000 + b * BATCH + i, rng)
+                               for i in range(BATCH)])
+        with tracer.span("request", "request", model=cfg.name,
+                         plan=ex.plan.digest, shape=[BATCH, *shape]):
+            prep = prepare_sealed_batch(list(reqs), max_batch=BATCH)
+            boxes, n_valid, _, integ = complete_prepared_batch(
+                ex, prep, session_key=acquire)
+        assert n_valid == BATCH and not integ.flagged, integ
+        served.append((taken[-1], {"images": prep.x}, ckeys, boxes))
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(KB.LAUNCHES)
+    check_launches(launches, FUSED_PATH, "planned serving path")
+    stats = pool.stats()
+    pool.close()
+    assert stats["refill_errors"] == 0, stats
+    pool._head = 0                           # a counter rollback
+    try:
+        pool.acquire()
+        raise AssertionError("a re-issued session key was not refused")
+    except SessionReuseError:
+        pass
+    aot = cache.stats()
+    assert aot["request_compile_seconds"] == 0.0, aot
+    assert aot["exec_fallbacks"] == 0 and aot["compiles"] == 6, aot
+
+    # replay == eager == enclave recompute, launches credited == eager's
+    for key, batch, ckeys, boxes in served:
+        ex.prepare_session(key)
+        eager_n, _, eager = counted(lambda: ex.infer(batch, key, jit=False))
+        ex.prepare_session(key)
+        replay_n, _, replay = counted(lambda: ex.infer(batch, key))
+        if not _result_equal(replay, eager):
+            raise AssertionError("planned serving: a replay differs from "
+                                 "the eager infer")
+        if replay_n != eager_n:
+            raise AssertionError(f"replay launches {replay_n} != eager "
+                                 f"{eager_n}")
+        opened = np.stack([PrivateInferenceServer.client_open(
+            k, bx, (cfg.num_classes,)) for k, bx in zip(ckeys, boxes)])
+        if not np.array_equal(opened, eager.logits.cpu().numpy()):
+            raise AssertionError("served logits differ from the eager infer")
+    trusted = ex.infer(batch, trusted=True)
+    if not torch.equal(trusted.logits, eager.logits):
+        raise AssertionError("replayed logits differ from the enclave "
+                             "recompute")
+
+    # spans: the serving spans, none of the inner ones on a replay
+    names = [sp.name for sp in tracer.spans()]
+    missing = [n for n in SERVING_SPANS if n not in names]
+    assert not missing, missing
+    assert "compile.aot" in names, names
+    inner = [n for n in names if n in INNER_SPANS]
+    assert not inner, inner
+    with tempfile.TemporaryDirectory(
+            dir=Path(__file__).resolve().parent) as out:
+        path = Path(out) / "planned_serving_trace.json"
+        n_events = tracer.dump_chrome(path)
+        doc = json.loads(path.read_text())
+    assert len(doc["traceEvents"]) == n_events
+    assert "tensor(" not in json.dumps(doc)
+    # an eager run under kernel spans: one span per wrapper launch
+    key = PRNGKey(SEED + 30)
+    ex.prepare_session(key)
+    ktracer = tracing.Tracer(kernel_spans=True)
+    torch.cuda.synchronize()
+    KB.reset_launches()
+    with tracing.activate(ktracer):
+        ex.infer(batch, key, jit=False)
+        ex.infer(batch, trusted=True, jit=False)
+    torch.cuda.synchronize()
+    k_launches = dict(KB.LAUNCHES)
+    k_names = [sp.name for sp in ktracer.spans()]
+    for span, kernels in KERNEL_SPANS.items():
+        for name in kernels:
+            if k_names.count(span) != k_launches[name]:
+                raise AssertionError(f"{span} spans {k_names.count(span)} "
+                                     f"!= {name} launches "
+                                     f"{k_launches[name]}")
+    assert k_names.count("kernel.fused_blind_matmul") > 0, k_names
+    print(f"{tag}: {PLANNED_BATCHES} sealed batches of {BATCH} in "
+          f"{serve_ms:.1f} ms; replay == eager (logits, boundary, report) "
+          f"== enclave recompute; replay launches == eager "
+          f"{replay_n}; pool {stats}; reuse refused; aot {aot}; spans "
+          f"{len(names)} ({n_events} chrome events), no inner span on a "
+          f"replay; eager kernel spans == launches {k_launches}")
+
+    # the plane (eager) with a flight recorder: slot 1 flips bits
+    pool2 = DevicePool(2, faults={1: DishonestDevice(FaultSpec("bit_flip"))})
+    try:
+        ex2 = OrigamiExecutor(cfg, params, plan=plan, precompute=True,
+                              integrity=policy, devices=pool2,
+                              hedging=False, device=dev)
+        ex2.attach_aot(cache)
+        assert ex2.warm_aot("images", shape, (BATCH,)) == 0
+        rec = FlightRecorder()
+        ex2.plane.recorder = rec
+        res2 = ex2.infer(batch, key)
+        assert res2.integrity.ok, res2.integrity
+        if not torch.equal(res2.logits, eager.logits):
+            raise AssertionError("plane logits differ from the executor's")
+        bad = pool2.slots[1].name
+        hits = [ev for ev in rec.events if ev["kind"].startswith("shard_")
+                and ev["attrs"].get("device") == bad]
+        assert hits, list(rec.events)
+        bundle = json.loads(json.dumps(rec.dump("manual", tracer=tracer,
+                                                registry=registry)))
+        assert bundle["events"], bundle
+    finally:
+        pool2.close()
+    print(f"{tag}: plane (2 slots, slot 1 bit_flip) eager, "
+          f"warm_aot 0; flight recorder {len(rec.events)} events, "
+          f"{hits[0]['kind']} on {bad}; dump parses")
+    del ex2
+    _free()
+
+    # mixed and verified-open plans at full width, eager and replayed
+    mcache = CompileCache()
+    for label, mplan in (("mixed", PL.make_mixed(cfg)),
+                         ("vopen", PL.make_vopen(cfg))):
+        exm = OrigamiExecutor(cfg, params, plan=mplan, precompute=True,
+                              integrity=policy, device=dev)
+        exm.attach_aot(mcache)
+        k = PRNGKey(SEED + 40)
+        exm.prepare_session(k)
+        e = exm.infer(batch, k, jit=False)
+        exm.prepare_session(k)
+        r = exm.infer(batch, k)
+        tr = exm.infer(batch, trusted=True)
+        n_ops = len(mplan.cache_ops)
+        for name, res in (("eager", e), ("replayed", r)):
+            rep = res.integrity
+            if not torch.equal(res.boundary, tr.boundary):
+                raise AssertionError(f"{label} {name}: boundary differs "
+                                     f"from the trusted recompute")
+            assert rep.n_ops == rep.n_checked == n_ops, (label, name, rep)
+            assert rep.n_failed == 0, (label, name, rep)
+        if not _result_equal(r, e):
+            raise AssertionError(f"{label}: replay differs from eager")
+        print(f"{tag}: {mplan.summary()}: {n_ops} ops checked "
+              f"and passing, eager and replayed; boundary == trusted "
+              f"recompute; logits == trusted "
+              f"{torch.equal(e.logits, tr.logits)}")
+        del exm, e, r, tr, res
+    del mcache
+    _free()
+
+    # readings (not gated): the planned executor and the config's origami
+    # partition (tier-1 = layers 1-6, the plan of the serving phases)
+    exo = OrigamiExecutor(cfg, params, mode="origami", precompute=True,
+                          integrity=policy, device=dev)
+    exo.attach_aot(CompileCache())
+    exo.warm_aot("images", shape, (BATCH,))
+    _planned_readings(ex, batch, card)
+    _planned_readings(exo, batch, card)
+    del exo
+    _free()
+    colds = {}
+    key = PRNGKey(SEED + 60)
+    for label, warm in (("without warm_aot", False),
+                        ("after warm_aot", True)):
+        exc = OrigamiExecutor(cfg, params, plan=plan, precompute=True,
+                              integrity=policy, device=dev)
+        exc.attach_aot(CompileCache())
+        if warm:
+            exc.warm_aot("images", shape, (BATCH,))
+        exc.build_cache(batch)
+        exc.prepare_session(key)
+        colds[label] = _timed(lambda: exc.infer(batch, key))[0]
+        del exc
+        _free()
+    print(f"{tag}: cold first request (batch {BATCH}, factors prefetched) "
+          f"{', '.join(f'{k} {v:.1f} ms' for k, v in colds.items())}")
+
+    profiler = CriticalPathProfiler()
+    folded = profiler.ingest(tracer)
+    fitted = planner.calibrate(profiler)
+    replanned = planner.plan(cfg, leakage=pplan.leakage)
+    crit = profiler.report()["critical_s"]
+    print(f"{tag}: profiler folded {folded} request trees; "
+          f"critical path over them (s): "
+          f"{ {p: round(v, 4) for p, v in crit.items() if v} }; "
+          f"calibrated {fitted}; re-planned {replanned.summary()}")
+    return launches
+
+
 def phase_breakdown(server, batch):
     """A warm batch split into its parts (host clock, synchronized)."""
     ex = server.executor
@@ -1110,7 +1505,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda")
-    phase_card_and_build()
+    card = phase_card_and_build()
     cfg = get_config("vgg16")
     acc = phase_kernels(cfg, dev)
     flash = phase_flash(dev)
@@ -1121,7 +1516,10 @@ def main():
     phase_fault_drills(cfg, params, batch, dev)
     phase_recovery(cfg, params, sealed, dev)
     phase_plane(cfg, params, batch, server.executor, dev)
-    del server, params
+    del server
+    torch.cuda.empty_cache()
+    phase_planned_serving(cfg, params, dev, card)
+    del params
     torch.cuda.empty_cache()
     gen_launches = phase_generate(dev)
     # each kernel's launches, read on the main path that uses it

@@ -9,11 +9,24 @@ strings
 
     "open" | "enclave" | "split" | "slalom" | "origami"
 
-compile to plans (``plan.compile_mode``). The port runs eagerly on
-``device`` (``"cuda"`` by default; the CPU tests pass ``"cpu"``); there
-is no jit and no ahead-of-time compile (ROADMAP Queue 1 item 8). On the
-card the field ops and the prefill attention launch the port's CUDA
-kernels; on the CPU they take the kernels' plain versions.
+compile to plans (``plan.compile_mode``). The port runs on ``device``
+(``"cuda"`` by default; the CPU tests pass ``"cpu"``). On the card the
+field ops and the prefill attention launch the port's CUDA kernels; on the
+CPU they take the kernels' plain versions.
+
+**Executables.** With a runtime/aot.CompileCache attached (``attach_aot``)
+``infer`` runs each (trace kind, plan digest, batch shape) signature
+through an executable: on the card a CUDA graph of the eager step,
+captured once (``warm_aot`` captures every bucket ahead of the first
+request) and replayed with the request's batch and session factors copied
+into its static buffers; on the CPU the eager step itself. A captured step
+must not depend on host-side values that change per request, so these
+stay eager, as the reference keeps its plane executors eager: an executor
+with an offload plane (host-side dispatch, retries, health) or an injected
+fault (its decisions are drawn on the host), and a blinded step that
+derives material from the session key on the host (no precompute cache,
+or a "sampled" Freivalds policy, whose check decisions are host draws).
+Without an attached cache ``infer`` runs eagerly.
 
 For the dense LM the executor runs private autoregressive decode
 (runtime/generate.py): ``attach_decode_plan`` adopts a DecodePlan,
@@ -33,7 +46,7 @@ from __future__ import annotations
 
 import functools
 from contextlib import ExitStack
-from dataclasses import dataclass, field as dfield
+from dataclasses import dataclass, field as dfield, replace as dreplace
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -44,13 +57,19 @@ from repro_torch.core import integrity as IG
 from repro_torch.core import plan as PL
 from repro_torch.core import prng
 from repro_torch.core import slalom as SL
+from repro_torch.core import tracing
 from repro_torch.core.blinding import BlindingSpec
 from repro_torch.core.precompute import BlindedLayerCache
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import vgg as V
+from repro_torch.runtime import aot as AOT
 
 MODES = PL.LEGACY_MODES
+
+# per-layer factor entries that are the cache's own weight material, the
+# same tensors for every session (a captured step reads them in place)
+_STATIC_FACTORS = ("w_q", "w_limbs", "w_scale")
 
 
 @dataclass
@@ -147,6 +166,12 @@ class OrigamiExecutor:
         self._tele_last = SL.Telemetry()
         self._tele_blinded = SL.Telemetry()
         self._tele_trusted = SL.Telemetry()
+        # executables (attach_aot): None keeps infer eager
+        self._aot: Optional[AOT.CompileCache] = None
+        self._executables: Dict[Any, Any] = {}   # sig -> executable (COW)
+        # signatures already inferred: the first call of each pays the
+        # capture (or the first eager run), and the profiler needs it named
+        self._seen_sigs: set = set()
         # decode plane (attach_decode_plan): scan segments + token-slot
         # factor caches, one per batch size
         self.dplan: Optional[PL.DecodePlan] = None
@@ -193,12 +218,13 @@ class OrigamiExecutor:
         x, memory = prog.prologue(params, batch)
         boundary = x if plan.boundary == 0 else None
         for seg in plan.segments:
-            if seg.regime == "plain":
-                x = prog.segment(params, x, seg.lo, seg.hi, memory)
-            else:
-                policy = (seg.policy if seg.policy is not None
-                          else self.integrity)
-                with ExitStack() as stack:
+            with ExitStack() as stack:
+                stack.enter_context(tracing.maybe_span(
+                    "plan.segment", "step", lo=seg.lo, hi=seg.hi,
+                    regime=seg.regime))
+                if seg.regime != "plain":
+                    policy = (seg.policy if seg.policy is not None
+                              else self.integrity)
                     stack.enter_context(ctx.segment_overrides(
                         policy, unblinded=(seg.regime == "verified"),
                         shard=seg.shard))
@@ -207,7 +233,7 @@ class OrigamiExecutor:
                     if prog.blind_convs:
                         stack.enter_context(L.conv_impl(
                             functools.partial(SL.blinded_conv2d, ctx)))
-                    x = prog.segment(params, x, seg.lo, seg.hi, memory)
+                x = prog.segment(params, x, seg.lo, seg.hi, memory)
             if seg.hi == plan.boundary:
                 boundary = x
         return prog.epilogue(params, x, batch, memory), boundary
@@ -392,8 +418,7 @@ class OrigamiExecutor:
 
     # -- precompute pipeline -------------------------------------------------
     def _batch_key(self, batch):
-        shapes = tuple(sorted((k, tuple(v.shape)) for k, v in batch.items()))
-        return self.plan.digest, shapes
+        return self.plan.digest, self._shapes(batch)
 
     def build_cache(self, batch) -> Optional[BlindedLayerCache]:
         """Quantize and limb-encode every offloaded layer's weights once
@@ -416,7 +441,8 @@ class OrigamiExecutor:
             # per-shard fold vectors ride the session factors
             self.cache.shards = self.plane.n_shards
         self._cache_key = self._batch_key(batch)
-        self._caches[self._cache_key] = self.cache
+        # copy-on-write: a SessionPool's refill thread reads this dict
+        self._caches = {**self._caches, self._cache_key: self.cache}
         return self.cache
 
     def prepare_session(self, session_key, step: int = 0) -> None:
@@ -438,37 +464,183 @@ class OrigamiExecutor:
             return None
         return self.cache.take(session_key)
 
+    # -- executables ---------------------------------------------------------
+    def attach_aot(self, cache: AOT.CompileCache) -> None:
+        """Adopt a (shared) CompileCache: ``infer`` then runs through
+        executables, built exactly once per signature, and counted in the
+        cache. Keeps the executables this executor already has."""
+        self._aot = cache
+
+    def _graphable(self, trusted: bool) -> bool:
+        """Can a captured step serve this trace kind for every session?
+        Not with a plane or an injected fault (host-side decisions), and a
+        blinded step only when every per-session value it reads is a
+        tensor of the session's factors (a precompute cache, no
+        "sampled" policy)."""
+        if self._aot is None or self._plane_live or self.fault is not None:
+            return False
+        if trusted or not self.plan.has_offload:
+            return True
+        policies = [self.integrity] + [s.integrity for s in self.plan.steps
+                                       if s.integrity is not None]
+        return (self.precompute and bool(self.plan.cache_ops)
+                and all(p.mode != "sampled" for p in policies))
+
+    def _weights_id(self) -> str:
+        """The executor's weight buffers: a captured step reads them in
+        place, so two executors share a step only when they share them."""
+        parts = []
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                for k in sorted(tree):
+                    walk(tree[k])
+            else:
+                parts.append(f"{tree.data_ptr():x}")
+        walk(self.params)
+        return ",".join(parts)
+
+    def _static_args(self, batch, session_key, factors):
+        """The step's own input buffers: copies of the batch and of the
+        session's factor tensors; the cache's weight material in place."""
+        if factors is not None:
+            factors = [{k: (v if k in _STATIC_FACTORS or v is None
+                            else v.clone()) for k, v in e.items()}
+                       for e in factors]
+        return ({k: v.clone() for k, v in batch.items()}, session_key,
+                factors)
+
+    def _ensure_executable(self, sig, batch, session_key, factors,
+                           trusted: bool):
+        """The one build path: memo, else a timed capture."""
+        ex = self._executables.get(sig)
+        if ex is not None:
+            return ex
+        kind = "trusted" if trusted else "blinded"
+        args = (batch, session_key, factors)
+        ck = self._aot.entry_key(f"{self.plan.digest}@{self._weights_id()}",
+                                 kind, args)
+        step = functools.partial(self._traced, trusted=trusted)
+
+        def build():
+            with tracing.maybe_span("compile.aot", "compile",
+                                    trusted=int(trusted)):
+                if self.device.type != "cuda":
+                    return AOT.EagerStep(step)
+                with tracing.suspended():
+                    ex = AOT.GraphStep(step, self._static_args(*args),
+                                       self.device)
+                # the telemetry of the captured trace, restored per replay
+                ex.telemetry = (self._tele_trusted if trusted
+                                else self._tele_blinded)
+                return ex
+
+        ex, _ = self._aot.compile_once(ck, build)
+        # copy-on-write rebind: read by warm-up and serving threads
+        self._executables = {**self._executables, sig: ex}
+        return ex
+
+    def _call_executable(self, sig, ex, args, trusted: bool):
+        try:
+            out = ex(*args)
+        except Exception:  # noqa: BLE001 — an executable that fails at
+            # call time is evicted and the request runs the eager step
+            self._aot.record_fallback()
+            self._executables = {k: v for k, v in self._executables.items()
+                                 if k != sig}
+            return self._traced(*args, trusted=trusted)
+        tele = getattr(ex, "telemetry", None)
+        if tele is not None:
+            if trusted:
+                self._tele_trusted = dreplace(tele)
+            else:
+                self._tele_blinded = dreplace(tele)
+        return out
+
+    def warm_aot(self, input_key: str, request_shape, buckets,
+                 dtype=None, trusted_too: bool = True) -> int:
+        """Build every (trace kind, shape bucket) executable, and each
+        bucket's factor cache, ahead of the first request; the trusted
+        recovery trace too (``trusted_too``). Returns the number of
+        signatures ensured; a trace that stays eager (``_graphable``: a
+        plane or an injected fault stays eager in both kinds) is skipped."""
+        assert self._aot is not None, "attach_aot first"
+        key0 = prng.PRNGKey(0)
+        n = 0
+        with self._aot.warmup_scope(), torch.no_grad():
+            for b in buckets:
+                x = torch.zeros((int(b),) + tuple(request_shape),
+                                dtype=dtype or torch.float32,
+                                device=self.device)
+                batch = {input_key: x}
+                shapes = self._shapes(batch)
+                for trusted in ((False, True) if trusted_too else (False,)):
+                    if not self._graphable(trusted):
+                        continue
+                    sig = (trusted, self.plan.digest, shapes)
+                    factors = (None if trusted
+                               else self._session_factors(batch, key0))
+                    self._ensure_executable(sig, batch, key0, factors,
+                                            trusted)
+                    self._seen_sigs.add(sig)
+                    n += 1
+        return n
+
     # -- public API ----------------------------------------------------------
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
                     np.array(v, np.float32))).to(self.device, torch.float32)
                 for k, v in batch.items()}
 
-    def infer(self, batch, session_key=None,
-              trusted: bool = False) -> OrigamiResult:
+    @staticmethod
+    def _shapes(batch):
+        return tuple(sorted((k, tuple(v.shape)) for k, v in batch.items()))
+
+    def infer(self, batch, session_key=None, trusted: bool = False,
+              jit: bool = True) -> OrigamiResult:
         """Run the plan on ``batch`` ({"images": (B, H, W, C)}) under the
         blinding session ``session_key`` (a (2,) uint32 key; PRNGKey(0)
         when omitted). ``trusted=True`` runs the enclave-recompute path:
-        no device, no blinding, no verification, bit-identical logits."""
+        no device, no blinding, no verification, bit-identical logits.
+        With a CompileCache attached the run goes through the signature's
+        executable unless ``jit=False`` (the eager step, bit-equal)."""
         if self.cfg.family != "cnn":
             raise NotImplementedError(
                 f"{self.cfg.name}: the LM forward infer is not ported; LMs "
                 f"run private_generate (ROADMAP Queue 1 item 11)")
         batch = self._on_device(batch)
         key = session_key if session_key is not None else prng.PRNGKey(0)
+        sig = (bool(trusted), self.plan.digest, self._shapes(batch))
+        first_call = sig not in self._seen_sigs
+        self._seen_sigs.add(sig)
         shard_report = None
         with torch.no_grad():
-            if trusted:
-                logits, boundary, rep = self._traced(batch, key, None, True)
+            factors = None if trusted else self._session_factors(batch, key)
+            args = (batch, key, factors)
+            if self._plane_live and not trusted:
+                self.plane.begin_infer()
+                logits, boundary, rep = self._traced(*args)
+                shard_report = self.plane.report
+            elif jit and self._graphable(trusted):
+                ex = self._ensure_executable(sig, *args, trusted)
+                logits, boundary, rep = self._call_executable(sig, ex, args,
+                                                              trusted)
             else:
-                factors = self._session_factors(batch, key)
-                if self._plane_live:
-                    self.plane.begin_infer()
-                logits, boundary, rep = self._traced(batch, key, factors)
-                if self._plane_live:
-                    shard_report = self.plane.report
+                logits, boundary, rep = self._traced(*args, trusted=trusted)
         self._tele_last = (self._tele_trusted if trusted
                            else self._tele_blinded)
+        # stamp the ambient infer span (runtime/serving.py opens it) with
+        # compile provenance and the cost-model quantities this run moved
+        sp = tracing.current_span()
+        if sp is not None:
+            tele = self._tele_last
+            tracing.annotate(
+                sp, first_call=first_call,
+                device_flops=int(tele.offloaded_flops),
+                enclave_flops=int(tele.enclave_flops),
+                blind_bytes=int(tele.blinded_bytes),
+                unblind_bytes=int(tele.returned_bytes),
+                device_matmuls=int(tele.device_matmuls))
         return OrigamiResult(logits=logits, boundary=boundary,
                              telemetry=self.telemetry,
                              integrity=IG.IntegrityReport(*rep),

@@ -1,7 +1,7 @@
 """PlacementPlan IR: per-layer placement compiled once, interpreted once.
 
-Port of the CNN and dense-LM parts of ``repro/core/plan.py`` (a copy: the
-port imports nothing of the reference). Each layer is ``open`` (plain on
+Port of ``repro/core/plan.py`` (a copy: the port imports nothing of the
+reference). Each layer is ``open`` (plain on
 the untrusted device), ``enclave`` or ``blinded`` (Slalom offload); an open
 layer with an enabled integrity policy is a verified-open offload.
 ``segments`` are the maximal runs of one execution regime (``plain`` |
@@ -56,6 +56,11 @@ _DECODE_EXCLUSIONS = {
 class ScanExclusion(ValueError):
     """A placement or decode feature is structurally unavailable for this
     family; the message names the reason."""
+
+# placement-string alphabet (``from_string`` / ``placement_string``):
+# o = open, e = enclave, b = blinded, v = verified-open (open + Freivalds)
+_CHAR_PLACEMENT = {"o": "open", "e": "enclave", "b": "blinded", "v": "open"}
+_PLACEMENT_CHAR = {"open": "o", "enclave": "e", "blinded": "b"}
 
 
 def num_blocks(cfg: ModelConfig) -> int:
@@ -180,14 +185,55 @@ class PlacementPlan:
         return len(self.steps)
 
     @property
+    def num_blinded(self) -> int:
+        return sum(s.placement == "blinded" for s in self.steps)
+
+    @property
+    def has_blinded(self) -> bool:
+        return any(s.placement == "blinded" for s in self.steps)
+
+    @property
     def has_offload(self) -> bool:
         return any(s.offloaded for s in self.steps)
+
+    @property
+    def has_step_policies(self) -> bool:
+        """Any step carrying its own enabled Freivalds policy."""
+        return any(s.integrity is not None and s.integrity.enabled
+                   for s in self.steps)
 
     @property
     def cache_ops(self) -> Tuple[LayerStep, ...]:
         """Steps with a precompute slot, in slot (= call) order."""
         ops = [s for s in self.steps if s.precompute_slot is not None]
         return tuple(sorted(ops, key=lambda s: s.precompute_slot))
+
+    @property
+    def placement_string(self) -> str:
+        return "".join("v" if s.verified_open
+                       else _PLACEMENT_CHAR[s.placement] for s in self.steps)
+
+    def exposed_boundaries(self) -> Tuple[int, ...]:
+        """Every boundary index the untrusted device observes in the clear:
+        the declared ``boundary`` plus both sides of every open step. Index
+        0 is the raw input (the planner scores it as total leakage); the
+        final index n (the logits) is public and never listed."""
+        n = len(self.steps)
+        exposed = set()
+        if self.boundary <= n - 1:
+            exposed.add(self.boundary)
+        if self.steps and self.steps[0].placement == "open":
+            exposed.add(0)
+        for p in range(1, n):
+            if (self.steps[p - 1].placement == "open"
+                    or self.steps[p].placement == "open"):
+                exposed.add(p)
+        return tuple(sorted(exposed))
+
+    def summary(self) -> str:
+        return (f"{self.model}[{self.mode_label}] "
+                f"{self.placement_string} boundary={self.boundary} "
+                f"plan={self.digest[:12]}")
 
 
 def linear_layers(cfg: ModelConfig) -> Optional[Tuple[bool, ...]]:
@@ -275,6 +321,81 @@ def compile_mode(cfg: ModelConfig, mode: str,
     else:                                   # origami
         placements, boundary = ["blinded"] * p + ["open"] * (n - p), p
     return make_plan(cfg, placements, boundary=boundary, label=mode)
+
+
+def from_string(cfg: ModelConfig, spec: str, *,
+                verify: Optional[IG.IntegrityPolicy] = None,
+                boundary: Optional[int] = None,
+                label: Optional[str] = None) -> PlacementPlan:
+    """Compact per-layer spec: one char per layer from ``oebv``
+    (v = verified-open; its policy is ``verify`` or full(k=1))."""
+    spec = spec.strip().lower()
+    n = num_blocks(cfg)
+    assert len(spec) == n, f"spec {spec!r} has {len(spec)} chars, want {n}"
+    placements, integrity = [], {}
+    for i, ch in enumerate(spec):
+        assert ch in _CHAR_PLACEMENT, ch
+        placements.append(_CHAR_PLACEMENT[ch])
+        if ch == "v":
+            integrity[i] = verify or IG.IntegrityPolicy.full(1)
+    return make_plan(cfg, placements, integrity=integrity, boundary=boundary,
+                     label=label or spec)
+
+
+def make_mixed(cfg: ModelConfig, boundary: Optional[int] = None,
+               blinded_prefix: Optional[int] = None,
+               label: str = "mixed") -> PlacementPlan:
+    """Mixed enclave/blinded tier-1: layers [0, blinded_prefix) blinded,
+    [blinded_prefix, boundary) enclave-resident, the rest open. The
+    default splits tier-1 in half."""
+    n = num_blocks(cfg)
+    p = boundary if boundary is not None else cfg.origami.tier1_layers
+    b = blinded_prefix if blinded_prefix is not None else max(p // 2, 1)
+    assert 0 <= b <= p <= n, (b, p, n)
+    return make_plan(cfg, ["blinded"] * b + ["enclave"] * (p - b)
+                     + ["open"] * (n - p), boundary=p, label=label)
+
+
+def make_vopen(cfg: ModelConfig, boundary: Optional[int] = None,
+               verify: Optional[IG.IntegrityPolicy] = None,
+               label: str = "vopen") -> PlacementPlan:
+    """Verified-open tier-2: blinded prefix up to ``boundary``, then every
+    linear layer offloads unblinded under the ``verify`` Freivalds policy
+    (default full(k=1)). Raises for families without per-op verification
+    in the forward trace (``linear_layers``)."""
+    n = num_blocks(cfg)
+    p = boundary if boundary is not None else cfg.origami.tier1_layers
+    pol = verify or IG.IntegrityPolicy.full(1)
+    linear = linear_layers(cfg)
+    if linear is None:
+        raise ScanExclusion(
+            f"{cfg.name}: verified-open needs per-op verification in the "
+            "forward trace (see linear_layers); for LM decode use "
+            "make_decode_plan's verified scan segments")
+    integ = {i: pol for i in range(p, n) if linear[i]}
+    return make_plan(cfg, ["blinded"] * p + ["open"] * (n - p),
+                     integrity=integ, boundary=p, label=label)
+
+
+def classify_legacy(plan: PlacementPlan) -> Optional[Tuple[str, int]]:
+    """(mode, partition) iff the plan is exactly a legacy prefix shape with
+    no per-step integrity overrides, so the cost model can use the per-mode
+    formulas."""
+    if any(s.integrity is not None for s in plan.steps):
+        return None
+    ps = [s.placement for s in plan.steps]
+    n, b = len(ps), plan.boundary
+    if ps == ["open"] * n and b == 0:
+        return "open", 0
+    if ps == ["enclave"] * n and b == n:
+        return "enclave", n
+    if ps == ["blinded"] * n and b == n:
+        return "slalom", n
+    if ps == ["enclave"] * b + ["open"] * (n - b):
+        return "split", b
+    if ps == ["blinded"] * b + ["open"] * (n - b):
+        return "origami", b
+    return None
 
 
 @dataclass(frozen=True)

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import blinding as B
 from repro_torch.core import integrity as IG
-from repro_torch.core import prng
+from repro_torch.core import prng, tracing
 from repro_torch.kernels.blind.ref import quantize as quantize_act
 from repro_torch.kernels.limb_matmul.ops import (encode_weight_planes,
                                                  field_matmul,
@@ -230,7 +230,18 @@ def _scaled(ctx: SlalomContext, xt: torch.Tensor,
 def blinded_dense(ctx: SlalomContext, p, x: torch.Tensor) -> torch.Tensor:
     """Drop-in for layers.dense running the Slalom protocol.
 
-    p: {"w": (d_in, d_out) float [, "b": (d_out,)]}; x: (..., d_in)."""
+    p: {"w": (d_in, d_out) float [, "b": (d_out,)]}; x: (..., d_in). Each
+    op runs under an ``op.blinded`` or ``op.trusted`` span (shapes and
+    placement flags, never operands) when a tracer is ambient."""
+    with tracing.maybe_span(
+            "op.trusted" if ctx.trusted else "op.blinded", "step",
+            layer=ctx._layer_counter, d_in=int(p["w"].shape[0]),
+            d_out=int(p["w"].shape[1]),
+            verified_open=bool(ctx.unblinded)):
+        return _blinded_dense(ctx, p, x)
+
+
+def _blinded_dense(ctx: SlalomContext, p, x: torch.Tensor) -> torch.Tensor:
     w = p["w"]
     d_in, d_out = w.shape
     lead = tuple(x.shape[:-1])

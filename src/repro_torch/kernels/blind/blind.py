@@ -12,12 +12,16 @@ Ports of ``repro/kernels/blind/blind.py``:
 
 Each launches its kernel for a CUDA tensor and takes the ``*_plain``
 version beside it for a CPU tensor; there is no fallback between the two.
+``blind`` and ``unblind`` record ``kernel.blind_encode`` and
+``kernel.unblind`` spans (the reference's names) when a tracer with kernel
+spans is ambient (core/tracing.profiled_kernel).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tracing
 from repro_torch.kernels import build as KB
 from repro_torch.kernels.blind.ref import (blind_encode_ref, blind_ref,
                                            unblind_ref)
@@ -60,6 +64,11 @@ def blind_plain(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
 def blind(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
     """x: float32 (...); r: int32 field (...) in [0, p), same shape.
     Returns the blinded int32 field ``(quantize(x, k) mod p + r) mod p``."""
+    return tracing.profiled_kernel("kernel.blind_encode", _blind, x, r,
+                                   k_bits)
+
+
+def _blind(x: torch.Tensor, r: torch.Tensor, k_bits: int) -> torch.Tensor:
     if KB.on_cpu(x):
         return blind_plain(x, r, k_bits)
     KB.require(x, "x", torch.float32, x.device)
@@ -81,6 +90,11 @@ def unblind_plain(y: torch.Tensor, u: torch.Tensor,
 def unblind(y: torch.Tensor, u: torch.Tensor, k_out_bits: int) -> torch.Tensor:
     """y, u: int32 field (...) in [0, p), same shape. Returns float32
     ``signed((y - u + p) mod p) / 2^k_out``."""
+    return tracing.profiled_kernel("kernel.unblind", _unblind, y, u,
+                                   k_out_bits)
+
+
+def _unblind(y: torch.Tensor, u: torch.Tensor, k_out_bits: int) -> torch.Tensor:
     if KB.on_cpu(y):
         return unblind_plain(y, u, k_out_bits)
     KB.require(y, "y", torch.int32, y.device)

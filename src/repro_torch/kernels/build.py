@@ -13,7 +13,10 @@ device, and returns ``cudaGetLastError()``. The wrappers go through
 stream, raises on a non-zero code and then counts the launch: ``LAUNCHES``
 counts, per kernel, the launches its wrapper made. The offload plane
 launches from several worker threads at once, so the count is taken under a
-lock.
+lock. While a thread captures a CUDA graph (``recording_launches``) its
+wrappers record into the capture instead: a captured launch runs only when
+the graph is replayed, and each replay credits the recorded counts
+(runtime/aot.py).
 """
 from __future__ import annotations
 
@@ -25,9 +28,9 @@ import subprocess
 import tempfile
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -40,6 +43,7 @@ KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold",
            "blind", "unblind", "flash_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
+_capture = threading.local()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -72,10 +76,28 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` (thread-safe)."""
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name`` (thread-safe); on a thread
+    inside ``recording_launches`` they go to its record instead."""
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record[name] += n
+        return
     with _launch_lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
+
+
+@contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Record, not count, this thread's launches for the extent of the
+    block (a CUDA-graph capture); yields the per-kernel record."""
+    prev = getattr(_capture, "record", None)
+    record = {name: 0 for name in KERNELS}
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = prev
 
 
 def nvcc_path() -> str:

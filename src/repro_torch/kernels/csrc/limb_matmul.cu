@@ -9,7 +9,8 @@
 // transposed so that k is contiguous for both operands); Kp is a multiple
 // of 32 with zero digits past the true K.
 //   plain:  out (M, N) int32 = field product in [0, p)
-//   fused:  d = (acc - u) mod p for u in [0, p); s = d > HALF ? d - p : d;
+//   fused:  d = mod(acc - u + p, p), the sum wrapping in int32 (any u);
+//           s = d > HALF ? d - p : d;
 //           out (M, N) float32 = (float)s * scale, one f32 multiply.
 //
 // Bound on the H100. At the VGG-16 tier-1 shapes the nine limb products
@@ -25,11 +26,11 @@
 // accumulators a thread; they differ only in their epilogues. The fused
 // epilogue reads u in the D-fragment order (for each fragment register, a
 // warp reads 8 rows of 32 contiguous bytes: whole sectors) and stays in
-// 32-bit arithmetic: both acc and u lie in [0, p), so one conditional add
-// of p reduces their difference. 92 KB of shared memory and at most 128
-// registers a thread leave room for two blocks an SM; at that cap ptxas
-// spills ~100 bytes, and the uncapped kernel (219 registers, one block an
-// SM) measured slower. What bounds it now is L2-to-SM traffic: every block
+// 32-bit arithmetic: the wrapped sum acc - u + p takes one shift-and-add
+// remainder (field::reduce32), for any int32 u. 92 KB of shared memory
+// and at most 128 registers a thread leave room for two blocks an SM; at
+// that cap ptxas spills ~100 bytes, and the uncapped kernel (219
+// registers, one block an SM) measured slower. What bounds it now is L2-to-SM traffic: every block
 // streams its own W tiles as well as its x tiles.
 #include "limb_mma.cuh"
 
@@ -55,8 +56,12 @@ limb_matmul_fused_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restr
   limb_mma::mainloop<MatmulTiles>(x, wT, pl, M, N, Kp, smem, acc);
   const float sc = *scale;
   limb_mma::for_each_output<MatmulTiles>(acc, pl, M, N, [&](size_t o, int v) {
-    int d = v - __ldg(u + o);
-    d = d < 0 ? d + field::P : d;
+    // the reference's mod(acc - u + p, p): the sum wraps in int32 (taken
+    // in unsigned arithmetic, where wrapping is defined), then one floor
+    // remainder, so any int32 u reduces as the reference reduces it
+    const int d = field::reduce32(static_cast<int>(
+        static_cast<unsigned>(v) - static_cast<unsigned>(__ldg(u + o)) +
+        static_cast<unsigned>(field::P)));
     const int s = d > field::HALF ? d - field::P : d;
     out[o] = __fmul_rn(static_cast<float>(s), sc);
   });

@@ -57,13 +57,20 @@ def limb_matmul_planes(x_limbs: torch.Tensor,
     return out
 
 
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 into [-2^31, 2^31): int32 wraparound."""
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
 def limb_matmul_planes_fused_plain(x_limbs: torch.Tensor,
                                    w_limbs: torch.Tensor, u: torch.Tensor,
                                    scale: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the fused epilogue: signed((acc - u) mod p)
-    times ``scale``, one float32 multiply."""
+    """Plain PyTorch version of the fused epilogue, the reference's
+    ``mod(acc - u + p, p)`` with ``acc - u + p`` wrapping in int32, signed,
+    times ``scale`` (one float32 multiply)."""
     acc = limb_product(x_limbs, w_limbs)
-    s = to_signed(torch.remainder(acc - u, P))
+    d = wrap_int32(acc.to(torch.int64) - u.to(torch.int64) + P)
+    s = to_signed(torch.remainder(d, P).to(torch.int32))
     return s.to(torch.float32) * scale.to(torch.float32).reshape(())
 
 
@@ -72,9 +79,10 @@ def limb_matmul_planes_fused(x_limbs: torch.Tensor, w_limbs: torch.Tensor,
                              scale: torch.Tensor) -> torch.Tensor:
     """Field matmul with the fused unblind + dequantize epilogue.
 
-    u: (M, N) int32 unblinding factors in [0, p) (the kernel reduces
-    acc - u with one conditional add of p); scale: 0-d float32 on the
-    planes' device. Returns (M, N) float32."""
+    u: (M, N) int32, any value: the epilogue computes the reference's
+    ``mod(acc - u + p, p)`` with the sum wrapping in int32 (one integer
+    remainder per output); scale: 0-d float32 on the planes' device.
+    Returns (M, N) float32."""
     if KB.on_cpu(x_limbs):
         return limb_matmul_planes_fused_plain(x_limbs, w_limbs, u, scale)
     _check_planes(x_limbs, w_limbs)

@@ -23,6 +23,7 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tracing
 from repro_torch.kernels.blind.blind import blind_encode
 from repro_torch.kernels.limb_matmul import ref
 from repro_torch.kernels.limb_matmul.fold import limb_fold_planes
@@ -63,7 +64,13 @@ def encode_weight_planes(w_field: torch.Tensor) -> torch.Tensor:
 
 def field_matmul(x_field: torch.Tensor, w_field: torch.Tensor) -> torch.Tensor:
     """(X @ W) mod p. x: (M, K) int32 in [0, p); w: (K, N) int32 in [0, p).
-    Returns (M, N) int32 in [0, p)."""
+    Returns (M, N) int32 in [0, p). A ``kernel.limb_matmul`` span when a
+    tracer with kernel spans is ambient (core/tracing.profiled_kernel)."""
+    return tracing.profiled_kernel("kernel.limb_matmul", _field_matmul,
+                                   x_field, w_field)
+
+
+def _field_matmul(x_field: torch.Tensor, w_field: torch.Tensor) -> torch.Tensor:
     M, K = x_field.shape
     K2, N = w_field.shape
     assert K == K2, (x_field.shape, w_field.shape)
@@ -85,10 +92,23 @@ def fused_blinded_matmul(x: torch.Tensor, r: torch.Tensor,
 
     x: (M, K) float activations (unscaled); r: (M, K) int32 blinding
     stream; w_limbs: (3, Kp, N) int8 weight planes (``encode_weight_planes``);
-    u: (M, N) int32 unblinding factors r @ W_q mod p; inv_scale: reciprocal
-    of the activation scale; out_scale: x_scale * w_scale * 2^-k_out.
-    Returns (M, N) float32: signed((blind(x * inv) @ W - u) mod p) * out_scale.
+    u: (M, N) int32 unblinding factors; inv_scale: reciprocal of the
+    activation scale; out_scale: x_scale * w_scale * 2^-k_out. Returns
+    (M, N) float32 ``signed(mod(acc - u + p, p)) * out_scale`` with
+    ``acc = (blind(x * inv) @ W) mod p``, the sum taken in wrapping int32
+    arithmetic as the reference takes it: any int32 ``u`` gives the
+    reference's result, not only u in [0, p). One
+    ``kernel.fused_blind_matmul`` span covers both launches.
     """
+    return tracing.profiled_kernel(
+        "kernel.fused_blind_matmul", _fused_blinded_matmul, x, r, w_limbs, u,
+        inv_scale, out_scale, k_bits=k_bits)
+
+
+def _fused_blinded_matmul(x: torch.Tensor, r: torch.Tensor,
+                          w_limbs: torch.Tensor, u: torch.Tensor,
+                          inv_scale: Scalar, out_scale: Scalar, *,
+                          k_bits: int) -> torch.Tensor:
     M, K = x.shape
     N = u.shape[1]
     Kp = block_plan(M, K, N)[4]
@@ -103,7 +123,12 @@ def field_fold(x_field: torch.Tensor, s_field: torch.Tensor) -> torch.Tensor:
     """Freivalds fold (X @ S) mod p for a skinny fold matrix.
 
     x_field: (M, K) int32 in [0, p); s_field: (K, kf) int32 in [0, p).
-    Returns (M, kf) int32 in [0, p)."""
+    Returns (M, kf) int32 in [0, p). A ``kernel.fold`` span when traced."""
+    return tracing.profiled_kernel("kernel.fold", _field_fold, x_field,
+                                   s_field)
+
+
+def _field_fold(x_field: torch.Tensor, s_field: torch.Tensor) -> torch.Tensor:
     M, K = x_field.shape
     K2, kf = s_field.shape
     assert K == K2, (x_field.shape, s_field.shape)

@@ -1,6 +1,6 @@
 """Sharded blinded offload: one field matmul across many untrusted devices.
 
-Port of ``repro/parallel/offload_sharding.py`` (without its tracing spans).
+Port of ``repro/parallel/offload_sharding.py``.
 The Slalom protocol offloads ``y_b = (x_b @ W_q) mod p`` to one untrusted
 accelerator; this module shards each blinded matmul across a
 ``runtime/devices.DevicePool``, the health half of the plane. Two shard
@@ -43,6 +43,13 @@ On the card a slot's worker launches the port's kernels on its thread's
 current stream (the default stream) and synchronizes it before it reports
 its wall time, so the latency EWMA measures the compute and not the
 launch; a slot on another card gets its operands with ``.to(device)``.
+
+**Tracing.** One ``shard.matmul`` span per sharded op, a ``shard.dispatch``
+child per dispatch (closed with its ``outcome``) and a ``shard.enclave``
+child where the enclave computes a shard; every span opens on the thread
+that runs the op, so the ambient parent is always right. A bad outcome
+(timeout, crash, failed check) is also logged to ``recorder``, a
+runtime/profiling.FlightRecorder, when one is attached.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ import torch
 from repro_torch.core import blinding as B
 from repro_torch.core import integrity as IG
 from repro_torch.core import prng
+from repro_torch.core import tracing
 from repro_torch.core.plan import SHARD_MODES
 from repro_torch.kernels.limb_matmul.ops import field_matmul
 from repro_torch.kernels.limb_matmul.ref import P
@@ -176,6 +184,9 @@ class OffloadPlane:
             deadline_factor=3.0, warmup_steps=4, window=64))
         self.report = ShardReport()         # current-infer counters
         self.totals = ShardReport()         # lifetime counters
+        # optional runtime/profiling.FlightRecorder: bad shard outcomes land
+        # in the post-mortem ring even though the plane recovers them
+        self.recorder = None
         self._lock = threading.Lock()
 
     @property
@@ -192,6 +203,27 @@ class OffloadPlane:
             for k, v in deltas.items():
                 setattr(self.report, k, getattr(self.report, k) + v)
                 setattr(self.totals, k, getattr(self.totals, k) + v)
+
+    def _span_start(self, name: str, **attrs):
+        """Open a child span of the ambient parent (the op's
+        ``shard.matmul``; submission and resolution both run on the op's
+        thread). None when no tracer is active."""
+        tr = tracing.current_tracer()
+        if tr is None:
+            return None
+        return tr.start_span(name, "shard", **attrs)
+
+    def _span_end(self, span, **attrs) -> None:
+        if span is None:
+            return
+        tr = tracing.current_tracer()
+        if tr is not None:
+            tr.end(span, **attrs)
+
+    def _rec_event(self, outcome: str, slot: DeviceSlot) -> None:
+        """Log a bad shard outcome to the attached flight recorder."""
+        if self.recorder is not None:
+            self.recorder.event("shard_" + outcome, device=slot.name)
 
     def _observe_latency(self, dt: float) -> None:
         with self._lock:
@@ -256,19 +288,25 @@ class OffloadPlane:
 
     def _enclave_shard(self, task: _ShardTask,
                        w_q: torch.Tensor) -> torch.Tensor:
-        """The enclave computes this shard itself (last resort)."""
+        """The enclave computes this shard itself (last resort), traced as
+        its own span."""
         self._record(enclave_shards=1)
-        return field_matmul(task.x, w_q)
+        with tracing.maybe_span("shard.enclave", "shard",
+                                shard=task.index, op_index=task.op_index):
+            return field_matmul(task.x, w_q)
 
     def _resolve_shard(self, task: _ShardTask, w_q: torch.Tensor,
                        primary: DeviceSlot, fut,
-                       spares: Sequence[DeviceSlot]) -> torch.Tensor:
+                       spares: Sequence[DeviceSlot],
+                       span=None) -> torch.Tensor:
         """One shard, from its submitted ``fut`` to a verified result: hedge
         onto the first spare past the straggler deadline, contain crashes,
         abandon dispatches past the hard timeout, retry failures down the
-        spare list, enclave-compute as the last resort."""
-        futures: Dict[object, Tuple[DeviceSlot, float]] = {
-            fut: (primary, time.perf_counter())}
+        spare list, enclave-compute as the last resort. ``span``: the
+        primary dispatch's open span; every re-dispatch and hedge opens its
+        own, and each closes with an ``outcome`` when its future resolves."""
+        futures: Dict[object, Tuple[DeviceSlot, float, object]] = {
+            fut: (primary, time.perf_counter(), span)}
         spares = list(spares)
         hedged = False
         attempt = 0                    # liveness re-dispatches of this shard
@@ -281,9 +319,12 @@ class OffloadPlane:
             return next((s for s in spares
                          if s.available and s not in busy), None)
 
-        def submit_to(slot: DeviceSlot) -> None:
+        def submit_to(slot: DeviceSlot, why: str) -> None:
             futures[slot.submit(self._device_run, task, w_q)] = (
-                slot, time.perf_counter())
+                slot, time.perf_counter(),
+                self._span_start("shard.dispatch", shard=task.index,
+                                 op_index=task.op_index, device=slot.name,
+                                 attempt=why))
 
         def redispatch() -> bool:
             """Backoff, then re-submit this shard to the next spare."""
@@ -294,7 +335,7 @@ class OffloadPlane:
             spares.remove(retry)
             attempt += 1
             self._backoff(task, attempt)
-            submit_to(retry)
+            submit_to(retry, "retry")
             self._record(dispatches=1, retries=1)
             return True
 
@@ -315,8 +356,10 @@ class OffloadPlane:
                     # hard liveness timeout: indict the device, cut its
                     # wedged queue loose, re-dispatch elsewhere
                     for f in expired:
-                        slot, _ = futures.pop(f)
+                        slot, _, sp = futures.pop(f)
+                        self._span_end(sp, outcome="timeout")
                         self._record(timeouts=1)
+                        self._rec_event("timeout", slot)
                         self.pool.record_liveness_failure(slot)
                         slot.abandon()
                     if not futures and not redispatch():
@@ -327,19 +370,21 @@ class OffloadPlane:
                 if self.hedging and not hedged and spare is not None:
                     hedged = True
                     spares.remove(spare)
-                    submit_to(spare)
+                    submit_to(spare, "hedge")
                     self._record(dispatches=1, hedges=1)
                 hedge_deadline = None  # hard expiries drive the waits now
                 continue
             fut = next(iter(done))
-            slot, _ = futures.pop(fut)
+            slot, _, sp = futures.pop(fut)
             try:
                 y, dt = fut.result()
             except Exception:  # noqa: BLE001 — crash containment
                 # the dispatch raised (injected crash, CUDA error,
                 # abandoned-queue cancellation): a liveness failure of the
                 # device, contained here
+                self._span_end(sp, outcome="crash")
                 self._record(crashes=1)
+                self._rec_event("crash", slot)
                 self.pool.record_liveness_failure(slot)
                 if not futures and not redispatch():
                     return self._enclave_shard(task, w_q)
@@ -347,20 +392,24 @@ class OffloadPlane:
             self._observe_latency(dt)
             self._record(checks=1)
             if self._shard_ok(y, task):
+                self._span_end(sp, outcome="verified", device_wall_s=dt)
                 self.pool.record_success(slot, dt)
                 # a hedge loser still teaches the EWMA its wall time
                 for f, v in futures.items():
+                    self._span_end(v[2], outcome="superseded")
                     f.add_done_callback(
                         lambda f_, s_=v[0]: self._late_latency(f_, s_))
                 return y
+            self._span_end(sp, outcome="verify_failed", device_wall_s=dt)
             self._record(failures=1)
+            self._rec_event("verify_failed", slot)
             self.pool.record_failure(slot)
             if not futures:                    # re-dispatch this shard only
                 retry = next_spare()
                 if retry is None:
                     return self._enclave_shard(task, w_q)
                 spares.remove(retry)
-                submit_to(retry)
+                submit_to(retry, "retry")
                 self._record(dispatches=1, retries=1)
         raise AssertionError("unreachable: shard loop exited without result")
 
@@ -388,6 +437,26 @@ class OffloadPlane:
         w_q)`` for any device behaviour the checks and retries recover."""
         mode = mode or self.mode
         assert mode in SHARD_MODES, mode
+        # one "shard.matmul" span per sharded op; every dispatch, retry,
+        # hedge and enclave child parents to it (all opened on this thread)
+        with tracing.maybe_span("shard.matmul", "shard", op_index=op_index,
+                                step=step, mode=mode,
+                                n_shards=self.n_shards,
+                                t=int(x_field.shape[0]),
+                                d_in=int(x_field.shape[1]),
+                                d_out=int(w_q.shape[1])):
+            return self._sharded_matmul(x_field, w_q,
+                                        session_key=session_key,
+                                        op_index=op_index, step=step, k=k,
+                                        folds=folds, mode=mode, group=group)
+
+    def _sharded_matmul(self, x_field: torch.Tensor, w_q: torch.Tensor, *,
+                        session_key: np.ndarray, op_index: int, step: int,
+                        k: int,
+                        folds: Optional[Sequence[Tuple[torch.Tensor,
+                                                       torch.Tensor]]],
+                        mode: str,
+                        group: Optional[Sequence[int]]) -> torch.Tensor:
         n = self.n_shards
         t, _ = x_field.shape
         d_out = w_q.shape[1]
@@ -459,17 +528,24 @@ class OffloadPlane:
                 # no device this shard may visit: the enclave computes it
                 results[j] = self._enclave_shard(task, w_q)
                 continue
+            why = "primary"
             if primary is probe:
                 self.pool.record_probe(primary)
                 self._record(probes=1)
+                why = "probe"
             elif primary is bprobe:
                 self.pool.record_breaker_probe(primary)
                 self._record(breaker_probes=1)
+                why = "breaker_probe"
+            span = self._span_start("shard.dispatch", shard=j,
+                                    op_index=op_index, device=primary.name,
+                                    attempt=why)
             fut = primary.submit(self._device_run, task, w_q)
             self._record(dispatches=1)
-            pending.append((j, task, primary, fut, spares))
-        for j, task, primary, fut, spares in pending:
-            results[j] = self._resolve_shard(task, w_q, primary, fut, spares)
+            pending.append((j, task, primary, fut, spares, span))
+        for j, task, primary, fut, spares, span in pending:
+            results[j] = self._resolve_shard(task, w_q, primary, fut,
+                                             spares, span=span)
 
         if mode == "rows":
             return torch.cat(results, dim=0)

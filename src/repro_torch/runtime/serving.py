@@ -24,10 +24,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import prng
+from repro_torch.core import prng, tracing
 from repro_torch.core.attestation import Quote, measure_enclave
 from repro_torch.core.origami import OrigamiExecutor
 from repro_torch.core.sealing import SealedBox, seal, unseal
+from repro_torch.runtime.aot import bucket_for
 
 DIRECTION_RESPONSE = 0xEE
 
@@ -44,16 +45,6 @@ def request_nonce(rid: int) -> np.ndarray:
 def response_nonce(rid: int) -> np.ndarray:
     return np.asarray([rid & 0xFFFFFFFF, (rid >> 32) & 0xFFFFFFFF,
                        DIRECTION_RESPONSE], np.uint32)
-
-
-def bucket_for(n: int, max_batch: int) -> int:
-    """Smallest power-of-two batch holding ``n`` requests (capped at
-    ``max_batch``): a lone request pads to 1 row of work, not max_batch."""
-    assert 1 <= n <= max_batch, (n, max_batch)
-    b = 1
-    while b < n:
-        b *= 2
-    return min(b, max_batch)
 
 
 @dataclasses.dataclass
@@ -178,11 +169,14 @@ def prepare_sealed_batch(requests: List[Request], *,
     t0 = time.perf_counter()
     valid_idx: List[int] = []
     inputs: List[torch.Tensor] = []
-    for i, r in enumerate(requests):
-        pt, ok = unseal(r.session_key, r.box, r.shape)
-        if ok:
-            valid_idx.append(i)
-            inputs.append(pt)
+    with tracing.maybe_span("unseal", "crypto",
+                            n_requests=len(requests)) as usp:
+        for i, r in enumerate(requests):
+            pt, ok = unseal(r.session_key, r.box, r.shape)
+            if ok:
+                valid_idx.append(i)
+                inputs.append(pt)
+        tracing.annotate(usp, n_valid=len(inputs))
     boxes: List[Optional[SealedBox]] = [None] * len(requests)
     integ = BatchIntegrity()
     if not inputs:
@@ -214,28 +208,59 @@ def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
     if trusted:
         # the enclave run draws no pads, so it takes no session key
         integ.trusted = True
-        result = executor.infer(batch, session_key=_trusted_key(),
-                                trusted=True)
+        with tracing.maybe_span("infer", "infer", attempt="trusted",
+                                trusted=True):
+            result = executor.infer(batch, session_key=_trusted_key(),
+                                    trusted=True)
     else:
-        sk = session_key() if callable(session_key) else session_key
-        result = executor.infer(batch, session_key=sk)
+        with tracing.maybe_span("session.acquire", "session",
+                                pooled=callable(session_key)):
+            sk = session_key() if callable(session_key) else session_key
+        result = _attempt(executor, batch, sk, "blinded")
         _absorb(integ, result)
         if not result.integrity.ok and retry_device:
-            sk = _fresh_session(session_key, sk)
-            result = executor.infer(batch, session_key=sk)
+            with tracing.maybe_span("session.acquire", "session",
+                                    pooled=callable(session_key),
+                                    retry=True):
+                sk = _fresh_session(session_key, sk)
+            result = _attempt(executor, batch, sk, "retry")
             integ.retried = True
             _absorb(integ, result)
         if not result.integrity.ok:
-            result = executor.infer(batch, session_key=_trusted_key(),
-                                    trusted=True)
+            with tracing.maybe_span("infer", "infer", attempt="recompute",
+                                    trusted=True):
+                result = executor.infer(batch, session_key=_trusted_key(),
+                                        trusted=True)
             integ.recomputed = True
-    logits = result.logits.to(torch.float32).cpu()[:prep.n_valid]
-    t1 = time.perf_counter()
-    for row, i in enumerate(prep.valid_idx):
-        r = requests[i]
-        boxes[i] = seal(r.session_key, logits[row], response_nonce(r.rid))
+        # the batch's verification outcome as one span, so the tree reads
+        # ... -> infer -> verify -> seal although the checks ran inside
+        # the infer attempts
+        with tracing.maybe_span("verify", "verify", checks=integ.checks,
+                                failures=integ.failures,
+                                shard_checks=integ.shard_checks,
+                                shard_failures=integ.shard_failures,
+                                retried=integ.retried,
+                                recomputed=integ.recomputed):
+            pass
+    with tracing.maybe_span("seal", "crypto", n_responses=prep.n_valid,
+                            pad=prep.pad):
+        logits = result.logits.to(torch.float32).cpu()[:prep.n_valid]
+        t1 = time.perf_counter()
+        for row, i in enumerate(prep.valid_idx):
+            r = requests[i]
+            boxes[i] = seal(r.session_key, logits[row],
+                            response_nonce(r.rid))
     prep.phases.update(infer=t1 - t0, seal=time.perf_counter() - t1)
     return boxes, prep.n_valid, prep.pad, integ
+
+
+def _attempt(executor: OrigamiExecutor, batch, sk, attempt: str):
+    """One untrusted infer under its ``infer`` span."""
+    with tracing.maybe_span("infer", "infer", attempt=attempt) as isp:
+        result = executor.infer(batch, session_key=sk)
+        tracing.annotate(isp, checks=result.integrity.n_checked,
+                         failures=result.integrity.n_failed)
+    return result
 
 
 def _absorb(integ: BatchIntegrity, result) -> None:

@@ -608,3 +608,162 @@ def test_offload_plane_over_every_card(dev):
         assert torch.equal(res.logits, want)
     finally:
         pool.close()
+
+
+# -- the fused epilogue for any int32 u ---------------------------------------
+
+def _wrapped_epilogue(acc, u, scale):
+    """The reference's epilogue in numpy: mod(acc - u + p, p) with the sum
+    wrapping in int32, signed, one f32 multiply."""
+    d = (acc.astype(np.int64) - u.astype(np.int64) + ref.P + 2 ** 31) \
+        % 2 ** 32 - 2 ** 31
+    d = d % ref.P
+    s = np.where(d > ref.HALF, d - ref.P, d).astype(np.float32)
+    return s * np.float32(scale)
+
+
+@pytest.mark.parametrize("u_kind", ["int32", "extreme"])
+@pytest.mark.parametrize("M,K,N", [(130, 576, 72), (4, 576, 1536)])
+def test_fused_kernel_any_int32_u(dev, M, K, N, u_kind):
+    rng = np.random.default_rng(M + N)
+    x, w = _field(rng, (M, K)), _field(rng, (K, N))
+    if u_kind == "int32":
+        u = rng.integers(-2 ** 31, 2 ** 31, (M, N), dtype=np.int64)
+    else:
+        u = rng.choice(np.asarray([-2 ** 31, -2 ** 31 + 1, -1, 0, ref.P - 1,
+                                   ref.P, ref.P + 1, 2 ** 31 - ref.P,
+                                   2 ** 31 - 1, -ref.P], np.int64),
+                       size=(M, N))
+    u = torch.from_numpy(u.astype(np.int32))
+    Kp = ops.block_plan(M, K, N)[4]
+    xl = ops.field_planes(x, Kp).to(dev)
+    wl = ops.encode_weight_planes(w).to(dev)
+    scale = torch.tensor(3.1e-6, device=dev)
+    got = limb_matmul_planes_fused(xl, wl, u.to(dev), scale).cpu()
+    np.testing.assert_array_equal(
+        got.numpy(), limb_matmul_planes_fused_plain(
+            xl, wl, u.to(dev), scale).cpu().numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), _wrapped_epilogue(_oracle(x.numpy(), w.numpy()),
+                                       u.numpy(), 3.1e-6))
+
+
+# -- CUDA-graph executables (runtime/aot.py) ----------------------------------
+
+def _graph_executor(d, **kw):
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.models import vgg as V
+    cfg = get_smoke("vgg16")
+    kw.setdefault("precompute", True)
+    kw.setdefault("integrity", IntegrityPolicy.full(k=2))
+    return OrigamiExecutor(cfg, V.init_params(cfg, 0, device="cpu"),
+                           device=d, **kw)
+
+
+def _equal(a, b):
+    return (torch.equal(a.logits, b.logits)
+            and torch.equal(a.boundary, b.boundary)
+            and all(torch.equal(getattr(a.integrity, f),
+                                getattr(b.integrity, f))
+                    for f in ("checked", "failed", "corrupted")))
+
+
+def _counted(fn):
+    torch.cuda.synchronize()
+    before = dict(KB.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return {k: KB.LAUNCHES[k] - before[k] for k in KB.KERNELS}, out
+
+
+@pytest.mark.parametrize("plan_kind", ["origami", "mixed", "vopen"])
+def test_graph_replay_matches_eager(dev, plan_kind):
+    """Every bucket's blinded and trusted graphs replay bit-equal to the
+    eager step for fresh sessions, credit the eager step's launches, and
+    the trusted replay equals the blinded one (the enclave recompute)."""
+    from repro_torch.core import plan as PL
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.runtime.aot import CompileCache, GraphStep
+    ex = _graph_executor(dev)
+    if plan_kind != "origami":
+        maker = PL.make_mixed if plan_kind == "mixed" else PL.make_vopen
+        ex = _graph_executor(dev, plan=maker(ex.cfg))
+    cache = CompileCache()
+    ex.attach_aot(cache)
+    shape = (ex.cfg.image_size, ex.cfg.image_size, 3)
+    assert ex.warm_aot("images", shape, (1, 2)) == 4
+    assert all(isinstance(e, GraphStep) for e in ex._executables.values())
+    for b, seed in ((2, 3), (1, 4), (2, 5)):
+        x = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(b,) + shape).astype(np.float32))
+        # both draw the session's factors on the request path
+        batch, key = {"images": x}, PRNGKey(seed)
+        eager_n, eager = _counted(lambda: ex.infer(batch, key, jit=False))
+        replay_n, replay = _counted(lambda: ex.infer(batch, key))
+        assert _equal(replay, eager)
+        assert replay_n == eager_n and replay_n["limb_matmul_fused"] > 0
+        assert replay.integrity.ok and replay.integrity.n_checked > 0
+        trusted = ex.infer(batch, trusted=True)
+        assert torch.equal(trusted.boundary, replay.boundary)
+    st = cache.stats()
+    assert st["compiles"] == 4 and st["request_compile_seconds"] == 0.0
+    assert st["exec_fallbacks"] == 0
+
+
+def test_graph_replay_under_threads(dev):
+    """Concurrent replays of one signature from several threads: each
+    caller gets its own session's result (the step's lock holds the copy-in,
+    the replay and the copy-out together)."""
+    import threading
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.runtime.aot import CompileCache
+    ex = _graph_executor(dev)
+    ex.attach_aot(CompileCache())
+    shape = (ex.cfg.image_size, ex.cfg.image_size, 3)
+    ex.warm_aot("images", shape, (2,), trusted_too=False)
+    xs = [torch.from_numpy(np.random.default_rng(10 + i).normal(
+        size=(2,) + shape).astype(np.float32)) for i in range(4)]
+    want = [ex.infer({"images": x}, PRNGKey(i), jit=False).logits
+            for i, x in enumerate(xs)]
+    got = [None] * 4
+
+    def run(i):
+        got[i] = ex.infer({"images": xs[i]}, PRNGKey(i)).logits
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_capture_records_no_kernel_span_and_counts_on_replay(dev):
+    """A synchronize inside a capture is illegal: profiled_kernel records
+    nothing while a stream is captured, and the captured launch counts
+    only when the graph replays."""
+    from repro_torch.core import tracing
+    rng = np.random.default_rng(7)
+    x, w = _field(rng, (64, 96)).to(dev), _field(rng, (96, 32)).to(dev)
+    want = ops.field_matmul(x, w)
+    tr = tracing.Tracer()
+    g = torch.cuda.CUDAGraph()
+    with tracing.activate(tr):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.field_matmul(x, w)           # warm on a side stream
+        torch.cuda.current_stream().wait_stream(side)
+        before = KB.LAUNCHES["limb_matmul"]
+        with KB.recording_launches() as record:
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                out = ops.field_matmul(x, w)
+        assert KB.LAUNCHES["limb_matmul"] == before
+    assert record["limb_matmul"] == 1
+    assert [s.name for s in tr.spans()].count("kernel.limb_matmul") == 1
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

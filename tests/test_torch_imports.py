@@ -49,7 +49,10 @@ def test_port_files_exist():
                    "kernels/flash_attention/flash_attention.py",
                    "models/attention.py", "models/transformer.py",
                    "models/model.py", "runtime/sessions.py",
-                   "runtime/generate.py"):
+                   "runtime/generate.py", "core/tracing.py",
+                   "core/trust.py", "core/planner.py",
+                   "runtime/observability.py", "runtime/profiling.py",
+                   "runtime/aot.py", "privacy/data.py", "privacy/ssim.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",

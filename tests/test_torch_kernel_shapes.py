@@ -10,7 +10,9 @@ the CPU, at the shapes those kernels serve on the main path.
 - ``limb_matmul_planes_fused_plain`` bit-for-bit against the reference's
   ``limb_matmul_planes_fused`` (Pallas, interpret mode) and an int64 oracle
   with the same epilogue in numpy, at the SmolLM-135M decode op
-  (4x576x1536) and off every tile edge (129x96x65), random and extreme;
+  (4x576x1536) and off every tile edge (129x96x65), random and extreme,
+  and for u drawn over the whole int32 range (the epilogue's sum wraps in
+  int32 as the reference's does);
 - ``limb_fold_planes_plain`` bit-for-bit against the reference's
   ``field_fold`` and an int64 oracle at the SmolLM-135M decode check
   (4x2112x2: [y | x] of the gate/up op, k = 2) and a VGG-16 width off the
@@ -111,6 +113,56 @@ def test_fused_plain_matches_reference_and_int64(M, K, N, kind):
     # a CPU tensor takes the plain version through the wrapper
     np.testing.assert_array_equal(
         limb_matmul_planes_fused(xl, wl, ut, st).numpy(), got)
+
+
+# u past the field: the int32 extremes, values near them and near p
+U_EXTREMES = np.asarray([-2 ** 31, -2 ** 31 + 1, -1, 0, P - 1, P, P + 1,
+                         2 ** 31 - P, 2 ** 31 - P - 1, 2 ** 31 - 1,
+                         -P, -P - 1], np.int64).astype(np.int32)
+
+
+def wrapped_epilogue(acc, u, scale):
+    """The reference's epilogue in numpy: mod(acc - u + p, p) with the sum
+    wrapping in int32, signed, one f32 multiply."""
+    d = (acc.astype(np.int64) - u.astype(np.int64) + P + 2 ** 31) \
+        % 2 ** 32 - 2 ** 31
+    d = d % P
+    s = np.where(d > HALF, d - P, d).astype(np.float32)
+    return s * np.float32(scale)
+
+
+@pytest.mark.parametrize("u_kind", ["int32", "extreme"])
+@pytest.mark.parametrize("M,K,N", [(4, 96, 128), (129, 96, 65)])
+def test_fused_plain_matches_reference_for_any_int32_u(M, K, N, u_kind):
+    """The fused epilogue reduces any int32 u exactly as the reference's
+    ``jnp.mod(acc - u + P, P)`` in int32, wraparound included."""
+    rng = np.random.default_rng(M * 5 + N)
+    x, w = _field(rng, (M, K), "random"), _field(rng, (K, N), "random")
+    if u_kind == "int32":
+        u = rng.integers(-2 ** 31, 2 ** 31, (M, N), dtype=np.int64).astype(
+            np.int32)
+    else:
+        u = rng.choice(U_EXTREMES, size=(M, N))
+    scale = np.float32(3.1e-6)
+    Kp = tops.block_plan(M, K, N)[4]
+    xl = tops.field_planes(torch.from_numpy(x), Kp)
+    wl = tops.encode_weight_planes(torch.from_numpy(w))
+    ut, st = torch.from_numpy(u), torch.tensor(scale)
+    got = limb_matmul_planes_fused_plain(xl, wl, ut, st).numpy()
+    np.testing.assert_array_equal(got, wrapped_epilogue(_oracle(x, w), u,
+                                                        scale))
+    want = jlimb_matmul_planes_fused(
+        jnp.asarray(xl.numpy()), jnp.asarray(wl.numpy()), jnp.asarray(u),
+        jnp.full((1, 1), scale, jnp.float32), bm=M, bn=min(N, 256), bk=Kp,
+        interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if u_kind == "extreme":
+        # near -2^31 the int32 sum wraps: an unwrapped (acc - u) mod p
+        # would differ there
+        naive = (_oracle(x, w) - u.astype(np.int64)) % P
+        assert not np.array_equal(
+            got, np.where(naive > HALF, naive - P, naive).astype(np.float32)
+            * scale)
 
 
 @pytest.mark.parametrize("kind", ["random", "extreme"])
