@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU — sealed VGG-16
-serving and private SmolLM-135M token generation — and hold every kernel
-of them against its plain PyTorch version.
+serving, the serving engine over VGG-16 and VGG-19, and private
+SmolLM-135M token generation — and hold every kernel of them against its
+plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -87,9 +88,38 @@ Phases (any failure is fatal and exits non-zero):
    passing. Printed, not gated: eager and replayed infer times, the
    factor copy into the graph, the first request with and without
    ``warm_aot``, the device-busy share and top device ops of one infer
-   from ``torch.profiler``, and ``planner.calibrate``'s fit.
+   from ``torch.profiler``, and ``planner.calibrate``'s fit;
+12. engine serving (after planned serving, before generation) — one
+   ``ServingEngine`` (max_batch 4, max_wait 50 ms, warm-up on) with a
+   ``Tracer`` serves full-width VGG-16 and VGG-19 (weight seeds 0 and
+   1, tier-1 = layers 1-6, full(k=2)): 32 sealed requests interleaved,
+   16 a model, one of each model's tampered, then one lone request in
+   bucket 1. Gates: every future resolves; exactly the tampered requests
+   fail, with ``mac_failed`` (any other failure, such as a kernel error
+   the device stage caught, is fatal); every other response bit-equal
+   to a ``PrivateInferenceServer.serve_batch`` of the same model over
+   the same groups; completions interleave the models; 12 captures at
+   registration, none on the request path, no fallback; the same
+   traffic on one stage (``pipeline=False``) bit-identical; a restart
+   without warm-up captures its one graph on the request path and
+   answers the same. Printed: requests/s and ms a request, p50 and p95
+   latency, time to first batch cold and warm, batches and padded
+   slots, the profiler's critical path, pipeline against one stage, the
+   restart's capture, the device-busy share and top device ops of the
+   traffic (``torch.profiler``);
+13. chaos drill — VGG-16 on the engine over a two-slot simulated pool
+   on the card, ``LivenessConfig(cold_timeout_s=2.0)``, the launcher's
+   default schedule (slot 0 crashes and slot 1 hangs in batches 1-2,
+   the session refills fail in 7-8, the request MACs flip in 10), 21
+   batches of 4. Gates: every future resolves; the model degrades in
+   the device window and recovers; the crash and the hang are
+   contained; both breakers open and close again; the refill errors
+   equal the injected faults; exactly the seal window's requests fail;
+   every served logit bit-equal to an honest pool-less server. Both
+   phases close their engines and fail if a thread an engine started
+   is still alive.
 
-Phases 3, 5-8, 10 and 11 each read the launch counts around exactly the
+Phases 3, 5-8 and 10-13 each read the launch counts around exactly the
 calls they drive and fail unless their path launched its kernels and no
 other.
 
@@ -102,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -131,6 +162,7 @@ from repro_torch.kernels.limb_matmul.limb_matmul import (  # noqa: E402
     limb_matmul_planes_fused_plain, limb_matmul_planes_plain)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import vgg as V  # noqa: E402
+from repro_torch.runtime.aot import bucket_ladder  # noqa: E402
 from repro_torch.runtime.devices import DevicePool  # noqa: E402
 from repro_torch.runtime.faults import (KINDS, DishonestDevice,  # noqa: E402
                                         FaultSpec)
@@ -1206,6 +1238,393 @@ def phase_planned_serving(cfg, params, dev, card):
     return launches
 
 
+# -- engine serving ------------------------------------------------------------
+
+ENGINE_MODELS = (("vgg16", 0), ("vgg19", 1))     # (config, weight seed)
+ENGINE_PER_MODEL = 16
+ENGINE_TAMPER = {"vgg16": 5, "vgg19": 10}       # stream index tampered
+OWNED_THREADS = ("offload-dev", "session-pool-refill",
+                 "serving-engine-batcher", "serving-engine-device")
+RESULT_S = 600.0                                 # per-future bound
+
+
+def _owned_threads():
+    return {t for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith(OWNED_THREADS)}
+
+
+def _no_owned_threads_left(before, where):
+    """Fail unless every thread the engines started since ``before`` has
+    ended (a daemon still launching at interpreter exit can crash the
+    process after the last line)."""
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline:
+        left = _owned_threads() - before
+        if not left:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"{where}: threads alive after close: "
+                         f"{sorted(t.name for t in left)}")
+
+
+def _engine_stream(cfg, rid0, n, rng, tamper=None):
+    """``n`` sealed requests of ``cfg`` with rids from ``rid0``; the
+    ``tamper``-th one's ciphertext has a bit flipped."""
+    reqs, keys = [], []
+    for i in range(n):
+        req, key, _ = _request(cfg, rid0 + i, rng)
+        if i == tamper:
+            ct = req.box.ciphertext.clone()
+            ct.view(-1)[0] ^= 1
+            req = Request(req.rid, req.box._replace(ciphertext=ct),
+                          req.shape, req.session_key)
+        reqs.append(req)
+        keys.append(key)
+    return reqs, keys
+
+
+def _serve_interleaved(engine, streams, lone):
+    """Every model's stream submitted interleaved, then the lone vgg16
+    request alone, flushed. ({(model, rid): response}, wall seconds of
+    the interleaved requests, completion order)."""
+    t = time.perf_counter()
+    futures = [(m, engine.submit(m, streams[m][0][j]))
+               for j in range(ENGINE_PER_MODEL) for m in streams]
+    got = {(m, f.result(timeout=RESULT_S).rid): f.result(timeout=0)
+           for m, f in futures}
+    wall = time.perf_counter() - t
+    fut = engine.submit("vgg16", lone)
+    engine.flush()
+    got[("vgg16", lone.rid)] = fut.result(timeout=RESULT_S)
+    return got, wall, list(engine.completion_order)
+
+
+def _check_responses(got, tampered, where):
+    """Exactly the tampered requests fail, with mac_failed; any other
+    failure (a kernel error caught by the device stage included) is
+    fatal."""
+    for (m, rid), resp in got.items():
+        if (m, rid) in tampered:
+            assert not resp.ok and resp.error == "mac_failed", \
+                (where, m, rid, resp.error)
+        elif not resp.ok:
+            raise AssertionError(f"{where}: {m} rid {rid} failed: "
+                                 f"{resp.error}")
+
+
+def phase_engine_serving(dev, card):
+    """Sealed VGG-16 and VGG-19 traffic through one ``ServingEngine``:
+    interleaved, warmed (CUDA graphs of every kind and bucket), traced;
+    held bit-for-bit against synchronous servers and against a serial
+    (one-stage) rerun; then a restart without warm-up. Returns the
+    VGG-16 parameters for the chaos drill."""
+    from repro_torch.core import tracing
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    tag = f"engine serving on {card}"
+    policy = IntegrityPolicy.full(k=2)
+    before = _owned_threads()
+    rng = np.random.default_rng(SEED + 17)
+    cfgs, params, streams, tampered = {}, {}, {}, set()
+    for i, (name, seed) in enumerate(ENGINE_MODELS):
+        cfgs[name] = get_config(name)
+        params[name] = V.init_params(cfgs[name], seed, device=dev)
+        streams[name] = _engine_stream(cfgs[name], 2000 + 1000 * i,
+                                       ENGINE_PER_MODEL, rng,
+                                       ENGINE_TAMPER[name])
+        tampered.add((name, streams[name][0][ENGINE_TAMPER[name]].rid))
+    lone, lone_key, _ = _request(cfgs["vgg16"], 2900, rng)
+    keys = {(m, r.rid): k for m, (rs, ks) in streams.items()
+            for r, k in zip(rs, ks)}
+    keys[("vgg16", lone.rid)] = lone_key
+
+    tracer = tracing.Tracer()
+    engine = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0,
+                                        aot_warm=True), tracer=tracer)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        entries = {m: engine.register_model(m, cfgs[m], params[m],
+                                            integrity=policy, device=dev)
+                   for m in cfgs}
+        torch.cuda.synchronize()
+        register_s = time.perf_counter() - t
+        aot = engine.aot.stats()
+        n_sigs = 2 * len(bucket_ladder(BATCH)) * len(cfgs)
+        assert aot["compiles"] == n_sigs, aot
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        got, wall, order = _serve_interleaved(engine, streams, lone)
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        snap = engine.snapshot()
+    finally:
+        engine.close()
+    _check_responses(got, tampered, "engine")
+    check_launches(launches, FUSED_PATH, "engine serving path")
+    aot = snap["aot"]
+    assert aot["request_compile_seconds"] == 0.0, aot
+    assert aot["exec_fallbacks"] == 0 and aot["compiles"] == n_sigs, aot
+    n_batches = 2 * ENGINE_PER_MODEL // BATCH + 1
+    assert snap["batches"] == n_batches and snap["padded_slots"] == 2, snap
+    assert snap["mac_failures"] == 2, snap
+    assert snap["buckets"] == {BATCH: {"batches": n_batches - 1,
+                                       "padded_slots": 2},
+                               1: {"batches": 1}}, snap["buckets"]
+    assert snap["integrity"]["verify_failures"] == 0, snap["integrity"]
+    assert snap["refill_errors"] == 0, snap["sessions"]
+    mixed = any(order[k][0] != order[k + 1][0]
+                for k in range(len(order) - 1))
+    assert mixed, order
+
+    # every response == the port's synchronous server over the same
+    # stream, in the same groups (an eager executor on the same weights)
+    for m in cfgs:
+        server = PrivateInferenceServer(cfgs[m], params[m], max_batch=BATCH,
+                                        integrity=policy, device=dev)
+        reqs = streams[m][0]
+        groups = [reqs[i:i + BATCH] for i in range(0, len(reqs), BATCH)]
+        if m == "vgg16":
+            groups.append([lone])
+        for group in groups:
+            for w in server.serve_batch(group):
+                g = got[(m, w.rid)]
+                if w.ok != g.ok:
+                    raise AssertionError(f"{m} rid {w.rid}: ok {g.ok} vs "
+                                         f"the server's {w.ok}")
+                if w.ok and not np.array_equal(
+                        _open1(cfgs[m], keys[(m, w.rid)], g),
+                        _open1(cfgs[m], keys[(m, w.rid)], w)):
+                    raise AssertionError(f"{m} rid {w.rid}: engine logits "
+                                         f"differ from serve_batch")
+        del server
+        _free()
+
+    # the same traffic on one stage (pipeline=False) over the same
+    # executors and their graphs: bit-identical responses
+    serial = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0,
+                                        aot_warm=True, pipeline=False))
+    try:
+        for m, e in entries.items():
+            serial.register_executor(m, e.executor)
+        got2, wall2, _ = _serve_interleaved(serial, streams, lone)
+        snap2 = serial.snapshot()
+    finally:
+        serial.close()
+    assert snap2["aot"]["compiles"] == 0, snap2["aot"]
+    for k, resp in got.items():
+        r2 = got2[k]
+        assert r2.ok == resp.ok, k
+        if resp.ok and not (torch.equal(r2.box.ciphertext,
+                                        resp.box.ciphertext)
+                            and r2.box.mac == resp.box.mac):
+            raise AssertionError(f"{k}: pipeline=False response differs")
+
+    # where the card's time goes: the same traffic once more, over the
+    # same executors, under torch.profiler (not timed against the above)
+    profiled = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0,
+                                          aot_warm=True))
+    try:
+        for m, e in entries.items():
+            profiled.register_executor(m, e.executor)
+        share, tops = _busy_share(
+            lambda: _serve_interleaved(profiled, streams, lone))
+    finally:
+        profiled.close()
+
+    del engine, serial, profiled, entries
+    _free()
+    # a restart: no graph survives a process, so without warm-up the
+    # first batch captures its bucket on the request path
+    restart = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0))
+    try:
+        restart.register_model("vgg16", cfgs["vgg16"], params["vgg16"],
+                               integrity=policy, device=dev)
+        first = streams["vgg16"][0][:BATCH]
+        futs = [restart.submit("vgg16", r) for r in first]
+        resps = [f.result(timeout=RESULT_S) for f in futs]
+        snap3 = restart.snapshot()
+    finally:
+        restart.close()
+    assert all(r.ok for r in resps), [r.error for r in resps]
+    for r in resps:
+        if not (torch.equal(r.box.ciphertext,
+                            got[("vgg16", r.rid)].box.ciphertext)):
+            raise AssertionError("restart: response differs")
+    a3 = snap3["aot"]
+    assert a3["compiles"] == 1 and a3["request_compile_seconds"] > 0, a3
+    _no_owned_threads_left(before, "engine serving")
+
+    n_req = 2 * ENGINE_PER_MODEL
+    crit = snap["phases"]["critical_s"]
+    c16 = cfgs["vgg16"]
+    print(f"{tag}: vgg16 + vgg19 {c16.image_size}x{c16.image_size}, "
+          f"tier-1 = layers 1-{c16.origami.tier1_layers}, "
+          f"full(k=2), max_batch {BATCH}, max_wait 50 ms; registered with "
+          f"warm-up ({aot['compiles']} CUDA-graph captures, "
+          f"{aot['compile_seconds'] * 1e3:.1f} ms) in "
+          f"{register_s * 1e3:.1f} ms")
+    print(f"{tag}: {n_req} interleaved sealed requests in {wall * 1e3:.1f} "
+          f"ms: {n_req / wall:.2f} requests/s, {wall * 1e3 / n_req:.1f} ms "
+          f"a request; p50 {snap['p50_latency_s'] * 1e3:.1f} ms, p95 "
+          f"{snap['p95_latency_s'] * 1e3:.1f} ms; time to first batch "
+          f"cold {snap['ttfb_cold_s'] * 1e3:.1f} ms, warm "
+          f"{snap['ttfb_warm_s'] * 1e3:.1f} ms; batches {snap['batches']}, "
+          f"padded slots {snap['padded_slots']}, buckets {snap['buckets']}; "
+          f"tampered -> mac_failed x{snap['mac_failures']}; checks "
+          f"{snap['integrity']['verify_checks']} failed 0; completions "
+          f"interleave the models; every response == serve_batch")
+    print(f"{tag}: profiler critical path over {snap['phases']['requests']} "
+          f"requests (s): { {p: round(v, 4) for p, v in crit.items() if v} }"
+          f"; sessions {snap['sessions']}")
+    print(f"{tag}: pipeline {wall * 1e3:.1f} ms against one stage "
+          f"(pipeline=False) {wall2 * 1e3:.1f} ms for the same "
+          f"{n_req} requests, bit-identical; restart without warm-up: the "
+          f"first batch of {BATCH} captured its graph on the request path "
+          f"in {a3['request_compile_seconds'] * 1e3:.1f} ms, time to first "
+          f"batch cold {snap3['ttfb_cold_s'] * 1e3:.1f} ms, warm "
+          f"{snap3['ttfb_warm_s'] * 1e3:.1f} ms; launches {launches}")
+    print(f"{tag}: device-busy share of the interleaved run "
+          f"{'not measured' if share is None else f'{share:.4f}'}; top "
+          f"device ops: "
+          + "; ".join(f"{n} {ms:.1f} ms x{c}" for n, ms, c in tops))
+    vgg16 = params["vgg16"]
+    del restart, params, got, got2
+    _free()
+    return vgg16
+
+
+def _open1(cfg, key, resp):
+    return PrivateInferenceServer.client_open(key, resp.box,
+                                              (cfg.num_classes,))
+
+
+def phase_chaos_drill(params, dev, card):
+    """The engine's chaos drill at full width: VGG-16 over a two-slot
+    simulated pool on the card under the default schedule (slot 0
+    crashes and slot 1 hangs in batches 1-2, the session refills fail in
+    7-8, the request MACs flip in 10), batches of 4 up to the horizon
+    plus 10; held against an honest pool-less server."""
+    from repro_torch.launch.serve import DEFAULT_CHAOS
+    from repro_torch.parallel.offload_sharding import LivenessConfig
+    from repro_torch.runtime.chaos import ChaosController, ChaosSchedule
+    from repro_torch.runtime.devices import DeviceHealthConfig
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    tag = f"chaos drill on {card}"
+    cfg = get_config("vgg16")
+    policy = IntegrityPolicy.full(k=2)
+    before = _owned_threads()
+    schedule = ChaosSchedule.parse(DEFAULT_CHAOS)
+    n_batches = schedule.horizon + 10
+    seal_batches = {b for ev in schedule.events if ev.layer == "seal"
+                    for b in range(ev.start, ev.stop + 1)}
+    device_window = {b for ev in schedule.events if ev.layer == "device"
+                     for b in range(ev.start, ev.stop + 1)}
+    rng = np.random.default_rng(SEED + 18)
+    reqs, keys = _engine_stream(cfg, 5000, BATCH * n_batches, rng)
+    key_by_rid = {r.rid: k for r, k in zip(reqs, keys)}
+    # the honest oracle first: the seal window flips request MACs in flight
+    oracle = PrivateInferenceServer(cfg, params, max_batch=BATCH,
+                                    integrity=policy, device=dev)
+    want = {}
+    for j in range(n_batches):
+        for r in oracle.serve_batch(reqs[BATCH * j:BATCH * (j + 1)]):
+            assert r.ok, r
+            want[r.rid] = _open1(cfg, key_by_rid[r.rid], r)
+    del oracle
+    _free()
+
+    pool = DevicePool(2, health=DeviceHealthConfig(breaker_after=2,
+                                                   breaker_cooldown=2))
+    chaos = ChaosController(schedule)
+    engine = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0))
+    timeline = []
+    try:
+        engine.register_model("vgg16", cfg, params, integrity=policy,
+                              devices=pool, shard="rows",
+                              liveness=LivenessConfig(cold_timeout_s=2.0),
+                              chaos=chaos, device=dev)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        t = time.perf_counter()
+        for j in range(n_batches):
+            futs = [engine.submit("vgg16", r)
+                    for r in reqs[BATCH * j:BATCH * (j + 1)]]
+            resps = [f.result(timeout=RESULT_S) for f in futs]
+            degraded = engine.snapshot()["models"]["vgg16"]["degraded"]
+            timeline.append((j, resps, degraded))
+            if any(ev.layer == "refill" and ev.active(j)
+                   for ev in schedule.events):
+                # the refill thread is asynchronous: give it a bounded
+                # beat to reach the armed window
+                deadline = time.monotonic() + 5.0
+                while (chaos.refill_faults == 0
+                       and time.monotonic() < deadline):
+                    time.sleep(0.02)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(KB.LAUNCHES)
+        snap = engine.snapshot()
+    finally:
+        engine.close()
+    _no_owned_threads_left(before, "chaos drill")
+
+    fails = []
+    if chaos.batch != n_batches - 1:
+        fails.append(f"the drill clock saw batch {chaos.batch}")
+    for j, resps, _ in timeline:
+        for resp in resps:
+            if j in seal_batches:
+                if resp.ok or resp.error != "mac_failed":
+                    fails.append(f"batch {j} rid {resp.rid}: seal window "
+                                 f"not rejected ({resp.error})")
+            elif not resp.ok:
+                fails.append(f"batch {j} rid {resp.rid} failed "
+                             f"({resp.error})")
+            elif not np.array_equal(_open1(cfg, key_by_rid[resp.rid], resp),
+                                    want[resp.rid]):
+                fails.append(f"batch {j} rid {resp.rid}: logits differ "
+                             f"from the honest server")
+    liv = snap["liveness"]
+    if liv["degradations"] == 0 or not any(
+            d for j, _, d in timeline if j in device_window):
+        fails.append("the device window did not degrade the model")
+    if liv["recoveries"] == 0 or timeline[-1][2]:
+        fails.append("the model did not recover")
+    if liv["shard_crashes"] == 0 or liv["shard_timeouts"] == 0:
+        fails.append(f"no crash or no timeout contained: {liv}")
+    slots = snap["devices"]["vgg16"]["pool"]["slots"]
+    if not all(s["breaker_opens"] > 0 and s["available"] for s in slots):
+        fails.append(f"breakers: {slots}")
+    if not (chaos.refill_faults > 0
+            and snap["refill_errors"] == chaos.refill_faults):
+        fails.append(f"refill faults {chaos.refill_faults}, refill errors "
+                     f"{snap['refill_errors']}")
+    if chaos.seal_corruptions != BATCH * len(seal_batches):
+        fails.append(f"seal corruptions {chaos.seal_corruptions}")
+    if chaos.snapshot()["armed"]:
+        fails.append(f"still armed: {chaos.snapshot()['armed']}")
+    if fails:
+        raise AssertionError("chaos drill: " + "; ".join(fails))
+    check_launches(launches, PLANE_PATH, "chaos drill")
+    marks = "".join("D" if d else ("X" if not all(r.ok for r in rs) else ".")
+                    for _, rs, d in timeline)
+    n_ok = sum(r.ok for _, rs, _ in timeline for r in rs)
+    print(f"{tag}: schedule {schedule}, {n_batches} batches of {BATCH}, 2 "
+          f"slots, breaker after 2, cold timeout 2 s; timeline [{marks}] "
+          f"(.=ok D=degraded X=seal window); "
+          + ", ".join(f"batch {b} {a} {lab}" for b, lab, a in chaos.log))
+    print(f"{tag}: {n_ok}/{BATCH * n_batches} ok in {wall * 1e3:.1f} ms "
+          f"({n_ok / wall:.2f} requests/s); liveness {liv}; refill errors "
+          f"{snap['refill_errors']} == injected; seal corruptions "
+          f"{chaos.seal_corruptions}; every served logit == the honest "
+          f"pool-less server; slots "
+          + "; ".join(f"{s['name']} opens {s['breaker_opens']} probes "
+                      f"{s['breaker_probes']} closes {s['breaker_closes']} "
+                      f"abandons {s['abandons']}" for s in slots)
+          + f"; launches {launches}")
+    _free()
+
+
 def phase_breakdown(server, batch):
     """A warm batch split into its parts (host clock, synchronized)."""
     ex = server.executor
@@ -1520,6 +1939,10 @@ def main():
     torch.cuda.empty_cache()
     phase_planned_serving(cfg, params, dev, card)
     del params
+    torch.cuda.empty_cache()
+    vgg16 = phase_engine_serving(dev, card)
+    phase_chaos_drill(vgg16, dev, card)
+    del vgg16
     torch.cuda.empty_cache()
     gen_launches = phase_generate(dev)
     # each kernel's launches, read on the main path that uses it

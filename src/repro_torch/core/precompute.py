@@ -159,6 +159,11 @@ class BlindedLayerCache:
         with self._lock:
             return self._skey(session_key, step) in self._ready
 
+    def discard(self, session_key, step: int = 0) -> None:
+        """Drop a prefetched set that will never be taken."""
+        with self._lock:
+            self._ready.pop(self._skey(session_key, step), None)
+
     def take(self, session_key, step: int = 0) -> List[Dict]:
         """Pop prefetched factors for this session, or compute them now."""
         with self._lock:

@@ -29,7 +29,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import lm_defs  # noqa: F401 re-export
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "int32": torch.int32}
 
 
 def torch_dtype(name) -> torch.dtype:

@@ -106,8 +106,9 @@ class CompileCache:
         if cache_dir is not None:
             raise NotImplementedError(
                 "CompileCache(cache_dir=...): a CUDA graph cannot be "
-                "serialized, so the port has no on-disk executable tier "
-                "(ROADMAP Queue 1 item 8b decides it; the kernel library is "
+                "serialized, so the compile cache is memory only: a restart "
+                "captures each (trace kind, bucket) again, and warm_aot "
+                "takes that off the request path (the kernel library is "
                 "already cached on disk by kernels/build.py)")
         self.cache_dir = None
         self.registry = registry

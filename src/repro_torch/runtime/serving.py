@@ -1,13 +1,18 @@
 """Private-inference serving (the paper's deployment shape).
 
-Port of the single-dispatch part of ``repro/runtime/serving.py``. The
-client attests the enclave (core/attestation), seals its input under its
-session key (core/sealing); the enclave unseals, filters failed MACs,
-pads the batch to a power-of-two bucket, runs the OrigamiExecutor (tier-1
-blinded and Freivalds-verified, tier-2 open) and seals each result back.
-A batch whose check fails drains through the recovery ladder: one device
-retry under a fresh blinding session, then the enclave recomputes it;
-either way the response is bit-identical to an honest device's.
+Port of ``repro/runtime/serving.py``. The client attests the enclave
+(core/attestation), seals its input under its session key
+(core/sealing); the enclave unseals, filters failed MACs, pads the batch
+to a power-of-two bucket, runs the OrigamiExecutor (tier-1 blinded and
+Freivalds-verified, tier-2 open) and seals each result back. A batch
+whose check fails drains through the recovery ladder: one device retry
+under a fresh blinding session, then the enclave recomputes it; either
+way the response is bit-identical to an honest device's.
+
+``PrivateInferenceServer.serve_batch`` is the one-dispatch primitive;
+``serve`` drives the continuous micro-batching ``ServingEngine``
+(runtime/engine.py) over the same executor and returns the responses in
+request order.
 
 Nonces: requests seal under the 64-bit rid split ``[lo, hi]``, responses
 under ``[lo, hi, DIRECTION_RESPONSE]``, so no (key, nonce) pair repeats
@@ -28,6 +33,7 @@ from repro_torch.core import prng, tracing
 from repro_torch.core.attestation import Quote, measure_enclave
 from repro_torch.core.origami import OrigamiExecutor
 from repro_torch.core.sealing import SealedBox, seal, unseal
+from repro_torch.models.model import torch_dtype
 from repro_torch.runtime.aot import bucket_for
 
 DIRECTION_RESPONSE = 0xEE
@@ -64,7 +70,8 @@ class Response:
     # True when a Freivalds check failed on this request's batch and the
     # logits were recovered (device retry or enclave recompute)
     flagged: bool = False
-    # "mac_failed" when the request never reached the executor
+    # why ok=False: "mac_failed" (never reached the executor),
+    # "deadline_exceeded", "shutdown" or "rejected" (engine admission)
     error: Optional[str] = None
 
 
@@ -161,11 +168,12 @@ class PreparedBatch:
         return len(self.valid_idx)
 
 
-def prepare_sealed_batch(requests: List[Request], *,
-                         max_batch: int) -> PreparedBatch:
+def prepare_sealed_batch(requests: List[Request], *, max_batch: int,
+                         input_dtype=None) -> PreparedBatch:
     """Enclave stage: unseal -> filter failed MACs -> bucket-pad. Zero pad
     rows never raise the activation absmax, so they leave every data row's
-    result unchanged."""
+    result unchanged. ``input_dtype`` (a torch dtype or its name) casts
+    the unsealed float payloads, as LM tokens ride sealed as floats."""
     t0 = time.perf_counter()
     valid_idx: List[int] = []
     inputs: List[torch.Tensor] = []
@@ -185,12 +193,15 @@ def prepare_sealed_batch(requests: List[Request], *,
     bucket = bucket_for(len(inputs), max_batch)
     pad = bucket - len(inputs)
     x = torch.stack(inputs + [torch.zeros_like(inputs[0])] * pad)
+    if input_dtype is not None:
+        x = x.to(torch_dtype(input_dtype))
     return PreparedBatch(requests, boxes, valid_idx, x, pad, bucket, integ,
                          {"unseal": time.perf_counter() - t0})
 
 
 def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
-                            *, session_key, trusted: bool = False,
+                            *, session_key, input_key: str = "images",
+                            trusted: bool = False,
                             retry_device: bool = True
                             ) -> Tuple[List[Optional[SealedBox]], int, int,
                                        BatchIntegrity]:
@@ -203,7 +214,7 @@ def complete_prepared_batch(executor: OrigamiExecutor, prep: PreparedBatch,
     the batch itself; ``trusted=True`` skips the device entirely. Every
     recovery path is bit-identical to an honest device's answer."""
     requests, boxes, integ = prep.requests, prep.boxes, prep.integ
-    batch = {"images": prep.x}
+    batch = {input_key: prep.x}
     t0 = time.perf_counter()
     if trusted:
         # the enclave run draws no pads, so it takes no session key
@@ -301,9 +312,9 @@ class PrivateInferenceServer:
     """Batched Origami serving of a VGG model on one device."""
 
     def __init__(self, cfg: ModelConfig, params, *, mode: str = "origami",
-                 max_batch: int = 8, impl: str = "fused",
-                 precompute: bool = True, integrity=None, fault=None,
-                 plan=None, device="cuda"):
+                 max_batch: int = 8, input_key: str = "images",
+                 impl: str = "fused", precompute: bool = True,
+                 integrity=None, fault=None, plan=None, device="cuda"):
         self.cfg = cfg
         self.executor = OrigamiExecutor(cfg, params, mode=mode, impl=impl,
                                         precompute=precompute,
@@ -313,10 +324,12 @@ class PrivateInferenceServer:
                                      self.executor.partition,
                                      plan_digest=self.executor.plan.digest)
         self.max_batch = max_batch
+        self.input_key = input_key
         self.processed = 0
         self.batches = 0
         self.integrity_totals = IntegrityTotals()  # running serve_batch sums
         self.last_phases: Dict[str, float] = {}   # stage seconds, last batch
+        self._engine = None              # lazy ServingEngine (serve())
         # server-side root of the per-batch blinding sessions: batch k runs
         # under fold_in(root, k). Fresh entropy per instance, so one-time
         # pads never repeat across restarts or replicas.
@@ -356,7 +369,7 @@ class PrivateInferenceServer:
         boxes, n_valid, integ = prep.boxes, 0, prep.integ
         if prep.x is not None:
             boxes, n_valid, _, integ = complete_prepared_batch(
-                self.executor, prep,
+                self.executor, prep, input_key=self.input_key,
                 session_key=self._blind_session(self.batches))
         self.integrity_totals.add(integ)
         self.last_phases = prep.phases
@@ -370,3 +383,49 @@ class PrivateInferenceServer:
                          flagged=integ.flagged and box is not None,
                          error=None if box is not None else "mac_failed")
                 for r, box in zip(requests, boxes)]
+
+    def serve(self, requests: List[Request]) -> List[Response]:
+        """Serve any number of requests through the engine and return the
+        responses in request order (the engine completes out of order).
+        The engine rejects a rid already in flight, so duplicate rids go
+        in waves, each waiting for the previous occurrence to finish."""
+        responses: List[Optional[Response]] = [None] * len(requests)
+        waves: List[List[int]] = []
+        depth: Dict[int, int] = {}
+        for i, r in enumerate(requests):
+            d = depth.get(r.rid, 0)
+            depth[r.rid] = d + 1
+            while len(waves) <= d:
+                waves.append([])
+            waves[d].append(i)
+        for wave in waves:
+            futures = [(i, self.engine.submit("default", requests[i]))
+                       for i in wave]
+            # the list is complete: do not let the tail batch idle out
+            # the max_wait timer
+            self.engine.flush()
+            for i, f in futures:
+                responses[i] = f.result(timeout=300.0)
+        return responses
+
+    @property
+    def engine(self):
+        """A lazily built single-model ServingEngine over this server's
+        executor (so ``serve`` and ``serve_batch`` share its caches).
+        ``max_queue`` is effectively unbounded: ``serve`` is synchronous,
+        and admission control would shed the tail of a long list."""
+        if self._engine is None:
+            from repro_torch.runtime.engine import EngineConfig, ServingEngine
+            self._engine = ServingEngine(EngineConfig(
+                max_batch=self.max_batch, max_wait_ms=25.0,
+                max_queue=1_000_000_000))
+            self._engine.register_executor("default", self.executor,
+                                           input_key=self.input_key)
+        return self._engine
+
+    def close(self) -> None:
+        """Stop the engine's batcher, device-stage and session-pool
+        threads, if ``serve`` started them."""
+        if self._engine is not None:
+            self._engine.close()
+            self._engine = None

@@ -22,7 +22,9 @@ one executor:
 - **fault containment**: a prefetch that raises counts in
   ``refill_errors`` and the loop goes on (the session's factors are then
   computed on the request path); ``refill_fault`` is a hook called with
-  the session counter before each prefetch, for scripting that failure.
+  the session counter before each prefetch, for scripting that failure;
+- **close**: stops the refill thread and drops the prefetched sets of the
+  sessions it never handed out.
 
 ``TokenSlotRing`` streams the per-token factor sets of ONE decode session:
 at every generated token, the (session, token, op) set of every offloaded
@@ -229,12 +231,20 @@ class SessionPool:
                     "depth": self.depth, "pending": self._next - self._head}
 
     def close(self) -> None:
-        """Stop the refill thread; waits for a draw in progress."""
+        """Stop the refill thread (waiting for a draw in progress), then
+        drop the factor sets prefetched for sessions never handed out: a
+        closed pool issues no more keys, and at full width each set pins
+        hundreds of MB of device memory in the executor's caches."""
         with self._cv:
             self._closed = True
             self._cv.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=60.0)
+        with self._lock:
+            unissued = range(self._head, self._next)
+        for cache in self._caches():
+            for counter in unissued:
+                cache.discard(self._key_for(counter))
 
     def acquire_stream(self, cache, *, lo: int = 0, depth: int = 8,
                        background: bool = True):

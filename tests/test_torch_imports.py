@@ -52,7 +52,9 @@ def test_port_files_exist():
                    "runtime/generate.py", "core/tracing.py",
                    "core/trust.py", "core/planner.py",
                    "runtime/observability.py", "runtime/profiling.py",
-                   "runtime/aot.py", "privacy/data.py", "privacy/ssim.py"):
+                   "runtime/aot.py", "privacy/data.py", "privacy/ssim.py",
+                   "runtime/engine.py", "runtime/chaos.py",
+                   "launch/__init__.py", "launch/serve.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",

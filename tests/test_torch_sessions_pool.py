@@ -149,6 +149,20 @@ def test_refill_fault_is_contained(executor):
     pool.close()
 
 
+def test_close_drops_unissued_prefetched_sets(executor):
+    cfg, ex, batch = executor
+    ex.build_cache(batch)
+    pool = TSS.SessionPool(ex, depth=3, background=False)
+    pool.prime()
+    key = pool.acquire()
+    assert pool.ready() == 2
+    pool.close()
+    assert pool.ready() == 0
+    assert ex.cache.prefetched(key)           # issued: still to be taken
+    assert not any(ex.cache.prefetched(pool._key_for(c)) for c in (1, 2))
+    assert ex.infer(batch, session_key=key).integrity.ok
+
+
 def test_refill_thread_prefetches_ahead(executor):
     cfg, ex, batch = executor
     ex.build_cache(batch)
