@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU — sealed VGG-16
-serving, the serving engine over VGG-16 and VGG-19, and private
-SmolLM-135M token generation — and hold every kernel of them against its
-plain PyTorch version.
+serving, the serving engine over VGG-16 and VGG-19, and SmolLM-135M:
+private token generation, the LM forward, engine-served LM requests and
+token streams, sampling and ``generate_origami`` — and hold every kernel
+of them against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -119,7 +120,39 @@ Phases (any failure is fatal and exits non-zero):
    phases close their engines and fail if a thread an engine started
    is still alive.
 
-Phases 3, 5-8 and 10-13 each read the launch counts around exactly the
+14. lm infer (after generation) — full-width, full-depth SmolLM-135M
+   (random bf16 weights, seed 0; as in 15-18) at p = 3 under full(k=2):
+   ``OrigamiExecutor.infer`` on 4 x 256 tokens. Gates: blinded logits
+   bit-equal to the trusted recompute; the tier-1 boundary within 0.25
+   of the "split" plan's float boundary; 21/21 ops checked; exactly 21
+   blind_encode, 21 fused, 42 limb_matmul (u and ws), 21 fold and 30
+   flash launches; a bit-flipping device caught op by op. Printed:
+   blinded, trusted and open float times (median of 10) and the
+   device-busy share of one blinded infer;
+15. lm engine — the reference's LM bucket case at full width: an LM in a
+   ``ServingEngine`` (``input_key="tokens"``, ``input_dtype="int32"``,
+   max_batch 2), two sealed requests of 32 tokens and one of 128. Gates:
+   two batches; every response opens to (tokens, padded vocab),
+   bit-equal to an eager infer of its padded batch; no engine thread
+   outlives ``close()``;
+16. generate engine — ``GenerateExecutor`` (prompt 128, 16 new tokens)
+   in a warmed engine (max_batch 4): 9 CUDA-graph captures at
+   registration (per bucket the trusted prompt pass and the slot-fed and
+   trusted token steps), none on the request path, no fallback; 4 sealed
+   prompts served as streams equal to ``private_generate(trusted=True)``
+   on the same batch; a replayed token step bit-equal to the eager
+   ``decode_once`` in logits, caches, report and launches. Printed: the
+   slot-fed token step eager and replayed (median of 10) and the
+   device-busy share of each, the capture time and the graph memory;
+17. sampling — ``private_generate`` at temperature 0.8 (4 x 128 prompt,
+   16 new): private tokens equal the trusted ones; ``categorical`` on
+   the card equals it on the CPU for 8 keys;
+18. generate_origami — a 2 x 32 prompt and 8 new tokens: one telemetry
+   count per runtime op (7 x 3 x 39), exactly that many blind_encode,
+   fused and limb_matmul launches, no other; one tiered step within
+   0.15 of the open float step.
+
+Phases 3, 5-8 and 10-18 each read the launch counts around exactly the
 calls they drive and fail unless their path launched its kernels and no
 other.
 
@@ -534,6 +567,16 @@ LM_FOLD_SHAPES = (("decode check", 4, 2112, 2),
                   ("prefill check", 4096, 2112, 2))
 
 
+# the SmolLM-135M tier-1 projections (label, d_in, d_out) and the row
+# counts the LM serving phases give them: 1 and 2 (bucket-1 and bucket-2
+# token steps, generate_origami), 4 (a batch-4 token step), 64 and 128
+# (lm engine's buckets), 128, 256 and 512 (the 128-token prompt pass at
+# buckets 1, 2 and 4), 1024 (lm infer's 4 x 256)
+LM_PROJECTIONS = (("q/o", 576, 576), ("k/v", 576, 192),
+                  ("gate/up", 576, 1536), ("down", 1536, 576))
+LM_PATH_ROWS = (1, 2, 4, 64, 128, 256, 512, 1024)
+
+
 def _bound_ms(nbytes, nops):
     return max(nbytes / BYTES_S, nops / INT8_OPS_S) * 1e3
 
@@ -604,6 +647,59 @@ def phase_lm_limb_shapes(gen, dev):
         print(f"limb_fold smollm {label} ({M}x{Kf}x{kf}): {ms:.4f} ms "
               f"(device {fmt_ms(dms)}), plain {pms:.4f} ms, bound "
               f"{bound:.4g} ms; bit-equal")
+    phase_lm_path_shapes(gen, dev)
+
+
+def phase_lm_path_shapes(gen, dev):
+    """Every field-product kernel and ``blind_encode`` at every shape the
+    LM serving phases give it (``LM_PROJECTIONS`` x ``LM_PATH_ROWS``; the
+    fold material ``W_q @ s`` once per projection), each bit-for-bit
+    against its plain version; checked, not timed."""
+    def field(rows, cols):
+        return torch.randint(0, ref.P, (rows, cols), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def check(name, shape, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} at the lm path shape {shape}: "
+                                 f"kernel differs from its plain version")
+        n_checked[name] = n_checked.get(name, 0) + 1
+
+    n_checked = {}
+    scale = torch.tensor(3.1e-6, device=dev)
+    for label, K, N in LM_PROJECTIONS:
+        w = field(K, N)
+        wl = ops.encode_weight_planes(w)
+        Kp = wl.shape[1]
+        sl = ops.encode_weight_planes(field(N, 2))
+        wp = ops.field_planes(w, sl.shape[1])
+        check("limb_matmul", (label, "ws", K, N, 2),
+              limb_matmul_planes(wp, sl), limb_matmul_planes_plain(wp, sl))
+        fold_s = ops.encode_weight_planes(field(K + N, 2))
+        for M in LM_PATH_ROWS:
+            shape = (label, M, K, N)
+            x = torch.randn((M, K), generator=gen, device=dev)
+            r = field(M, K)
+            inv = (1.0 / x.abs().max()).reshape(())
+            xl = blind_encode(x, r, inv, 8, Kp)
+            check("blind_encode", shape, xl,
+                  blind_encode_plain(x, r, inv, 8, Kp))
+            rl = ops.field_planes(r, Kp)
+            check("limb_matmul", shape, limb_matmul_planes(rl, wl),
+                  limb_matmul_planes_plain(rl, wl))
+            u = field(M, N)
+            check("limb_matmul_fused", shape,
+                  limb_matmul_planes_fused(xl, wl, u, scale),
+                  limb_matmul_planes_fused_plain(xl, wl, u, scale))
+            fl = ops.field_planes(field(M, K + N), fold_s.shape[1])
+            check("limb_fold", (label, M, K + N, 2),
+                  limb_fold_planes(fl, fold_s),
+                  limb_fold_planes_plain(fl, fold_s))
+    print(f"lm path shapes: projections "
+          f"{[(lb, K, N) for lb, K, N in LM_PROJECTIONS]} at rows "
+          f"{list(LM_PATH_ROWS)}: bit-equal to the plain versions at "
+          + ", ".join(f"{n} shapes of {name}"
+                      for name, n in n_checked.items()))
 
 
 def _request(cfg, rid, rng):
@@ -903,7 +999,9 @@ def _busy_share(fn, top=6):
     of the device activity intervals ``torch.profiler`` saw over the
     call's wall interval (the call synchronizes at its end), None when it
     saw none; and the ``top`` device ops by device time, as (name, ms,
-    count)."""
+    count). The window's own range also appears on the device timeline
+    (a user annotation from its first kernel to its last) and is not
+    activity: counted, it would read nearly 1 for any call."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
     torch.cuda.synchronize()
@@ -920,12 +1018,14 @@ def _busy_share(fn, top=6):
             ops.append((ev.key[:48], t / 1e3, ev.count))
     ops = sorted(ops, key=lambda o: -o[1])[:top]
     events = prof.events()
-    win = [e for e in events if e.name == "smoke.window"]
+    win = [e for e in events if e.name == "smoke.window"
+           and e.device_type == DeviceType.CPU]
     if not win:
         return None, ops
     lo, hi = win[0].time_range.start, win[0].time_range.end
     spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
-                   for e in events if e.device_type == DeviceType.CUDA)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "smoke.window")
     busy, cur_lo, cur_hi = 0.0, None, None
     for a, b in spans:
         if b <= a:
@@ -1648,6 +1748,14 @@ def phase_breakdown(server, batch):
 # first, then the reference test's sweep
 FLASH_CASES = (
     ("smollm prefill", 4, 1024, 9, 3, torch.bfloat16, True, 2e-2),
+    # the LM serving phases' attention: the lm infer batch, the prompt
+    # pass of generate engine and sampling (and its bucket-2 and bucket-1
+    # captures), lm engine's 128-token bucket 1 and its 32-token bucket 2
+    ("lm infer", 4, 256, 9, 3, torch.bfloat16, True, 2e-2),
+    ("prompt 128", 4, 128, 9, 3, torch.bfloat16, True, 2e-2),
+    ("prompt 128 bucket 2", 2, 128, 9, 3, torch.bfloat16, True, 2e-2),
+    ("prompt 128 bucket 1", 1, 128, 9, 3, torch.bfloat16, True, 2e-2),
+    ("lm engine bucket 2", 2, 32, 9, 3, torch.bfloat16, True, 2e-2),
     ("float32", 4, 1024, 9, 3, torch.float32, True, 2e-5),
     ("non-causal", 4, 1024, 9, 3, torch.bfloat16, False, 2e-2),
     ("MHA", 4, 1024, 9, 9, torch.bfloat16, True, 2e-2),
@@ -1919,6 +2027,375 @@ def phase_generate_breakdown(cfg, ex, params, prompt, open_ms):
           f"{stats}; open generate of 2 tokens {open_ms:.1f} ms")
 
 
+# -- the LM serving paths (SmolLM-135M at full width and depth) -------------
+
+LM_P = 3                                         # tier-1 = blocks 1-3
+LM_INFER_SHAPE = (4, 256)                        # (batch, tokens)
+LM_ENGINE_SEQS = (32, 32, 128)                   # two buckets of max_batch 2
+GEN_ENGINE_PROMPT, GEN_ENGINE_NEW = 128, 16
+SAMPLE_T = 0.8
+ORIGAMI_SHAPE, ORIGAMI_NEW = (2, 32), 8
+# the LM forward launches GENERATE_PATH's kernels (per op it draws
+# u = r @ W_q and ws = W_q @ s live, blinds, multiplies and folds);
+# generate_origami verifies nothing and its decode attention is plain torch
+ORIGAMI_PATH = ("blind_encode", "limb_matmul", "limb_matmul_fused")
+
+
+def _lm_tokens(cfg, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape)).to("cuda")
+
+
+def phase_lm_infer(cfg, params, dev, card):
+    """The LM forward ``infer`` on a batch of 4 x 256 tokens at p = 3
+    under full(k=2): blinded == trusted bit for bit, the tier-1 boundary
+    against the "split" plan's float one, every op checked, exact launch
+    counts, a bit-flipping device caught op by op; times and the
+    device-busy share."""
+    tag = f"lm infer on {card}"
+    policy = IntegrityPolicy.full(k=2)
+    ex = OrigamiExecutor(cfg, params, "origami", LM_P, integrity=policy,
+                         device=dev)
+    batch = {"tokens": _lm_tokens(cfg, LM_INFER_SHAPE, SEED + 40)}
+    key = PRNGKey(SEED + 41)
+    n_ops = 7 * LM_P
+    launches, _, res = counted(lambda: ex.infer(batch, key))
+    check_launches(launches, GENERATE_PATH, "lm infer path")
+    want = {"blind_encode": n_ops, "limb_matmul_fused": n_ops,
+            "limb_fold": n_ops, "limb_matmul": 2 * n_ops,
+            "flash_attention": cfg.num_layers}
+    for name, n in want.items():
+        assert launches[name] == n, (name, launches[name], n)
+    rep, tele = res.integrity, res.telemetry
+    assert rep.n_ops == rep.n_checked == n_ops and rep.ok, rep
+    assert tele.calls == tele.device_matmuls == tele.verify_ops == n_ops
+    assert res.logits.shape == LM_INFER_SHAPE + (cfg.padded_vocab,)
+    assert torch.isfinite(res.logits.float()).all()
+    t_launches, _, trusted = counted(lambda: ex.infer(batch, key,
+                                                      trusted=True))
+    check_launches(t_launches, TRUSTED_GENERATE_PATH, "trusted lm infer")
+    assert t_launches["limb_matmul"] == n_ops, t_launches
+    if not torch.equal(res.logits, trusted.logits):
+        raise AssertionError("lm infer: blinded logits differ from the "
+                             "trusted recompute")
+    split = OrigamiExecutor(cfg, params, "split", LM_P, device=dev)
+    boundary_rel = _rel(res.boundary, split.infer(batch).boundary)
+    assert boundary_rel < PREFILL_REL_BOUND, boundary_rel
+    bad = OrigamiExecutor(cfg, params, "origami", LM_P, integrity=policy,
+                          fault=DishonestDevice(FaultSpec("bit_flip")),
+                          device=dev)
+    drep = bad.infer(batch, key).integrity
+    if not torch.equal(drep.failed, drep.corrupted):
+        raise AssertionError("lm infer bit_flip: failed != corrupted")
+    assert drep.n_corrupted == drep.n_failed == n_ops, drep
+    del bad
+    blinded_ms = cuda_ms(lambda: ex.infer(batch, key), reps=10, warmup=1)
+    trusted_ms = cuda_ms(lambda: ex.infer(batch, key, trusted=True),
+                         reps=10, warmup=1)
+    open_ms = cuda_ms(lambda: ex.reference(batch), reps=10, warmup=1)
+    share, tops = _busy_share(lambda: ex.infer(batch, key))
+    open_share, open_tops = _busy_share(lambda: ex.reference(batch))
+    print(f"{tag}: smollm-135m {LM_INFER_SHAPE[0]}x{LM_INFER_SHAPE[1]} "
+          f"tokens, tier-1 = blocks 1-{LM_P}, full(k=2): blinded == trusted "
+          f"(logits {tuple(res.logits.shape)} bit-equal); checks "
+          f"{rep.n_checked}/{rep.n_ops}; tier-1 boundary rel err vs the "
+          f"split plan's float boundary {boundary_rel:.5f} (bound "
+          f"{PREFILL_REL_BOUND}); bit_flip caught {drep.n_failed}/"
+          f"{drep.n_ops} op by op; launches {launches}; trusted "
+          f"{t_launches}")
+    print(f"{tag}: blinded infer {blinded_ms:.2f} ms, trusted "
+          f"{trusted_ms:.2f} ms, open float forward {open_ms:.2f} ms "
+          f"(median of 10); device-busy share of one blinded infer "
+          f"{'not measured' if share is None else f'{share:.4f}'}; top "
+          f"device ops: "
+          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in tops))
+    print(f"{tag}: device-busy share of the open float forward "
+          f"{'not measured' if open_share is None else f'{open_share:.4f}'}"
+          f"; top device ops: "
+          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in open_tops))
+    return launches
+
+
+def _lm_request_sealed(cfg, rid, seq, rng):
+    toks = rng.integers(0, cfg.vocab_size, size=(seq,)).astype(np.float32)
+    key = rng.integers(0, 2 ** 32 - 1, size=(2,), dtype=np.uint32)
+    box = PrivateInferenceServer.client_seal(key, toks, rid)
+    return Request(rid=rid, box=box, shape=toks.shape, session_key=key), key
+
+
+def phase_lm_engine(cfg, params, dev, card):
+    """The reference's engine LM case at full width: an LM registered with
+    ``input_key="tokens"``, ``input_dtype="int32"``, max_batch 2; two
+    requests of 32 tokens and one of 128 in two buckets, each response
+    bit-equal to an eager infer of its padded batch."""
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    tag = f"lm engine on {card}"
+    before = _owned_threads()
+    rng = np.random.default_rng(SEED + 42)
+    reqs = [_lm_request_sealed(cfg, 300 + i, s, rng)
+            for i, s in enumerate(LM_ENGINE_SEQS)]
+    engine = ServingEngine(EngineConfig(max_batch=2, max_wait_ms=150.0))
+    try:
+        entry = engine.register_model(
+            "lm", cfg, params, input_key="tokens", input_dtype="int32",
+            partition=LM_P, integrity=IntegrityPolicy.full(k=2), device=dev)
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        t = time.perf_counter()
+        futs = [engine.submit("lm", r) for r, _ in reqs]
+        got = [f.result(timeout=RESULT_S) for f in futs]
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        snap = engine.snapshot()
+    finally:
+        engine.close()
+    _no_owned_threads_left(before, "lm engine")
+    assert all(r.ok for r in got), [r.error for r in got]
+    check_launches(launches, GENERATE_PATH, "lm engine path")
+    assert snap["batches"] == 2, snap["batches"]
+    ex = entry.executor
+    seqs = {}
+    for (r, key), resp in zip(reqs, got):
+        seqs.setdefault(r.shape[0], []).append((r, key, resp))
+    for seq, group in seqs.items():
+        toks = torch.stack([torch.from_numpy(
+            PrivateInferenceServer.client_open(k, r.box, r.shape))
+            for r, k, _ in group])
+        pad = 2 if len(group) == 2 else 1
+        toks = torch.cat([toks, torch.zeros((pad - len(group), seq))])
+        want = ex.infer({"tokens": toks.to(torch.int32)}, PRNGKey(SEED + 43),
+                        jit=False).logits.float().cpu()
+        for row, (r, k, resp) in enumerate(group):
+            lg = PrivateInferenceServer.client_open(
+                k, resp.box, (seq, cfg.padded_vocab))
+            if not np.array_equal(lg, want[row].numpy()):
+                raise AssertionError(f"lm engine: response {r.rid} differs "
+                                     f"from the eager infer")
+    print(f"{tag}: {len(reqs)} sealed requests of {list(LM_ENGINE_SEQS)} "
+          f"tokens in {wall * 1e3:.1f} ms, {snap['batches']} batches "
+          f"(buckets {snap['buckets']}), each response (tokens, "
+          f"{cfg.padded_vocab}) bit-equal to the eager infer of its padded "
+          f"batch; launches {launches}")
+    del ex, entry
+    _free()
+
+
+def _step_readings(ex, cfg, prompt, key):
+    """The slot-fed token step at the bucket-4 shape, at a position past
+    the one ``warm_decode_aot`` captured it at (the prompt's length), the
+    slot drawn beforehand and no refill thread running: (position, eager
+    ms, replayed ms, busy shares, top device ops, kernel ms, launches),
+    eager then replayed where there are two; and the gate that a replay
+    is bit-equal to the eager step in logits, caches, report and
+    launches."""
+    from repro_torch.models.attention import KVCache
+    S0 = prompt.shape[1]
+    total = S0 + GEN_ENGINE_NEW
+    pos = S0 + GEN_ENGINE_NEW // 2
+    cache = ex.decode_cache(prompt.shape[0])
+    logits, caches, _ = ex.prefill_session(prompt, key, max_seq=total,
+                                           jit=False)
+    for p in range(S0, pos):        # eager steps up to the gated position
+        tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+        logits, caches, _ = ex.decode_once(
+            tok, caches, p, key, cache.session_factors(key, p), jit=False)
+    tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+    slot = cache.session_factors(key, pos)
+
+    def step(jit):
+        c = KVCache(caches.k.clone(), caches.v.clone())
+        return ex.decode_once(tok, c, pos, key, slot, jit=jit)
+
+    ne, _, a = counted(lambda: step(False))
+    nr, _, b = counted(lambda: step(True))
+    same = (torch.equal(a[0], b[0]) and torch.equal(a[1].k, b[1].k)
+            and torch.equal(a[1].v, b[1].v)
+            and all(torch.equal(getattr(a[2], f), getattr(b[2], f))
+                    for f in ("checked", "failed", "corrupted")))
+    if not same:
+        raise AssertionError("a replayed token step differs from the eager "
+                             "decode_once")
+    assert ne == nr and a[2].n_checked == 7 * LM_P and a[2].ok, (ne, nr)
+    eager_ms, replay_ms = [], []
+    for _ in range(10):
+        eager_ms.append(_timed(lambda: step(False))[0])
+        replay_ms.append(_timed(lambda: step(True))[0])
+    busy, tops = zip(*[_busy_share(lambda: step(jit)) for jit in
+                       (False, True)])
+    # the kernels' time alone (a CUDA-only profile: no host op is counted)
+    kernel_ms = [device_ms(lambda: step(jit)) for jit in (False, True)]
+    return pos, eager_ms, replay_ms, busy, tops, kernel_ms, ne
+
+
+def phase_generate_engine(cfg, params, dev, card):
+    """``GenerateExecutor`` (prompt 128, 16 new tokens) in a warmed engine
+    (max_batch 4): every bucket's trusted prompt pass and both token
+    steps captured at registration, none on the request path; 4 sealed
+    prompts served as streams equal to the trusted oracle; a replayed
+    token step bit-equal to the eager one; step times and busy shares."""
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    from repro_torch.runtime.generate import GenerateExecutor
+    tag = f"generate engine on {card}"
+    before = _owned_threads()
+    rng = np.random.default_rng(SEED + 44)
+    ex = GenerateExecutor(cfg, params, prompt_len=GEN_ENGINE_PROMPT,
+                          max_new_tokens=GEN_ENGINE_NEW, partition=LM_P,
+                          integrity=IntegrityPolicy.full(k=2), device=dev)
+    assert ex.attested_digest == ex.dplan.digest != ex.plan.digest
+    engine = ServingEngine(EngineConfig(max_batch=BATCH, max_wait_ms=50.0,
+                                        aot_warm=True))
+    try:
+        _free()
+        mem0 = torch.cuda.memory_reserved()
+        reg_ms, _ = _timed(lambda: engine.register_executor(
+            "smollm-gen", ex, input_key="tokens", input_dtype="int32"))
+        graph_gib = (torch.cuda.memory_reserved() - mem0) / 2 ** 30
+        a0 = engine.aot.stats()
+        assert engine.attest("smollm-gen").plan_digest == ex.dplan.digest
+        reqs = [_lm_request_sealed(cfg, 400 + i, GEN_ENGINE_PROMPT, rng)
+                for i in range(BATCH)]
+        torch.cuda.synchronize()
+        KB.reset_launches()
+        t = time.perf_counter()
+        futs = [engine.submit("smollm-gen", r) for r, _ in reqs]
+        got = [f.result(timeout=RESULT_S) for f in futs]
+        wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(KB.LAUNCHES)
+        a1 = engine.aot.stats()
+    finally:
+        engine.close()
+    _no_owned_threads_left(before, "generate engine")
+    assert all(r.ok for r in got), [r.error for r in got]
+    check_launches(launches, GENERATE_PATH, "generate engine path")
+    n_buckets = len(bucket_ladder(BATCH))
+    assert a0["compiles"] == 3 * n_buckets, a0
+    assert a1["compiles"] == a0["compiles"], (a0, a1)
+    assert a1["request_compile_seconds"] == 0.0, a1
+    assert a1["exec_fallbacks"] == 0, a1
+    total = GEN_ENGINE_PROMPT + GEN_ENGINE_NEW
+    prompts = torch.stack([torch.from_numpy(PrivateInferenceServer.client_open(
+        k, r.box, r.shape)) for r, k in reqs]).long().to(dev)
+    streams = np.stack([PrivateInferenceServer.client_open(
+        k, resp.box, (total,)) for (r, k), resp in zip(reqs, got)])
+    # the oracle runs eagerly (jit=False): the served streams' replayed
+    # token steps, 15 positions of one captured graph, are held against
+    # eager steps, not against replays of the same capture
+    oracle = private_generate(params, prompts, cfg,
+                              max_new_tokens=GEN_ENGINE_NEW, trusted=True,
+                              executor=ex, key=PRNGKey(0), jit=False)
+    if not np.array_equal(streams, oracle.tokens.float().cpu().numpy()):
+        raise AssertionError("generate engine: streams differ from the "
+                             "eager trusted oracle")
+    pos, eager_ms, replay_ms, busy, tops, kernel_ms, step_launches = (
+        _step_readings(ex, cfg, prompts, PRNGKey(SEED + 45)))
+    fmt = ["not measured" if b is None else f"{b:.4f}" for b in busy]
+    print(f"{tag}: smollm-135m prompt {GEN_ENGINE_PROMPT}, "
+          f"{GEN_ENGINE_NEW} new, tier-1 = blocks 1-{LM_P}, full(k=2), "
+          f"max_batch {BATCH}: registered with warm-up in {reg_ms:.1f} ms "
+          f"({a0['compiles']} CUDA-graph captures, "
+          f"{a0['compile_seconds'] * 1e3:.1f} ms of capture; graph memory "
+          f"{graph_gib:.2f} GiB reserved); {BATCH} sealed prompts served "
+          f"in {wall * 1e3:.1f} ms as streams equal to the eager trusted "
+          f"oracle; "
+          f"no capture on the request path, no fallback; launches "
+          f"{launches}")
+    print(f"{tag}: slot-fed token step (batch {BATCH}, position {pos}, "
+          f"captured at {GEN_ENGINE_PROMPT}; no refill running): eager "
+          f"{_spread(eager_ms)}, replayed {_spread(replay_ms)}; replay "
+          f"bit-equal to eager in logits, caches and report, "
+          f"launches {step_launches}; device-busy share eager {fmt[0]}, "
+          f"replayed {fmt[1]}; kernel time a step (profiler) eager "
+          f"{fmt_ms(kernel_ms[0])}, replayed {fmt_ms(kernel_ms[1])}")
+    for kind, ops in zip(("eager", "replayed"), tops):
+        print(f"  top device ops, {kind} token step: "
+              + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in ops))
+    del ex, oracle
+    _free()
+
+
+def phase_sampling(cfg, params, dev, card):
+    """``private_generate`` at temperature 0.8: private tokens equal the
+    trusted ones; ``categorical`` on the card equals it on the CPU."""
+    from repro_torch.core import prng
+    tag = f"sampling on {card}"
+    ex = OrigamiExecutor(cfg, params, "origami", LM_P,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    prompt = _lm_tokens(cfg, (GEN_BATCH, GEN_ENGINE_PROMPT), SEED + 46)
+    kw = dict(max_new_tokens=GEN_ENGINE_NEW, temperature=SAMPLE_T,
+              session_key=PRNGKey(SEED + 47), key=PRNGKey(SEED + 48))
+    launches, ms, priv = counted(lambda: private_generate(
+        params, prompt, cfg, executor=ex, **kw))
+    check_launches(launches, GENERATE_PATH, "sampling path")
+    oracle = private_generate(params, prompt, cfg, executor=ex, trusted=True,
+                              **kw)
+    if not torch.equal(priv.tokens, oracle.tokens):
+        raise AssertionError("sampling: private tokens differ from the "
+                             "trusted ones")
+    assert priv.integrity.ok and priv.integrity.n_checked == \
+        7 * LM_P * (1 + priv.decode_steps), priv.integrity
+    logits = priv.logits[:, 0, :cfg.vocab_size].float()
+    scaled = logits / torch.full_like(logits, SAMPLE_T)
+    n_keys = 8
+    for i in range(n_keys):
+        k = prng.fold_in(PRNGKey(SEED + 49), i)
+        on_card = prng.categorical(k, scaled)
+        on_cpu = prng.categorical(k, scaled.cpu())
+        if not torch.equal(on_card.cpu(), on_cpu):
+            raise AssertionError("categorical on the card differs from the "
+                                 "CPU")
+    greedy = torch.argmax(logits, dim=-1)
+    print(f"{tag}: private_generate {GEN_BATCH}x{GEN_ENGINE_PROMPT} prompt, "
+          f"{GEN_ENGINE_NEW} new at temperature {SAMPLE_T} in {ms:.1f} ms: "
+          f"private tokens == trusted; first sampled tokens "
+          f"{priv.tokens[:, GEN_ENGINE_PROMPT].tolist()} (greedy "
+          f"{greedy.tolist()}); categorical on the card == on the CPU for "
+          f"{n_keys} keys; launches {launches}")
+    del ex, priv, oracle
+
+
+def phase_generate_origami(cfg, params, dev, card):
+    """``generate_origami`` on a 2 x 32 prompt with 8 new tokens: one
+    count per runtime op, exact launches; its first tiered step within
+    0.15 of the open float step (the reference's bound)."""
+    from repro_torch.core.blinding import BlindingSpec
+    from repro_torch.core.slalom import SlalomContext
+    from repro_torch.runtime.generate import (generate_origami,
+                                              tiered_decode_step)
+    tag = f"generate_origami on {card}"
+    prompt = _lm_tokens(cfg, ORIGAMI_SHAPE, SEED + 50)
+    launches, ms, res = counted(lambda: generate_origami(
+        params, prompt, cfg, max_new_tokens=ORIGAMI_NEW, partition=LM_P,
+        device=dev))
+    check_launches(launches, ORIGAMI_PATH, "generate_origami path")
+    steps = ORIGAMI_SHAPE[1] + ORIGAMI_NEW - 1
+    n_ops = 7 * LM_P * steps
+    tele = res.telemetry
+    assert tele.calls == tele.device_matmuls == tele.enclave_matmuls \
+        == n_ops, tele
+    for name in ORIGAMI_PATH:
+        assert launches[name] == n_ops, (name, launches[name], n_ops)
+    assert res.tokens.shape == (ORIGAMI_SHAPE[0], steps + 1)
+    assert torch.equal(res.tokens[:, :ORIGAMI_SHAPE[1]], prompt)
+    token = prompt[:, :1]
+    with torch.no_grad():
+        open_step, _ = M.decode_step(params, token, M.init_caches(
+            cfg, ORIGAMI_SHAPE[0], 8, device=dev), 0, cfg)
+        priv_step, _ = tiered_decode_step(
+            params, token, M.init_caches(cfg, ORIGAMI_SHAPE[0], 8,
+                                         device=dev),
+            0, cfg, SlalomContext(PRNGKey(7), BlindingSpec()), LM_P)
+    rel = _rel(priv_step, open_step)
+    assert rel < 0.15, rel
+    print(f"{tag}: {ORIGAMI_SHAPE[0]}x{ORIGAMI_SHAPE[1]} prompt, "
+          f"{ORIGAMI_NEW} new, tier-1 = blocks 1-{LM_P}: {steps} tiered "
+          f"steps in {ms:.1f} ms ({ms / steps:.2f} ms a step); telemetry "
+          f"calls {tele.calls} == 7 x {LM_P} x {steps}; rel err of the "
+          f"first tiered step vs the open float step {rel:.5f} (bound "
+          f"0.15); launches {launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1945,6 +2422,14 @@ def main():
     del vgg16
     torch.cuda.empty_cache()
     gen_launches = phase_generate(dev)
+    lm_cfg = get_config("smollm_135m")
+    lm_params = M.init_params(lm_cfg, SEED, device=dev)
+    phase_lm_infer(lm_cfg, lm_params, dev, card)
+    phase_lm_engine(lm_cfg, lm_params, dev, card)
+    phase_generate_engine(lm_cfg, lm_params, dev, card)
+    phase_sampling(lm_cfg, lm_params, dev, card)
+    phase_generate_origami(lm_cfg, lm_params, dev, card)
+    del lm_params
     # each kernel's launches, read on the main path that uses it
     launches = {name: (unfused_launches if name in READ_ON_UNFUSED
                        else fused_launches)[name] for name in KB.KERNELS}

@@ -36,7 +36,12 @@ def _digest_params(params, max_bytes: int = 1 << 16) -> str:
     for path, leaf in sorted(_leaves(params), key=lambda kv: kv[0]):
         h.update(path.encode())
         if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach().cpu().numpy()
+            leaf = leaf.detach().cpu()
+            if leaf.dtype == torch.bfloat16:
+                # numpy has no bfloat16: its raw bytes, as the reference
+                # hashes its ml_dtypes leaves
+                leaf = leaf.view(torch.int16)
+            leaf = leaf.numpy()
         arr = np.asarray(leaf).reshape(-1)
         h.update(np.asarray(arr[: max_bytes // max(arr.itemsize, 1)]).tobytes())
     return h.hexdigest()

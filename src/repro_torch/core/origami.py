@@ -28,19 +28,35 @@ derives material from the session key on the host (no precompute cache,
 or a "sampled" Freivalds policy, whose check decisions are host draws).
 Without an attached cache ``infer`` runs eagerly.
 
-For the dense LM the executor runs private autoregressive decode
+For the dense LM, ``infer`` on {"tokens": (B, S)} is the forward over
+every position, and the executor runs private autoregressive decode
 (runtime/generate.py): ``attach_decode_plan`` adopts a DecodePlan,
 ``prefill_session`` walks the prompt through the base plan's segments
 (every tier-1 op blinded with its own key, ``step`` 0) and
 ``decode_once`` walks one token through the scan segments (``step`` = the
 token's position), its factors from a TokenSlotRing slot or derived live.
-The LM forward ``infer`` is not ported.
+With a CompileCache attached, the trusted prompt pass and the slot-fed
+and trusted token steps replay CUDA graphs keyed on the decode plan's
+digest (``warm_decode_aot`` captures them ahead of the first request).
+
+**Where the port departs from the reference: the LM forward is per op.**
+The reference walks an LM forward's blocks under ``lax.scan``, so each
+projection of a blinded segment is traced once for all its layers: one
+pad (key ``(session, op, 0)``, op 0..6) blinds that projection in every
+layer, the segment's Freivalds policy is dropped and the counters count
+one op per traced call. The port walks the blocks one by one, as the
+reference's own prompt pass (``prefill_session``) does: every runtime op
+draws its own key ``(session, op, 0)`` and binds its segment's policy and
+fault injector, and the telemetry and ``IntegrityReport`` count every op.
+The blinding cancels exactly, so the logits do not depend on the pads
+(ROADMAP Queue 3).
 
 ``impl`` picks the fused or unfused Slalom data path, ``fault`` injects a
 dishonest device under every untrusted run, and ``devices`` (a
 runtime/devices.DevicePool) attaches a multi-device offload plane
 (parallel/offload_sharding.py) that shards every blinded matmul of a CNN
-plan.
+plan; an LM executor keeps the pool with its plane idle, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -60,6 +76,7 @@ from repro_torch.core import slalom as SL
 from repro_torch.core import tracing
 from repro_torch.core.blinding import BlindingSpec
 from repro_torch.core.precompute import BlindedLayerCache
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import vgg as V
@@ -110,7 +127,8 @@ def params_to_device(params, device: torch.device):
 
 
 class OrigamiExecutor:
-    """Plan-interpreting private inference over a VGG model."""
+    """Plan-interpreting private inference over a VGG model or a dense
+    LM."""
 
     def __init__(self, cfg: ModelConfig, params, mode: str = "origami",
                  partition: Optional[int] = None,
@@ -150,15 +168,15 @@ class OrigamiExecutor:
         self.plane = None
         self._plane_live = False
         if devices is not None:
-            if PL.linear_layers(cfg) is None:
-                raise NotImplementedError(
-                    f"the offload plane (devices=) for the {cfg.family!r} "
-                    f"family is not ported (ROADMAP Queue 1 item 11)")
             from repro_torch.parallel.offload_sharding import OffloadPlane
             self.plane = OffloadPlane(devices, mode=shard, hedging=hedging,
                                       liveness=liveness)
-            # the plane only fires on offloaded steps
-            self._plane_live = plan.has_offload
+            # the plane only fires on offloaded steps of a family whose
+            # plans address linear ops one by one (not the LMs, whose
+            # plans the reference shares with its scanned forward): an LM
+            # executor keeps the pool and leaves its plane idle
+            self._plane_live = (PL.linear_layers(cfg) is not None
+                                and plan.has_offload)
         self.cache: Optional[BlindedLayerCache] = None
         self._caches: Dict[Any, BlindedLayerCache] = {}
         self._cache_key = None
@@ -331,13 +349,18 @@ class OrigamiExecutor:
             functools.partial(SL.blinded_dense, ctx)))
         return stack
 
-    def _traced_decode(self, token, caches, pos: int, session_key,
-                       factors=None, trusted: bool = False):
-        """One token step under the decode plan's scan segments; ``step``
-        is the token's position, so the ring's cached factors for
-        ``step == pos`` equal this step's live derivation."""
+    def _traced_decode(self, token, caches, pos, session_key, factors=None,
+                       step: int = 0, trusted: bool = False):
+        """One token step under the decode plan's scan segments. ``pos`` is
+        the token's position as a 0-dim long tensor (the model reads it
+        there, so one CUDA graph serves every position) and ``step`` the
+        same position as a host int: the key domain of live pads, folds
+        and check decisions, so the ring's cached factors for ``step ==
+        pos`` equal this step's live derivation. A captured step reads no
+        ``step`` (``_graphable``: only slot-fed, unsampled or trusted steps
+        are captured)."""
         tele = SL.Telemetry()
-        ctx = self._context(session_key, tele, int(pos), factors, trusted)
+        ctx = self._context(session_key, tele, step, factors, trusted)
         params, cfg = self.params, self.cfg
         x = M.embed_tokens_at(params, token, pos, cfg)
         for seg in self.dplan.scan:
@@ -392,29 +415,112 @@ class OrigamiExecutor:
         return (z, z, z)
 
     def prefill_session(self, tokens, session_key, *, max_seq: int,
-                        trusted: bool = False):
+                        trusted: bool = False, jit: bool = True):
         """The prompt pass: (logits at the last position (B, 1, V), decode
         caches padded to ``max_seq``, IntegrityReport of the prompt's
-        offloaded ops)."""
+        offloaded ops). With a CompileCache attached and ``jit`` true a
+        pass that draws nothing on the host (the trusted one, or a plan
+        with no offload) replays its executable."""
         assert self.dplan is not None, "attach_decode_plan first"
+        tokens = tokens_on(tokens, self.device)
+        args = (tokens, session_key)
+        sig, fn, kind = self._lm_step("prefill", trusted, tokens.shape,
+                                      max_seq)
         with torch.no_grad():
-            logits, caches, rep = self._traced_prefill(
-                tokens_on(tokens, self.device), session_key, trusted,
-                max_seq=int(max_seq))
+            if jit and self._graphable(trusted, "prefill"):
+                logits, caches, rep = self._run_executable(
+                    sig, args, trusted, fn, self.dplan.digest, kind)
+            else:
+                logits, caches, rep = fn(*args)
+        self._tele_last = (self._tele_trusted if trusted
+                           else self._tele_blinded)
         return logits, caches, IG.IntegrityReport(*rep)
 
     def decode_once(self, token, caches, pos: int, session_key, factors=None,
-                    *, trusted: bool = False):
+                    *, trusted: bool = False, jit: bool = True):
         """One token step: (logits (B, 1, V), the caches with this token's
-        K/V written in place, IntegrityReport of this token's offloaded
-        ops). ``factors`` is a TokenSlotRing slot (``take(pos)``) or None
-        for the live and trusted derivations."""
+        K/V written (in place when eager; a replay returns a copy),
+        IntegrityReport of this token's offloaded ops). ``factors`` is a
+        TokenSlotRing slot (``take(pos)``) or None for the live and
+        trusted derivations. With a CompileCache attached and ``jit``
+        true a slot-fed or trusted step replays its executable, the
+        session's caches copied into the graph's buffers and out again."""
         assert self.dplan is not None, "attach_decode_plan first"
+        token = tokens_on(token, self.device)
         with torch.no_grad():
-            logits, caches, rep = self._traced_decode(
-                tokens_on(token, self.device), caches, int(pos), session_key,
-                factors, trusted)
+            args = (token, caches, A.position(int(pos), self.device),
+                    session_key, factors, int(pos))
+            sig, fn, kind = self._lm_step("decode", trusted, token.shape,
+                                          caches.k.shape[2],
+                                          factors is not None)
+            if jit and self._graphable(trusted, "decode", factors):
+                logits, caches, rep = self._run_executable(
+                    sig, args, trusted, fn, self.dplan.digest, kind)
+            else:
+                logits, caches, rep = fn(*args)
+        self._tele_last = (self._tele_trusted if trusted
+                           else self._tele_blinded)
         return logits, caches, IG.IntegrityReport(*rep)
+
+    def warm_decode_aot(self, batch: int, prompt_len: int, max_seq: int,
+                        trusted_too: bool = True) -> int:
+        """Build the prompt pass's and the token step's executables (and
+        the trusted twins, ``trusted_too``) for one batch size ahead of the
+        first request, and the batch size's token-slot cache: the decode
+        counterpart of ``warm_aot``. Returns the number of signatures
+        ensured; a pass that stays eager (``_graphable``: the blinded
+        prompt pass draws live pads) is skipped."""
+        assert self._aot is not None, "attach_aot first"
+        assert self.dplan is not None, "attach_decode_plan first"
+        key0 = prng.PRNGKey(0)
+        tokens = torch.zeros((batch, int(prompt_len)), dtype=torch.long,
+                             device=self.device)
+        token = torch.zeros((batch, 1), dtype=torch.long, device=self.device)
+        cache = self.decode_cache(batch)
+        n = 0
+        with self._aot.warmup_scope(), torch.no_grad():
+            for trusted in ((False, True) if trusted_too else (False,)):
+                if self._graphable(trusted, "prefill"):
+                    sig, fn, kind = self._lm_step("prefill", trusted,
+                                                  tokens.shape, max_seq)
+                    self._ensure_executable(sig, (tokens, key0), trusted, fn,
+                                            self.dplan.digest, kind)
+                    n += 1
+                factors = (None if trusted or cache is None
+                           else cache.session_factors(key0, int(prompt_len)))
+                if self._graphable(trusted, "decode", factors):
+                    caches = M.init_caches(self.cfg, batch, int(max_seq),
+                                           device=self.device)
+                    args = (token, caches,
+                            A.position(int(prompt_len), self.device), key0,
+                            factors, int(prompt_len))
+                    sig, fn, kind = self._lm_step("decode", trusted,
+                                                  token.shape, max_seq,
+                                                  factors is not None)
+                    self._ensure_executable(sig, args, trusted, fn,
+                                            self.dplan.digest, kind)
+                    n += 1
+        return n
+
+    def _lm_step(self, kind: str, trusted: bool, shape, max_seq: int,
+                 fed: bool = False):
+        """(signature, eager step, executable kind) of the prompt pass
+        (``kind`` "prefill") or the token step ("decode", ``fed`` by a
+        ring slot): the one place the request path and
+        ``warm_decode_aot`` take them from, so a warmed executable is the
+        one a request looks up."""
+        trusted, max_seq = bool(trusted), int(max_seq)
+        suffix = "_trusted" if trusted else ""
+        if kind == "prefill":
+            return (("prefill", trusted, self.dplan.digest, tuple(shape),
+                     max_seq),
+                    functools.partial(self._traced_prefill, trusted=trusted,
+                                      max_seq=max_seq),
+                    f"prefill{max_seq}{suffix}")
+        return (("decode", trusted, self.dplan.digest, tuple(shape), max_seq,
+                 bool(fed)),
+                functools.partial(self._traced_decode, trusted=trusted),
+                f"decode{suffix}")
 
     # -- precompute pipeline -------------------------------------------------
     def _batch_key(self, batch):
@@ -471,20 +577,32 @@ class OrigamiExecutor:
         cache. Keeps the executables this executor already has."""
         self._aot = cache
 
-    def _graphable(self, trusted: bool) -> bool:
-        """Can a captured step serve this trace kind for every session?
-        Not with a plane or an injected fault (host-side decisions), and a
-        blinded step only when every per-session value it reads is a
-        tensor of the session's factors (a precompute cache, no
-        "sampled" policy)."""
+    def _graphable(self, trusted: bool, kind: str = "infer",
+                   factors=None) -> bool:
+        """Can a captured step serve this trace for every session? ``kind``
+        is "infer" (the base plan's forward), "prefill" (the prompt pass)
+        or "decode" (the token step fed ``factors``). Not with a plane or
+        an injected fault (host-side decisions); a trusted trace, or one
+        with no offloaded op, always; a blinded one only when every
+        per-session value it reads is a tensor of the session's factors: a
+        forward with a precompute cache, a token step fed a ring slot, and
+        no "sampled" policy. A blinded prompt pass, and a blinded LM
+        forward (no cache slots), draw live pads and stay eager."""
         if self._aot is None or self._plane_live or self.fault is not None:
             return False
-        if trusted or not self.plan.has_offload:
+        plan = self.dplan if kind == "decode" else self.plan
+        if trusted or not plan.has_offload:
             return True
-        policies = [self.integrity] + [s.integrity for s in self.plan.steps
-                                       if s.integrity is not None]
-        return (self.precompute and bool(self.plan.cache_ops)
-                and all(p.mode != "sampled" for p in policies))
+        if kind == "infer":
+            fed = self.precompute and bool(self.plan.cache_ops)
+            policies = [s.integrity for s in self.plan.steps]
+        elif kind == "decode":
+            fed = factors is not None
+            policies = [seg.policy for seg in self.dplan.scan]
+        else:
+            return False
+        return fed and all(p.mode != "sampled" for p in
+                           [self.integrity] + policies if p is not None)
 
     def _weights_id(self) -> str:
         """The executor's weight buffers: a captured step reads them in
@@ -500,36 +618,25 @@ class OrigamiExecutor:
         walk(self.params)
         return ",".join(parts)
 
-    def _static_args(self, batch, session_key, factors):
-        """The step's own input buffers: copies of the batch and of the
-        session's factor tensors; the cache's weight material in place."""
-        if factors is not None:
-            factors = [{k: (v if k in _STATIC_FACTORS or v is None
-                            else v.clone()) for k, v in e.items()}
-                       for e in factors]
-        return ({k: v.clone() for k, v in batch.items()}, session_key,
-                factors)
-
-    def _ensure_executable(self, sig, batch, session_key, factors,
-                           trusted: bool):
-        """The one build path: memo, else a timed capture."""
+    def _ensure_executable(self, sig, args, trusted: bool, fn, digest: str,
+                           kind: str):
+        """The one build path: the memo, else a timed capture of ``fn`` (the
+        eager step) keyed on ``digest`` (the plan's, or the decode plan's
+        for the prompt pass and the token step) and ``kind``."""
         ex = self._executables.get(sig)
         if ex is not None:
             return ex
-        kind = "trusted" if trusted else "blinded"
-        args = (batch, session_key, factors)
-        ck = self._aot.entry_key(f"{self.plan.digest}@{self._weights_id()}",
-                                 kind, args)
-        step = functools.partial(self._traced, trusted=trusted)
+        ck = self._aot.entry_key(f"{digest}@{self._weights_id()}", kind,
+                                 args)
 
         def build():
             with tracing.maybe_span("compile.aot", "compile",
                                     trusted=int(trusted)):
                 if self.device.type != "cuda":
-                    return AOT.EagerStep(step)
+                    return AOT.EagerStep(fn)
                 with tracing.suspended():
-                    ex = AOT.GraphStep(step, self._static_args(*args),
-                                       self.device)
+                    static = AOT.clone_tree(args, keep=_STATIC_FACTORS)
+                    ex = AOT.GraphStep(fn, static, self.device)
                 # the telemetry of the captured trace, restored per replay
                 ex.telemetry = (self._tele_trusted if trusted
                                 else self._tele_blinded)
@@ -540,15 +647,19 @@ class OrigamiExecutor:
         self._executables = {**self._executables, sig: ex}
         return ex
 
-    def _call_executable(self, sig, ex, args, trusted: bool):
+    def _run_executable(self, sig, args, trusted: bool, fn, digest: str,
+                        kind: str):
+        """``fn(*args)`` through the signature's executable, built once; an
+        executable that fails at call time is evicted and the eager step
+        ``fn`` runs instead."""
+        ex = self._ensure_executable(sig, args, trusted, fn, digest, kind)
         try:
             out = ex(*args)
-        except Exception:  # noqa: BLE001 — an executable that fails at
-            # call time is evicted and the request runs the eager step
+        except Exception:  # noqa: BLE001 — evict, run the eager step
             self._aot.record_fallback()
             self._executables = {k: v for k, v in self._executables.items()
                                  if k != sig}
-            return self._traced(*args, trusted=trusted)
+            return fn(*args)
         tele = getattr(ex, "telemetry", None)
         if tele is not None:
             if trusted:
@@ -580,16 +691,23 @@ class OrigamiExecutor:
                     sig = (trusted, self.plan.digest, shapes)
                     factors = (None if trusted
                                else self._session_factors(batch, key0))
-                    self._ensure_executable(sig, batch, key0, factors,
-                                            trusted)
+                    self._ensure_executable(
+                        sig, (batch, key0, factors), trusted,
+                        functools.partial(self._traced, trusted=trusted),
+                        self.plan.digest,
+                        "trusted" if trusted else "blinded")
                     self._seen_sigs.add(sig)
                     n += 1
         return n
 
     # -- public API ----------------------------------------------------------
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
-                    np.array(v, np.float32))).to(self.device, torch.float32)
+        """The batch on the executor's device: a CNN's images as float32, an
+        LM's token ids as long."""
+        dtype = torch.float32 if self.cfg.family == "cnn" else torch.long
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v))).to(self.device,
+                                                            dtype)
                 for k, v in batch.items()}
 
     @staticmethod
@@ -598,16 +716,13 @@ class OrigamiExecutor:
 
     def infer(self, batch, session_key=None, trusted: bool = False,
               jit: bool = True) -> OrigamiResult:
-        """Run the plan on ``batch`` ({"images": (B, H, W, C)}) under the
+        """Run the plan on ``batch`` ({"images": (B, H, W, C)} or, for an
+        LM, {"tokens": (B, S)}: logits at every position) under the
         blinding session ``session_key`` (a (2,) uint32 key; PRNGKey(0)
         when omitted). ``trusted=True`` runs the enclave-recompute path:
         no device, no blinding, no verification, bit-identical logits.
         With a CompileCache attached the run goes through the signature's
         executable unless ``jit=False`` (the eager step, bit-equal)."""
-        if self.cfg.family != "cnn":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the LM forward infer is not ported; LMs "
-                f"run private_generate (ROADMAP Queue 1 item 11)")
         batch = self._on_device(batch)
         key = session_key if session_key is not None else prng.PRNGKey(0)
         sig = (bool(trusted), self.plan.digest, self._shapes(batch))
@@ -622,9 +737,10 @@ class OrigamiExecutor:
                 logits, boundary, rep = self._traced(*args)
                 shard_report = self.plane.report
             elif jit and self._graphable(trusted):
-                ex = self._ensure_executable(sig, *args, trusted)
-                logits, boundary, rep = self._call_executable(sig, ex, args,
-                                                              trusted)
+                logits, boundary, rep = self._run_executable(
+                    sig, args, trusted,
+                    functools.partial(self._traced, trusted=trusted),
+                    self.plan.digest, "trusted" if trusted else "blinded")
             else:
                 logits, boundary, rep = self._traced(*args, trusted=trusted)
         self._tele_last = (self._tele_trusted if trusted

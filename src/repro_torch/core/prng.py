@@ -1,6 +1,7 @@
 """Counter-based threefry2x32, bit-equal to the ``jax.random`` calls the
 serving path uses (``PRNGKey``, ``fold_in``, ``split``, ``bits``,
-``randint``, ``uniform``).
+``randint``, ``uniform``) and the sampler of token generation
+(``gumbel``, ``categorical``).
 
 The keystream and MAC of the request channel (core/sealing.py), the
 blinding pads (core/blinding.py) and the Freivalds fold vectors
@@ -114,9 +115,51 @@ def randint(key, shape: Tuple[int, ...], minval: int, maxval: int,
     return (off + minval).to(torch.int32)
 
 
-def uniform(key, shape: Tuple[int, ...] = (), device="cpu") -> torch.Tensor:
-    """``jax.random.uniform`` on [0, 1) in float32: 23 random mantissa bits
-    under the exponent of 1.0, minus 1."""
+def uniform(key, shape: Tuple[int, ...] = (), minval: float = 0.0,
+            maxval: float = 1.0, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
+    random mantissa bits under the exponent of 1.0, minus 1, then
+    ``max(minval, f * (maxval - minval) + minval)`` in float32."""
     b = bits(key, tuple(shape) or (1,), device)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return f.reshape(shape)
+    # the bounds and their difference as float32 values, as jax takes them
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    return torch.clamp_min(_fma32(f, span, lo), float(lo)).reshape(shape)
+
+
+def _fma32(f: torch.Tensor, a: np.float32, b: np.float32) -> torch.Tensor:
+    """``f * a + b`` rounded once to float32, as the FMA into which XLA:CPU
+    contracts jax's multiply and add. The product of two float32 values
+    is exact in float64; the sum is rounded there to odd (its error,
+    from TwoSum, sets the last bit), and a float64 rounded to odd rounds
+    to float32 as the exact sum does."""
+    p = f.to(torch.float64) * float(a)
+    s = p + float(b)
+    bb = s - p
+    err = (p - (s - bb)) + (float(b) - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def gumbel(key, shape: Tuple[int, ...], device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low"
+    mode: ``-log(-log(u))`` of a uniform draw on [tiny, 1). The draw is
+    bit-equal to jax; torch's ``log`` and XLA's may differ in the last
+    ulp, so the noise is held to jax within a few ulps."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    u = uniform(key, shape, minval=tiny, maxval=1.0, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` with replacement: the
+    Gumbel-max trick, ``argmax(logits + gumbel)`` over ``axis`` (the first
+    index of the largest, as ``jnp.argmax``). The noise is drawn over
+    ``logits``' shape in its dtype (float32 here), on its device."""
+    assert logits.dtype == torch.float32, logits.dtype
+    g = gumbel(key, tuple(logits.shape), device=logits.device)
+    return torch.argmax(g + logits, dim=axis)

@@ -35,7 +35,13 @@ its own pad, fold vectors and check decision. The reference also takes a
 of ops traced once under ``lax.scan`` for many layers; the port runs
 eagerly, every call is exactly one op, and the switch has no counterpart:
 ops are numbered by ``_layer_counter`` in call order, the numbering the
-reference's per-op decode and prefill traces use.
+reference's per-op decode and prefill traces use. This is a deliberate
+departure where the reference scans: its LM forward ``infer`` and
+``generate_origami`` trace each projection once for a segment's layers,
+so one pad blinds that projection in every layer, the Freivalds policy
+is dropped and the counters count traced calls. The port draws a fresh
+pad per runtime op and checks each; the logits are the same, since the
+blinding cancels exactly (ROADMAP Queue 3).
 
 The float op order is the reference's, which is what keeps the fused,
 unfused, trusted and cross-framework results bit-equal: the fused path

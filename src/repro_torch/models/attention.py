@@ -66,10 +66,21 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
     return flash_attention_fwd(q, k, v, causal=causal)
 
 
+def position(pos, device) -> torch.Tensor:
+    """A decode step's position as a 0-dim long tensor on ``device``: a
+    Python int is filled in there (a fill kernel, no host-to-device copy),
+    a tensor is taken as it is. A step that reads its position from a
+    tensor serves every position from one CUDA graph."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), int(pos), dtype=torch.long, device=device)
+
+
 def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                pos: int, *, window=0) -> torch.Tensor:
+                pos, *, window=0) -> torch.Tensor:
     """One-step decode. q: (B,1,H,D); cache: (B,S,KH,D); keys at positions
-    <= ``pos`` (and inside the window) are seen."""
+    <= ``pos`` (an int or a 0-dim tensor; and inside the window) are
+    seen."""
     B, _, H, D = q.shape
     S, KH = cache_k.shape[1], cache_k.shape[2]
     qr = q.reshape(B, KH, H // KH, D)
@@ -117,15 +128,18 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig):
     return L.dense(p["wo"], out.reshape(B, S, -1)), KVCache(k, v)
 
 
-def gqa_decode(p, x: torch.Tensor, cache: KVCache, pos: int,
-               cfg: ModelConfig):
-    """x: (B,1,d). Writes this token's k and v into ``cache`` at ``pos``
-    in place (the reference updates a copy; the port saves the copy of
-    every layer's cache at every token) and returns the same cache."""
+def gqa_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig):
+    """x: (B,1,d); ``pos``: an int or a 0-dim long tensor (``position``).
+    Writes this token's k and v into ``cache`` at ``pos`` in place (the
+    reference updates a copy; the port saves the copy of every layer's
+    cache at every token) and returns the same cache. The position is
+    read from a tensor everywhere (RoPE, the cache write, the mask), so
+    the eager step and a CUDA graph of it run the same code."""
     B = x.shape[0]
-    positions = torch.full((B, 1), int(pos), device=x.device)
-    q, k, v = gqa_project_qkv(p, x, cfg, positions)
-    cache.k[:, pos:pos + 1] = k.to(cache.k.dtype)
-    cache.v[:, pos:pos + 1] = v.to(cache.v.dtype)
+    pos = position(pos, x.device)
+    q, k, v = gqa_project_qkv(p, x, cfg, pos.reshape(1, 1).expand(B, 1))
+    at = pos.reshape(1)
+    cache.k.index_copy_(1, at, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, at, v.to(cache.v.dtype))
     out = decode_sdpa(q, cache.k, cache.v, pos)
     return L.dense(p["wo"], out.reshape(B, 1, -1)), cache

@@ -82,7 +82,7 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     return L.embed_lookup(params["embed"], tokens).to(torch_dtype(cfg.dtype))
 
 
-def embed_tokens_at(params, token: torch.Tensor, pos: int, cfg: ModelConfig):
+def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
     """The embedding of one decode step's tokens (B, 1); the dense family
     carries positions in RoPE, so ``pos`` adds nothing here."""
     return embed_tokens(params, token, cfg)
@@ -178,10 +178,11 @@ def prefill(params, batch, cfg: ModelConfig, *,
                                                              max_seq)
 
 
-def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos: int,
+def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos,
                  cfg: ModelConfig, lo: int, hi: int):
-    """One-token step through blocks [lo, hi); writes the token's K/V
-    into ``caches`` in place."""
+    """One-token step through blocks [lo, hi) at ``pos`` (an int or a 0-dim
+    long tensor); writes the token's K/V into ``caches`` in place."""
+    pos = A.position(pos, x.device)
     for i in range(lo, hi):
         x, _ = T.decoder_block_decode(
             T.layer_params(params["blocks"], i), x,
@@ -192,9 +193,10 @@ def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos: int,
 decode_range_unrolled = decode_range
 
 
-def decode_step(params, token: torch.Tensor, caches: A.KVCache, pos: int,
+def decode_step(params, token: torch.Tensor, caches: A.KVCache, pos,
                 cfg: ModelConfig):
-    """token: (B, 1) int; pos: the token's position. -> (logits, caches)."""
+    """token: (B, 1) int; pos: the token's position (an int or a 0-dim
+    long tensor). -> (logits, caches)."""
     x = embed_tokens_at(params, token, pos, cfg)
     x, caches = decode_range(params, x, caches, pos, cfg, 0, cfg.num_layers)
     return head(params, x, cfg), caches

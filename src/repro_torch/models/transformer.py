@@ -77,7 +77,7 @@ def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
     return h + y, cache, 0.0
 
 
-def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos: int,
+def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
                          cfg: ModelConfig):
     a, cache = A.gqa_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                             cache, pos, cfg)

@@ -257,11 +257,20 @@ def _load(static: Any, new: Any) -> None:
         assert (static is None) == (new is None), (static, new)
 
 
-def _clone(tree: Any) -> Any:
+def clone_tree(tree: Any, keep: Tuple[str, ...] = ()) -> Any:
+    """A copy of every tensor leaf of ``tree`` (dicts, lists, tuples and
+    NamedTuples rebuilt); a dict entry whose key is in ``keep`` stays in
+    place (a cache's weight material, which a captured step reads where
+    it lies)."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
+    if isinstance(tree, dict):
+        return {k: v if k in keep else clone_tree(v, keep)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone(v) for v in tree)
+        out = [clone_tree(v, keep) for v in tree]
+        # a NamedTuple (a KV cache) takes its fields positionally
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     return tree
 
 
@@ -311,7 +320,7 @@ class GraphStep:
     def __call__(self, *args: Any) -> Any:
         with self._lock:
             self.load(args)
-            return _clone(self.replay())
+            return clone_tree(self.replay())
 
 
 class EagerStep:

@@ -559,9 +559,13 @@ class ServingEngine:
                                      None, {}, {}, ())
         entry = _ModelEntry(
             name=name, cfg=executor.cfg, executor=executor,
+            # a generate executor attests its decode plan's digest (it
+            # covers the scan structure too, core/plan.py)
             quote=measure_enclave(executor.cfg, executor.params,
                                   executor.partition,
-                                  plan_digest=executor.plan.digest),
+                                  plan_digest=getattr(
+                                      executor, "attested_digest",
+                                      executor.plan.digest)),
             pool=pool or SessionPool(executor,
                                      depth=self.cfg.session_pool_depth),
             plan=plan, placement=executor.plan,
@@ -592,11 +596,16 @@ class ServingEngine:
         plain seal/unseal round at the request and response shapes, so
         that first-use allocations leave the first request (the sealing is
         eager torch: there is nothing to compile). ``warm_shape``
-        overrides the per-request input shape; by default it is derived
-        for CNN configs (image HWC) and other models are skipped. Returns
-        the executables ensured."""
+        overrides the per-request input shape; by default an executor
+        that declares ``request_shape`` (a generate executor: the prompt
+        length) gives it, CNN configs derive it (image HWC) and other
+        models are skipped. The response is ``response_elems`` long when
+        the executor declares it, else ``num_classes``. Returns the
+        executables ensured."""
         cfg = entry.cfg
         shape = warm_shape
+        if shape is None:
+            shape = getattr(entry.executor, "request_shape", None)
         if shape is None and cfg.family == "cnn":
             shape = (cfg.image_size, cfg.image_size, cfg.image_channels)
         if shape is None:
@@ -608,8 +617,10 @@ class ServingEngine:
         key = np.zeros(2, np.uint32)
         box = seal(key, torch.zeros(shape), request_nonce(0))
         unseal(key, box, shape)
-        if cfg.num_classes:
-            seal(key, torch.zeros(cfg.num_classes), response_nonce(0))
+        n_out = (getattr(entry.executor, "response_elems", None)
+                 or cfg.num_classes)
+        if n_out:
+            seal(key, torch.zeros(int(n_out)), response_nonce(0))
         return n
 
     def attest(self, name: str) -> Quote:

@@ -9,16 +9,22 @@ fold vectors streamed by a TokenSlotRing. ``trusted=True`` is the
 recovery oracle: the same quantized arithmetic entirely in the enclave,
 bit-identical logits and tokens. The tier-1 KV cache rows (layers < p)
 belong to the trusted domain; ``tier1_cache_bytes`` prices them.
+``generate_origami`` is the reference's simpler per-step protocol: the
+prompt and every new token stepped one by one, tier-1 blinded (its ops
+numbered over the whole stream, a fresh pad each), tier-2 open.
+``GenerateExecutor`` serves sealed prompts as token streams through the
+engine (runtime/engine.py).
 
-Only greedy sampling (``temperature == 0``) is ported: the reference draws
-with ``jax.random.categorical``, which has no bit-equal counterpart in
-core/prng.py yet (ROADMAP Queue 1 item 11). ``generate_origami`` and the
-engine adapter ``GenerateExecutor`` wait for the same item.
+Sampling follows the reference: greedy at ``temperature == 0``, else
+``categorical`` (core/prng.py, jax's Gumbel-max draw) of ``logits /
+temperature``, with ``key, k = split(key)`` before every draw from the
+sampling key (``PRNGKey(0)`` when omitted).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +33,8 @@ from repro_torch.core import integrity as IG
 from repro_torch.core import origami as OG
 from repro_torch.core import prng
 from repro_torch.core import slalom as SL
+from repro_torch.core.blinding import BlindingSpec
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.runtime.sessions import TokenSlotRing
 
@@ -37,19 +45,26 @@ class GenerationResult:
     telemetry: Optional[SL.Telemetry]
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 needs a bit-equal port of "
-            "jax.random.categorical (ROADMAP Queue 1 item 11)")
-
-
 def _sample(logits: torch.Tensor, key, temperature: float,
             vocab_size: int) -> torch.Tensor:
-    """Greedy: the first index of the largest logit among the real vocab
-    entries (torch.argmax and jnp.argmax both take the first)."""
-    _greedy_only(temperature)
-    return torch.argmax(logits[..., :vocab_size].to(torch.float32), dim=-1)
+    """The next token from the logits of the real vocab entries: the first
+    index of the largest at ``temperature <= 0`` (torch.argmax and
+    jnp.argmax both take the first), else a categorical draw from
+    ``logits / temperature`` under ``key``."""
+    logits = logits[..., :vocab_size].to(torch.float32)
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    # a full divisor: torch may turn a division by a scalar into a
+    # multiplication by its reciprocal, which jax does not
+    return prng.categorical(key, logits / torch.full_like(logits,
+                                                          temperature))
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.family}: the port generates for "
+                                  f"the dense family (ROADMAP Queue 1 "
+                                  f"item 12)")
 
 
 def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
@@ -57,12 +72,9 @@ def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
              device="cuda") -> GenerationResult:
     """Open (non-private) generation: prefill, then one decode step per
     new token, all in the clear on ``device``."""
-    _greedy_only(temperature)
+    _dense_only(cfg)
     dev = OG.resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family}: the port generates for "
-                                  f"the dense family (ROADMAP Queue 1 "
-                                  f"items 11-12)")
+    key = key if key is not None else prng.PRNGKey(0)
     params = OG.params_to_device(params, dev)
     tokens = OG.tokens_on(prompt, dev)
     S0 = tokens.shape[1]
@@ -70,14 +82,67 @@ def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
     with torch.no_grad():
         logits, caches = M.prefill(params, {"tokens": tokens}, cfg,
                                    max_seq=total)
-        nxt = _sample(logits[:, -1], key, temperature, cfg.vocab_size)
+        key, k = prng.split(key)
+        nxt = _sample(logits[:, -1], k, temperature, cfg.vocab_size)
         tokens = torch.cat([tokens, nxt[:, None]], dim=1)
         for t in range(S0, total - 1):
             logits, caches = M.decode_step(params, tokens[:, -1:], caches, t,
                                            cfg)
-            nxt = _sample(logits[:, 0], key, temperature, cfg.vocab_size)
+            key, k = prng.split(key)
+            nxt = _sample(logits[:, 0], k, temperature, cfg.vocab_size)
             tokens = torch.cat([tokens, nxt[:, None]], dim=1)
     return GenerationResult(tokens=tokens, telemetry=None)
+
+
+def generate_origami(params, prompt, cfg: ModelConfig, *,
+                     max_new_tokens: int, partition: Optional[int] = None,
+                     temperature: float = 0.0, session_key=None, key=None,
+                     device="cuda") -> GenerationResult:
+    """Two-tier private generation, step by step: every position of the
+    prompt and of the stream runs one decode step, blocks [0, p) under
+    the blinded-dense context and [p, L) open, the per-step form of the
+    paper's Fig. 3a flow. One SlalomContext at ``step`` 0 numbers the
+    tier-1 ops in call order over the whole stream, so each runtime op
+    draws its own pad (the reference's scanned step shares one pad among
+    a step's layers, ROADMAP Queue 3); no policy verifies them, as in the
+    reference. ``telemetry`` counts every op."""
+    _dense_only(cfg)
+    dev = OG.resolve_device(device)
+    p = partition if partition is not None else cfg.origami.tier1_layers
+    key = key if key is not None else prng.PRNGKey(0)
+    session_key = (session_key if session_key is not None
+                   else prng.PRNGKey(7))
+    params = OG.params_to_device(params, dev)
+    tokens = OG.tokens_on(prompt, dev)
+    ctx = SL.SlalomContext(session_key, BlindingSpec())
+    B, S0 = tokens.shape
+    total = S0 + max_new_tokens
+    caches = M.init_caches(cfg, B, total, device=dev)
+    with torch.no_grad():
+        for t in range(total - 1):
+            feed = tokens[:, t:t + 1] if t < S0 else tokens[:, -1:]
+            key, k = prng.split(key)
+            logits, caches = tiered_decode_step(params, feed, caches, t, cfg,
+                                                ctx, p)
+            nxt = _sample(logits[:, 0], k, temperature, cfg.vocab_size)
+            if t >= S0 - 1:
+                tokens = torch.cat([tokens, nxt[:, None]], dim=1)
+    return GenerationResult(tokens=tokens, telemetry=ctx.telemetry)
+
+
+def tiered_decode_step(params, token: torch.Tensor, caches, pos,
+                       cfg: ModelConfig, ctx: SL.SlalomContext,
+                       partition: int):
+    """One step of ``generate_origami``: the embedding in the enclave,
+    blocks [0, partition) blinded op by op under ``ctx``, the rest and the
+    head open. -> (logits (B, 1, V), caches)."""
+    x = M.embed_tokens_at(params, token, pos, cfg)
+    with L.dense_impl(functools.partial(SL.blinded_dense, ctx)):
+        x, caches = M.decode_range_unrolled(params, x, caches, pos, cfg, 0,
+                                            partition)
+    x, caches = M.decode_range(params, x, caches, pos, cfg, partition,
+                               cfg.num_layers)
+    return M.head(params, x, cfg), caches
 
 
 @dataclass
@@ -114,16 +179,19 @@ def private_generate(params, prompt, cfg: ModelConfig, *,
                      temperature: float = 0.0, session_key=None, key=None,
                      trusted: bool = False, ring_depth: int = 8,
                      executor: Optional[OG.OrigamiExecutor] = None,
-                     device="cuda") -> PrivateGenerationResult:
+                     jit: bool = True, device="cuda"
+                     ) -> PrivateGenerationResult:
     """Private autoregressive generation under a DecodePlan.
 
     ``prompt``: (B, S0) token ids. ``session_key``: the blinding session
-    (a (2,) uint32 key; PRNGKey(7) when omitted). ``executor``: a prepared
-    OrigamiExecutor (its decode plan is attached on first use); otherwise
-    one is built on ``device`` from ``partition`` and ``integrity``.
-    ``trusted=True`` runs the enclave oracle: no device, no blinding, no
-    ring."""
-    _greedy_only(temperature)
+    (a (2,) uint32 key; PRNGKey(7) when omitted); ``key``: the sampling
+    key (PRNGKey(0)). ``executor``: a prepared OrigamiExecutor (its
+    decode plan is attached on first use); otherwise one is built on
+    ``device`` from ``partition`` and ``integrity``. ``trusted=True``
+    runs the enclave oracle: no device, no blinding, no ring. ``jit``:
+    with a CompileCache attached to the executor, the steps that can
+    replay an executable do (``OrigamiExecutor._graphable``)."""
+    key = key if key is not None else prng.PRNGKey(0)
     session_key = (session_key if session_key is not None
                    else prng.PRNGKey(7))
     if executor is None:
@@ -143,18 +211,20 @@ def private_generate(params, prompt, cfg: ModelConfig, *,
             ring = TokenSlotRing(cache, session_key, lo=S0, depth=ring_depth)
     try:
         logits, caches, rep = executor.prefill_session(
-            prompt, session_key, max_seq=total, trusted=trusted)
+            prompt, session_key, max_seq=total, trusted=trusted, jit=jit)
         reps = [rep]
-        nxt = _sample(logits[:, -1], key, temperature, cfg.vocab_size)
+        key, k = prng.split(key)
+        nxt = _sample(logits[:, -1], k, temperature, cfg.vocab_size)
         tokens = torch.cat([prompt, nxt[:, None]], dim=1)
         step_logits = [logits[:, -1]]
         for t in range(S0, total - 1):
             factors = ring.take(t) if ring is not None else None
             logits, caches, rep = executor.decode_once(
                 tokens[:, -1:], caches, t, session_key, factors,
-                trusted=trusted)
+                trusted=trusted, jit=jit)
             reps.append(rep)
-            nxt = _sample(logits[:, 0], key, temperature, cfg.vocab_size)
+            key, k = prng.split(key)
+            nxt = _sample(logits[:, 0], k, temperature, cfg.vocab_size)
             tokens = torch.cat([tokens, nxt[:, None]], dim=1)
             step_logits.append(logits[:, 0])
     finally:
@@ -166,6 +236,66 @@ def private_generate(params, prompt, cfg: ModelConfig, *,
         ring=ring.stats() if ring is not None else None, trusted=trusted,
         plan_digest=executor.dplan.digest,
         decode_steps=max(0, max_new_tokens - 1))
+
+
+class GenerateExecutor(OG.OrigamiExecutor):
+    """Engine adapter: private token streams through the sealed batcher
+    (runtime/engine.py).
+
+    A request's payload is the prompt, ``prompt_len`` token ids riding the
+    float32 sealing channel; the response is the whole generated sequence
+    as float32 (exact for every vocab below 2^24). ``infer`` runs the
+    prompt pass and the token loop for the batch with a fixed sampling key
+    (``PRNGKey(0)``), so the trusted recompute of the recovery ladder
+    replays the stream bit for bit. The attested digest is the decode
+    plan's (it covers the scan structure, not only the base plan).
+    ``request_shape`` and ``response_elems`` tell the engine's warm-up
+    the shapes, and ``warm_aot`` captures each bucket's prompt pass and
+    token steps (``warm_decode_aot``) and builds its token-slot cache."""
+
+    def __init__(self, cfg: ModelConfig, params, *, prompt_len: int,
+                 max_new_tokens: int, mode: str = "origami",
+                 partition: Optional[int] = None,
+                 integrity: Optional[IG.IntegrityPolicy] = None,
+                 ring_depth: int = 8, temperature: float = 0.0, **kw):
+        super().__init__(cfg, params, mode, partition, integrity=integrity,
+                         **kw)
+        self.prompt_len = int(prompt_len)
+        self.max_new_tokens = int(max_new_tokens)
+        self.ring_depth = int(ring_depth)
+        self.temperature = float(temperature)
+        self.attach_decode_plan(max_steps=self.max_new_tokens)
+        self.request_shape: Tuple[int, ...] = (self.prompt_len,)
+        self.response_elems: int = self.prompt_len + self.max_new_tokens
+
+    @property
+    def attested_digest(self) -> str:
+        return self.dplan.digest
+
+    def infer(self, batch, session_key=None, trusted: bool = False,
+              jit: bool = True) -> OG.OrigamiResult:
+        (prompt,) = batch.values()
+        prompt = OG.tokens_on(prompt, self.device)
+        assert prompt.shape[1] == self.prompt_len, prompt.shape
+        key = session_key if session_key is not None else prng.PRNGKey(0)
+        res = private_generate(
+            self.params, prompt, self.cfg,
+            max_new_tokens=self.max_new_tokens,
+            temperature=self.temperature, session_key=key,
+            key=prng.PRNGKey(0), trusted=trusted,
+            ring_depth=self.ring_depth, executor=self, jit=jit)
+        self._tele_last = (self._tele_trusted if trusted
+                           else self._tele_blinded)
+        return OG.OrigamiResult(
+            logits=res.tokens.to(torch.float32), boundary=None,
+            telemetry=self.telemetry, integrity=res.integrity,
+            trusted=trusted, sharding=None)
+
+    def warm_aot(self, input_key: str, request_shape, buckets,
+                 dtype=None, trusted_too: bool = True) -> int:
+        return sum(self.warm_decode_aot(
+            int(b), self.prompt_len, self.prompt_len + self.max_new_tokens,
+            trusted_too=trusted_too) for b in buckets)
 
 
 def tier1_cache_bytes(cfg: ModelConfig, batch: int, max_seq: int,

@@ -767,3 +767,96 @@ def test_capture_records_no_kernel_span_and_counts_on_replay(dev):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+def _smoke_lm(dev):
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.models import model as M
+    cfg = get_smoke("smollm_135m")
+    params = M.init_params(cfg, 0, device="cpu")
+    ex = OrigamiExecutor(cfg, params, "origami", 2,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 8))
+    return cfg, params, ex, tokens
+
+
+def test_lm_infer_on_card(dev):
+    """The LM forward on the card: blinded == trusted bit for bit, every
+    op checked, the attention through the flash kernel, logits within
+    the bf16 tolerance of the same run on the CPU."""
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    cfg, params, ex, tokens = _smoke_lm(dev)
+    n, blinded = _counted(lambda: ex.infer({"tokens": tokens}))
+    trusted = ex.infer({"tokens": tokens}, trusted=True)
+    assert torch.equal(blinded.logits, trusted.logits)
+    assert blinded.integrity.n_checked == blinded.integrity.n_ops == 14
+    assert blinded.integrity.ok
+    assert n["flash_attention"] == cfg.num_layers
+    assert n["blind_encode"] == n["limb_matmul_fused"] == n["limb_fold"] == 14
+    cpu = OrigamiExecutor(cfg, params, "origami", 2,
+                          integrity=IntegrityPolicy.full(k=2), device="cpu")
+    want = cpu.infer({"tokens": tokens}).logits.float().numpy()
+    np.testing.assert_allclose(blinded.logits.float().cpu().numpy(), want,
+                               rtol=0, atol=3e-2 * np.abs(want).max())
+
+
+def test_decode_graphs_replay_bit_equal(dev):
+    """warm_decode_aot captures the trusted prompt pass and the slot-fed
+    and trusted token steps; each replay is bit-equal to the eager step
+    in logits, caches and report, credits the same launches, and serves
+    another position than the one it was captured at."""
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models.attention import KVCache
+    from repro_torch.runtime.aot import CompileCache, GraphStep
+    cfg, params, ex, tokens = _smoke_lm(dev)
+    ex.attach_decode_plan(max_steps=4)
+    cache = CompileCache()
+    ex.attach_aot(cache)
+    S0, total = 6, 10
+    assert ex.warm_decode_aot(2, S0, total) == 3
+    assert all(isinstance(e, GraphStep) for e in ex._executables.values())
+    prompt = torch.from_numpy(tokens[:, :S0]).to(dev)
+    key = PRNGKey(5)
+    for trusted in (False, True):
+        eager = ex.prefill_session(prompt, key, max_seq=total,
+                                   trusted=trusted, jit=False)
+        run = ex.prefill_session(prompt, key, max_seq=total, trusted=trusted)
+        assert torch.equal(run[0], eager[0])
+        assert torch.equal(run[1].k, eager[1].k)
+        caches = eager[1]
+        for pos in (S0, S0 + 1):
+            tok = torch.from_numpy(tokens[:, pos:pos + 1]).to(dev)
+            slot = (None if trusted
+                    else ex.decode_cache(2).session_factors(key, pos))
+            c0 = KVCache(caches.k.clone(), caches.v.clone())
+            ne, a = _counted(lambda: ex.decode_once(
+                tok, c0, pos, key, slot, trusted=trusted, jit=False))
+            c1 = KVCache(caches.k.clone(), caches.v.clone())
+            nr, b = _counted(lambda: ex.decode_once(
+                tok, c1, pos, key, slot, trusted=trusted))
+            assert torch.equal(a[0], b[0])
+            assert torch.equal(a[1].k, b[1].k)
+            assert torch.equal(a[1].v, b[1].v)
+            for f in ("checked", "failed", "corrupted"):
+                assert torch.equal(getattr(a[2], f), getattr(b[2], f))
+            assert ne == nr
+            caches = b[1]
+    st = cache.stats()
+    assert st["compiles"] == 3 and st["exec_fallbacks"] == 0
+
+
+def test_categorical_on_card_matches_cpu(dev):
+    from repro_torch.core import prng
+    logits = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 49152)).astype(np.float32) * 3.0)
+    for seed in range(8):
+        key = prng.fold_in(prng.PRNGKey(seed), 1)
+        want = prng.categorical(key, logits)
+        got = prng.categorical(key, logits.to(dev))
+        assert torch.equal(got.cpu(), want)
+        np.testing.assert_array_equal(
+            prng.uniform(key, (1000,), 1e-30, 1e3, device=dev).cpu().numpy(),
+            prng.uniform(key, (1000,), 1e-30, 1e3).numpy())

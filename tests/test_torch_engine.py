@@ -1,6 +1,6 @@
 """The port's serving engine (``runtime/engine.py``) on the CPU: the cases
-of the reference's ``tests/test_engine.py`` (the LM case waits for the LM
-forward ``infer``; the pure session-pool cases are in
+of the reference's ``tests/test_engine.py`` (the LM case is in
+``test_torch_lm_serving.py``; the pure session-pool cases are in
 ``test_torch_sessions_pool.py``), its engine cases of ``test_aot.py``,
 ``test_observability.py`` and ``test_profiling.py``, and the engine against
 the JAX engine.

@@ -2,15 +2,18 @@
 reference on the CPU: decode plans and their digests, the private prompt
 pass and token steps against the reference's eager run (``jit=False``)
 on the same parameters and tokens, private against trusted bit for bit,
-ring-fed against live factors, a dishonest device, and the token-slot
-ring's guards.
+ring-fed against live factors, a dishonest device, the token-slot
+ring's guards, sampling at a temperature and ``generate_origami``.
 
 Tier-1 field arithmetic is exact, so the first blinded op's output is
 bit-equal across the frameworks, and so are the factor streams and the
 integrity reports; the bf16 float layers around it differ by a few ulps
 (see tests/test_torch_lm.py), so logits are held to atol 3e-2 * max|ref|.
 Tokens are compared teacher-forced: greedy tokens on random weights may
-legitimately diverge between the frameworks.
+legitimately diverge between the frameworks. Where whole streams are
+compared (sampling, ``generate_origami``), the seeds are ones on which no
+bf16 rounding flips a pick; the draws themselves are bit-equal
+(tests/test_torch_prng.py).
 """
 import threading
 import time
@@ -32,6 +35,7 @@ from repro.core import integrity as JIG  # noqa: E402
 from repro.core import plan as JPL  # noqa: E402
 from repro.core.origami import OrigamiExecutor as JEx  # noqa: E402
 from repro.models import model as JM  # noqa: E402
+from repro.runtime import generate as JG  # noqa: E402
 import repro_torch.core.slalom as SL  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core import integrity as IG  # noqa: E402
@@ -41,7 +45,6 @@ from repro_torch.core.origami import OrigamiExecutor  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import generate as G  # noqa: E402
-from repro_torch.runtime.devices import DevicePool  # noqa: E402
 from repro_torch.runtime.faults import (KINDS, DishonestDevice,  # noqa: E402
                                         FaultSpec)
 from repro_torch.runtime.sessions import (SlotReuseError,  # noqa: E402
@@ -221,8 +224,12 @@ def test_private_generate_bit_exact_vs_trusted(smollm):
     assert priv.ring["consumed"] == priv.decode_steps == 4
     assert priv.ring["refill_errors"] == 0
     assert priv.plan_digest == oracle.plan_digest
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        G.private_generate(params, prompt, cfg, temperature=0.5, **kw)
+    # sampling at a temperature replays in the oracle too
+    hot = G.private_generate(params, prompt, cfg, temperature=0.5, **kw)
+    hot_oracle = G.private_generate(params, prompt, cfg, temperature=0.5,
+                                    trusted=True, **kw)
+    assert torch.equal(hot.tokens, hot_oracle.tokens)
+    assert torch.equal(hot.logits, hot_oracle.logits)
 
 
 def test_ring_fed_step_bit_exact_vs_live(smollm):
@@ -284,22 +291,44 @@ def test_dishonest_device_detected(smollm, kind):
         assert rep.n_failed > 0 and not rep.ok
 
 
-def test_lm_forward_infer_is_not_ported(smollm):
-    cfg, _, _, params, prompt = smollm
-    ex = OrigamiExecutor(cfg, params, "origami", device="cpu")
-    with pytest.raises(NotImplementedError, match="private_generate"):
-        ex.infer({"tokens": prompt})
-    ref = ex.reference({"tokens": prompt})
-    assert ref.shape == (2, 6, cfg.padded_vocab)
+def test_sampled_private_generate_matches_reference(smollm):
+    """Temperature 0.8: the same sampling and session keys draw the same
+    tokens as the reference's private_generate (its jitted run)."""
+    cfg, jcfg, jp, params, prompt = smollm
+    kw = dict(max_new_tokens=4, temperature=0.8)
+    want = JG.private_generate(
+        jp, jnp.asarray(prompt), jcfg, integrity=JIG.IntegrityPolicy.full(k=2),
+        session_key=jax.random.PRNGKey(SESSION), key=jax.random.PRNGKey(4),
+        **kw)
+    got = G.private_generate(
+        params, prompt, cfg, integrity=IG.IntegrityPolicy.full(k=2),
+        session_key=prng.PRNGKey(SESSION), key=prng.PRNGKey(4),
+        device="cpu", **kw)
+    np.testing.assert_array_equal(got.tokens.numpy(),
+                                  np.asarray(want.tokens))
+    assert got.integrity.n_checked == np.asarray(want.integrity.checked).sum()
 
 
-def test_offload_plane_for_lm_is_not_ported(smollm):
-    """A device pool for the LM raises instead of running every offloaded
-    op unsharded on one device."""
-    cfg, _, _, params, _ = smollm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OrigamiExecutor(cfg, params, "origami", devices=DevicePool(2),
-                        device="cpu")
+def test_generate_origami_matches_reference(smollm):
+    """The reference's tests/test_generate.py seeds (prompt from
+    PRNGKey(1), cut to 2 tokens: the reference's eager steps are slow):
+    the same tokens, and one count per runtime op (the reference counts
+    one per traced call of its scanned step, which at the smoke config's
+    one tier-1 layer is the same)."""
+    cfg, jcfg, jp, params, _ = smollm
+    prompt = jax.random.randint(jax.random.PRNGKey(1), (1, 2), 0,
+                                jcfg.vocab_size)
+    want = JG.generate_origami(jp, prompt, jcfg, max_new_tokens=2)
+    got = G.generate_origami(params, np.asarray(prompt), cfg,
+                             max_new_tokens=2, device="cpu")
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    p = cfg.origami.tier1_layers
+    steps = 2 + 2 - 1
+    assert got.telemetry.calls == got.telemetry.device_matmuls == 7 * p * steps
+    assert want.telemetry.calls == 7 * steps
+    deep = G.generate_origami(params, np.asarray(prompt), cfg, partition=3,
+                              max_new_tokens=2, device="cpu")
+    assert deep.telemetry.calls == 7 * 3 * steps
 
 
 def _cache(smollm, integrity=None):

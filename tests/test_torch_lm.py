@@ -26,6 +26,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.runtime import generate as JG  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.runtime import generate as G  # noqa: E402
@@ -155,9 +156,15 @@ def test_open_generate_matches_reference_first_step(lm):
     # sits within a tolerance of a tie
     np.testing.assert_array_equal(got.tokens[:, 6].numpy(),
                                   np.asarray(want.tokens)[:, 6])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        G.generate(params, tokens, cfg, max_new_tokens=1, temperature=0.7,
-                   device="cpu")
+    # sampling: the same key chain draws the same tokens
+    for seed in (0, 3):
+        got = G.generate(params, tokens, cfg, max_new_tokens=4,
+                         temperature=0.7, key=prng.PRNGKey(seed),
+                         device="cpu")
+        want = JG.generate(jp, jnp.asarray(tokens), jcfg, max_new_tokens=4,
+                           temperature=0.7, key=jax.random.PRNGKey(seed))
+        np.testing.assert_array_equal(got.tokens.numpy(),
+                                      np.asarray(want.tokens))
 
 
 @pytest.mark.parametrize("shape,theta", [((2, 7, 3, 32), 10000.0),

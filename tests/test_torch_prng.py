@@ -109,3 +109,47 @@ def test_scalar_draws_of_the_fault_injector(lo, hi):
             bits = prng.bits(a, ())
             assert bits.shape == ()
             assert int(bits) == int(jax.random.bits(b, (), jnp.uint32))
+
+
+TINY = float(np.finfo(np.float32).tiny)
+BOUNDS = [(0.0, 1.0), (TINY, 1.0), (-3.5, 2.25), (0.1, 0.7), (-1e3, 1e-3),
+          (1e-30, 1e3)]
+# torch's float32 log and XLA:CPU's may differ in the last ulp; the noise
+# -log(-log(u)) is held to jax within GUMBEL_ULPS ulps of max(|g|, 1)
+GUMBEL_ULPS = 4
+
+
+@pytest.mark.parametrize("lo,hi", BOUNDS)
+def test_uniform_with_bounds(lo, hi):
+    """jax rounds ``f * (hi - lo) + lo`` once (XLA:CPU fuses it into an
+    FMA); the port's float64 round-to-odd gives the same bits."""
+    for jk, tk in _keys():
+        for shape in ((), (1001,), (4, 1, 33)):
+            want = np.asarray(jax.random.uniform(jk, shape, minval=lo,
+                                                 maxval=hi))
+            got = prng.uniform(tk, shape, lo, hi)
+            assert got.dtype == torch.float32 and tuple(got.shape) == shape
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(7,), (4, 512), (2, 49152)])
+def test_gumbel_within_ulps(shape):
+    for jk, tk in _keys():
+        want = np.asarray(jax.random.gumbel(jk, shape))
+        got = prng.gumbel(tk, shape).numpy()
+        ulp = np.spacing(np.maximum(np.abs(want), 1.0).astype(np.float32))
+        assert (np.abs(got - want) <= GUMBEL_ULPS * ulp).all()
+
+
+@pytest.mark.parametrize("temperature", [0.5, 0.8, 1.0, 2.0])
+@pytest.mark.parametrize("shape,axis", [((4, 1000), -1), ((3, 49152), -1),
+                                        ((2, 64, 5), 1)])
+def test_categorical_matches_jax(temperature, shape, axis):
+    logits = (np.random.default_rng(len(shape) + int(temperature * 10))
+              .normal(size=shape).astype(np.float32) * 3.0)
+    for jk, tk in _keys():
+        scaled = logits / np.float32(temperature)
+        want = np.asarray(jax.random.categorical(jk, jnp.asarray(scaled),
+                                                 axis=axis))
+        got = prng.categorical(tk, torch.from_numpy(scaled), axis=axis)
+        np.testing.assert_array_equal(got.numpy(), want)
