@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU — sealed VGG-16
-serving, the serving engine over VGG-16 and VGG-19, and SmolLM-135M:
-private token generation, the LM forward, engine-served LM requests and
-token streams, sampling and ``generate_origami`` — and hold every kernel
-of them against its plain PyTorch version.
+serving, the serving engine over VGG-16 and VGG-19, the c-GAN adversary
+and Algorithm 1 with the partition they choose, and SmolLM-135M: private
+token generation, the LM forward, engine-served LM requests and token
+streams, sampling, ``generate_origami`` and the token-recovery probe —
+and hold every kernel of them against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -52,7 +53,8 @@ Phases (any failure is fatal and exits non-zero):
    crashed or timed out;
 9. flash attention — the kernel against its plain version (float32
    matmuls, TF32 off) at the SmolLM-135M prefill shape (batch 4, 1024
-   tokens, 9 query and 3 KV heads of 64, bf16, causal, 2e-2) and a sweep
+   tokens, 9 query and 3 KV heads of 64, bf16, causal, 2e-2), the
+   shapes the LM phases and the token probe give it, and a sweep
    (float32 at 2e-5, non-causal, MHA, ragged 6 and 1000 tokens), with its
    time and device time, the plain version's time, one
    ``scaled_dot_product_attention`` call's (timed only) and the card's
@@ -150,11 +152,48 @@ Phases (any failure is fatal and exits non-zero):
 18. generate_origami — a 2 x 32 prompt and 8 new tokens: one telemetry
    count per runtime op (7 x 3 x 39), exactly that many blind_encode,
    fused and limb_matmul launches, no other; one tiered step within
-   0.15 of the open float step.
+   0.15 of the open float step;
+19. adversary parity (after planned serving, before engine serving) —
+   the reference's ``test_adversary_reconstructs_shallow_layer`` case
+   (smoke VGG-16 with the reference's seed-0 weights from
+   ``init_params_keyed``, layer 1, 60 steps, batch 8, n_eval 32, seed
+   0) trained on the card and on the CPU. Gate: the SSIM within 0.05,
+   the final G loss within 1.5 and the D loss within 0.6 (the tolerances
+   of tests/test_torch_adversary.py). Printed: each device's SSIM,
+   losses, ms a step (D+G) and ms of ``collect_features`` a step;
+20. algorithm 1 — ``partition_search`` on the full-width VGG-16 of the
+   serving phases (224x224x3, 1000 classes), threshold 0.35,
+   verify_depth 2, batch 16, n_eval 64, over the spatial boundaries
+   (layers 1-18: from a 1x1 fc map the c-GAN's decoder reaches 128, not
+   224 pixels); the walk's layers train on one set of images, drawn
+   once and kept on the card. One short run on layer 1 times a step,
+   and each layer gets the largest step count of 60 or more that keeps
+   the longest walk (every layer) within 80 s of the phase's ~90, else
+   60; the predicted walk time is printed beside the 60-step floor's.
+   Printed: the SSIM a constant gray image scores, and one line per
+   evaluated layer (kind, SSIM beside the gray image's, G and D loss, ms
+   a step and of ``collect_features``). Gates: every SSIM
+   finite and in [-1, 1], every loss finite; the returned p and the
+   order of the evaluated layers are what Algorithm 1 gives on the
+   printed SSIMs, recomputed here. Then ``PartitionPlanner.plan(cfg,
+   params, leakage=<those SSIMs>)`` (summary printed) and one batch of
+   4 through an ``OrigamiExecutor`` under its plan with
+   ``precompute=True`` and full(k=2). Gates: blinded logits bit-equal to
+   the enclave recompute; every op checked and passing; blind_encode,
+   limb_matmul_fused and limb_fold each launched once per blinded op of
+   the plan, read around exactly that call, and no kernel off the fused
+   path;
+21. token probe (after generate_origami) — ``token_recovery_probe`` with
+   the reference's defaults (100 steps, batch 8, 32 tokens, lr 1e-2,
+   seed 0) on the boundary after blocks 1-3 of the full SmolLM-135M
+   (random bf16 weights, seed 0, open forward): the accuracy and its
+   time, a reading not gated on its value. Gate: flash_attention
+   launched once a block at each boundary the probe draws (3 x 101),
+   at shapes the flash phase checks (8 x 32 and 32 x 32).
 
-Phases 3, 5-8 and 10-18 each read the launch counts around exactly the
-calls they drive and fail unless their path launched its kernels and no
-other.
+Phases 3, 5-8, 10-18, 20 and 21 each read the launch counts around exactly
+the calls they drive and fail unless their path launched its kernels and
+no other.
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
@@ -1756,6 +1795,9 @@ FLASH_CASES = (
     ("prompt 128 bucket 2", 2, 128, 9, 3, torch.bfloat16, True, 2e-2),
     ("prompt 128 bucket 1", 1, 128, 9, 3, torch.bfloat16, True, 2e-2),
     ("lm engine bucket 2", 2, 32, 9, 3, torch.bfloat16, True, 2e-2),
+    # token probe: its 100 training boundaries and its evaluation
+    ("token probe train", 8, 32, 9, 3, torch.bfloat16, True, 2e-2),
+    ("token probe eval", 32, 32, 9, 3, torch.bfloat16, True, 2e-2),
     ("float32", 4, 1024, 9, 3, torch.float32, True, 2e-5),
     ("non-causal", 4, 1024, 9, 3, torch.bfloat16, False, 2e-2),
     ("MHA", 4, 1024, 9, 9, torch.bfloat16, True, 2e-2),
@@ -2396,6 +2438,219 @@ def phase_generate_origami(cfg, params, dev, card):
           f"0.15); launches {launches}")
 
 
+
+# -- the adversary: the c-GAN, Algorithm 1 and the token probe ----------------
+
+# the reference's test_adversary_reconstructs_shallow_layer
+# (tests/test_privacy.py)
+ADV_PARITY = dict(layer=1, steps=60, batch=8, n_eval=32, seed=SEED)
+# card against CPU: the tolerances of tests/test_torch_adversary.py (port
+# against reference), a single batch's losses after 60 chaotic GAN steps
+ADV_TOL = {"ssim": 0.05, "g_loss": 1.5, "d_loss": 0.6}
+SEARCH = dict(threshold=0.35, verify_depth=2)
+SEARCH_TRAIN = dict(batch=16, n_eval=64, seed=SEED)
+SEARCH_MIN_STEPS = 60
+WALK_BUDGET_S = 80.0                 # the walk's share of the phase's ~90 s
+CALIBRATION_STEPS = 8
+# the reference's defaults of token_recovery_probe
+PROBE = dict(steps=100, batch=8, seq=32, lr=1e-2)
+
+
+def phase_adversary_parity(dev, card):
+    """The reference test's adversary (smoke VGG-16 with the reference's
+    seed-0 weights from ``init_params_keyed``, layer 1, 60 steps, batch
+    8, n_eval 32, seed 0) on the card and on the CPU: the SSIM and the
+    final losses agree within the tests' tolerances."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers as L
+    from repro_torch.privacy import reconstruct as R
+    from repro_torch.privacy.data import make_batch
+    from repro_torch.privacy.ssim import ssim
+    tag = f"adversary parity on {card}"
+    cfg = get_smoke("vgg16")
+    params = L.init_params_keyed(PRNGKey(SEED), V.vgg_defs(cfg),
+                                 torch.float32, "cpu")
+    reps = []
+    for label, d in (("card", dev), ("CPU", torch.device("cpu"))):
+        t = time.perf_counter()
+        rep = R.train_adversary(params, cfg, device=d, **ADV_PARITY)
+        wall = time.perf_counter() - t
+        reps.append(rep)
+        print(f"{tag}: on the {label} SSIM {rep.ssim:.5f}, final G loss "
+              f"{rep.g_loss:.5f}, D loss {rep.d_loss:.5f}; {rep.step_ms:.3f} "
+              f"ms a step (D+G), collect_features {rep.collect_ms:.3f} ms a "
+              f"step, {wall:.2f} s for the run")
+    for field, tol in ADV_TOL.items():
+        a, b = getattr(reps[0], field), getattr(reps[1], field)
+        if not (np.isfinite(a) and abs(a - b) <= tol):
+            raise AssertionError(f"adversary parity: {field} {a} on the "
+                                 f"card, {b} on the CPU (tolerance {tol})")
+    floor = float(ssim(torch.from_numpy(make_batch(0, 8)),
+                       torch.from_numpy(make_batch(500, 8))))
+    print(f"{tag}: card == CPU within {ADV_TOL}; the reference test's "
+          f"noise floor {floor:.5f} (it asks SSIM > floor + 0.1)")
+
+
+def _algorithm1(ssims, threshold, verify_depth, n):
+    """(p, the layers in the order visited) of Algorithm 1 over measured
+    SSIMs: the first layer below the threshold whose next
+    ``verify_depth`` layers are below it too; when one of those rebounds,
+    the walk goes on past the deepest that did."""
+    visited = []
+    layer = 1
+    while layer <= n:
+        if layer not in visited:
+            visited.append(layer)
+        if ssims[layer] >= threshold:
+            layer += 1
+            continue
+        deeper = list(range(layer + 1, min(layer + verify_depth, n) + 1))
+        visited += [m for m in deeper if m not in visited]
+        rebound = [m for m in deeper if ssims[m] >= threshold]
+        if not rebound:
+            return layer, visited
+        layer = max(rebound) + 1
+    return n, visited
+
+
+def phase_partition_search(cfg, params, dev, card):
+    """Algorithm 1 on the full-width VGG-16 on the card, its SSIMs fed to
+    the partition planner, and one batch served under the plan it picks."""
+    from repro_torch.core.planner import PartitionPlanner
+    from repro_torch.privacy import reconstruct as R
+    from repro_torch.privacy.data import make_batch
+    from repro_torch.privacy.ssim import ssim
+    tag = f"algorithm 1 on {card}"
+    t_phase = time.perf_counter()
+    # the walk stops at the last spatial boundary: from a 1x1 fc map the
+    # c-GAN's decoder doubles to 2^floor(log2(224)) = 128 pixels, not 224,
+    # and its L1 term cannot be formed (the reference raises the same)
+    shapes = V.feature_shapes(cfg)
+    max_layer = max(l for l in range(1, len(cfg.cnn_layers))
+                    if len(shapes[l]) == 3)
+    # the step first: one short run on layer 1 (the widest boundary and
+    # the costliest step) gives a step's cost (CUDA events) and, from its
+    # wall, a run's fixed part; the budget allows for the longest walk,
+    # every layer up to max_layer, each at layer 1's cost. The run draws
+    # the images the walk then reuses, so its fixed part is an upper bound
+    images = {}
+    t = time.perf_counter()
+    cal = R.train_adversary(params, cfg, 1, steps=CALIBRATION_STEPS,
+                            device=dev, image_cache=images, **SEARCH_TRAIN)
+    wall = time.perf_counter() - t
+    per_step = (cal.step_ms + cal.collect_ms) / 1e3
+    fixed = max(wall - CALIBRATION_STEPS * per_step, 0.0)
+
+    def walk_s(n):
+        return max_layer * (fixed + n * per_step)
+
+    steps = max(SEARCH_MIN_STEPS,
+                int((WALK_BUDGET_S / max_layer - fixed) / per_step))
+    evals = torch.from_numpy(make_batch(10_000_000, SEARCH_TRAIN["n_eval"],
+                                        cfg.image_size))
+    gray = float(ssim(torch.full_like(evals, 0.5), evals))
+    print(f"{tag}: calibration on layer 1 ({CALIBRATION_STEPS} steps, "
+          f"batch {SEARCH_TRAIN['batch']}): {cal.step_ms:.2f} ms D+G and "
+          f"{cal.collect_ms:.2f} ms collect_features a step on the card, "
+          f"{fixed:.2f} s fixed a run ({wall:.2f} s wall); a walk over "
+          f"layers 1-{max_layer} predicted at {walk_s(SEARCH_MIN_STEPS):.1f} "
+          f"s at the {SEARCH_MIN_STEPS}-step floor; {steps} steps a layer "
+          f"(the largest count of {SEARCH_MIN_STEPS} or more within "
+          f"{WALK_BUDGET_S:.0f} s, or {SEARCH_MIN_STEPS}), predicted "
+          f"{walk_s(steps):.1f} s; a constant gray image scores SSIM "
+          f"{gray:.5f} against the held-out images")
+
+    t = time.perf_counter()
+    p, reports = R.partition_search(params, cfg, steps=steps, device=dev,
+                                    max_layer=max_layer, image_cache=images,
+                                    **SEARCH, **SEARCH_TRAIN)
+    search_s = time.perf_counter() - t
+    for r in reports:
+        kind, width = V.layer_kind(cfg, r.layer - 1)
+        print(f"{tag}: layer {r.layer} ({kind}{width or ''}) SSIM "
+              f"{r.ssim:.5f} ({r.ssim - gray:+.5f} against the gray "
+              f"image), G loss {r.g_loss:.5f}, D loss {r.d_loss:.5f}, "
+              f"{r.step_ms:.3f} ms a step (D+G), collect_features "
+              f"{r.collect_ms:.3f} ms")
+        assert r.steps == steps, r
+        if not (np.isfinite(r.ssim) and -1.0 <= r.ssim <= 1.0):
+            raise AssertionError(f"layer {r.layer}: SSIM {r.ssim}")
+        if not (np.isfinite(r.g_loss) and np.isfinite(r.d_loss)):
+            raise AssertionError(f"layer {r.layer}: losses {r}")
+    ssims = {r.layer: r.ssim for r in reports}
+    want_p, visited = _algorithm1(ssims, SEARCH["threshold"],
+                                  SEARCH["verify_depth"], max_layer)
+    if (p, [r.layer for r in reports]) != (want_p, visited):
+        raise AssertionError(f"partition_search gave p = {p} over "
+                             f"{[r.layer for r in reports]}; Algorithm 1 "
+                             f"gives {want_p} over {visited}")
+    print(f"{tag}: searched p = {p} over {len(reports)} layers "
+          f"({steps} steps each, batch {SEARCH_TRAIN['batch']}, n_eval "
+          f"{SEARCH_TRAIN['n_eval']}) in {search_s:.1f} s (predicted "
+          f"{walk_s(steps):.1f} s for every layer); Algorithm 1 recomputed "
+          f"on these SSIMs gives the same")
+    del images
+
+    pplan = PartitionPlanner(privacy_floor=SEARCH["threshold"],
+                             verify_depth=SEARCH["verify_depth"]).plan(
+        cfg, params, leakage=ssims)
+    plan = pplan.to_placement(cfg)
+    n_ops = len(plan.cache_ops)
+    print(f"{tag}: planner on the measured SSIMs: {pplan.summary()}; "
+          f"feasible {pplan.feasible}; {plan.summary()}, {n_ops} blinded "
+          f"ops")
+    ex = OrigamiExecutor(cfg, params, plan=plan, precompute=True,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    rng = np.random.default_rng(SEED + 70)
+    batch = {"images": torch.from_numpy(rng.random(
+        (BATCH, cfg.image_size, cfg.image_size, cfg.image_channels),
+        dtype=np.float32))}
+    key = PRNGKey(SEED + 70)
+    launches, ms, res = counted(lambda: ex.infer(batch, key))
+    trusted = ex.infer(batch, trusted=True)
+    if not torch.equal(res.logits, trusted.logits):
+        raise AssertionError("searched plan: blinded logits differ from the "
+                             "enclave recompute")
+    rep = res.integrity
+    assert rep.n_ops == rep.n_checked == n_ops and rep.n_failed == 0, rep
+    check_launches(launches, FUSED_PATH, "searched plan's path")
+    for name in ("blind_encode", "limb_matmul_fused", "limb_fold"):
+        if launches[name] != n_ops:
+            raise AssertionError(f"searched plan: {launches[name]} {name} "
+                                 f"launches for {n_ops} blinded ops")
+    print(f"{tag}: served a batch of {BATCH} under p = {pplan.partition} "
+          f"in {ms:.1f} ms (cold: cache, factors and checks): logits == "
+          f"enclave recompute, {rep.n_checked}/{rep.n_ops} checks passing; "
+          f"launches {launches}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del ex, res, trusted
+
+
+def phase_token_probe(cfg, params, dev, card):
+    """``token_recovery_probe`` with the reference's defaults on the
+    boundary after tier-1 blocks 1-LM_P of the full SmolLM-135M (open
+    forward): a reading, not gated on its value; gated on the probe's
+    flash_attention launches, one a block at each boundary it draws."""
+    from repro_torch.privacy import reconstruct as R
+
+    def boundary(tokens):
+        x = M.embed_tokens(params, tokens.long(), cfg)
+        return M.apply_range(params, x, cfg, 0, LM_P)[0]
+
+    launches, ms, acc = counted(lambda: R.token_recovery_probe(
+        boundary, cfg.vocab_size, cfg.d_model, device=dev, **PROBE))
+    assert np.isfinite(acc) and 0.0 <= acc <= 1.0, acc
+    # one attention call a block, at each training step and the evaluation
+    want = LM_P * (PROBE["steps"] + 1)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"token probe: {launches['flash_attention']} "
+                             f"flash_attention launches, not {want}")
+    print(f"token probe on {card}: top-1 token recovery {acc:.5f} from the "
+          f"boundary after blocks 1-{LM_P} ({PROBE}, vocab "
+          f"{cfg.vocab_size}; chance {1 / cfg.vocab_size:.6f}) in "
+          f"{ms / 1e3:.2f} s; {want} flash_attention launches")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2415,6 +2670,9 @@ def main():
     del server
     torch.cuda.empty_cache()
     phase_planned_serving(cfg, params, dev, card)
+    _free()
+    phase_adversary_parity(dev, card)
+    phase_partition_search(cfg, params, dev, card)
     del params
     torch.cuda.empty_cache()
     vgg16 = phase_engine_serving(dev, card)
@@ -2429,6 +2687,7 @@ def main():
     phase_generate_engine(lm_cfg, lm_params, dev, card)
     phase_sampling(lm_cfg, lm_params, dev, card)
     phase_generate_origami(lm_cfg, lm_params, dev, card)
+    phase_token_probe(lm_cfg, lm_params, dev, card)
     del lm_params
     # each kernel's launches, read on the main path that uses it
     launches = {name: (unfused_launches if name in READ_ON_UNFUSED

@@ -7,7 +7,8 @@ The mixture-of-experts, latent-attention and state-space sub-configs
 belong to language-model families this port does not carry yet; their
 fields stay (as ``None``) to keep the JSON identical. The properties
 (``resolved_head_dim``, ``padded_vocab``) are not fields, so they do not
-enter the JSON.
+enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
+(optim/adamw.py) reads it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,22 @@ class OrigamiConfig:
     field_bits: int = 24
     quant_bits: int = 8
     verify_depth: int = 2
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    # bf16 moments for very large models (arctic-480b / qwen3-moe-235b)
+    moment_dtype: str = "float32"
+    microbatches: int = 1          # gradient accumulation steps
+    grad_compression: bool = False # int8 + error feedback on cross-pod axis
+    seed: int = 0
 
 
 @dataclass(frozen=True)

@@ -2,11 +2,14 @@
 
 Port of ``repro/models/layers.py``: the dense / conv / pool part the CNN
 path runs and the LM part (RMS/layer norm in float32, embedding, the
-activations, rotary position embedding). Public layouts are the
-reference's: NHWC activations, HWIO conv weights, (d_in, d_out) dense
-weights, (..., seq, heads, head_dim) rope inputs. ``dense_impl`` /
-``conv_impl`` are the override hooks through which the Origami executor
-routes tier-1 linear ops into the Slalom protocol (core/origami.py).
+activations, rotary position embedding), the cross-entropy loss, and
+``init_params_keyed``, the reference's initializer driven by a jax-style
+key. ``conv2d`` pads as XLA's SAME does for any stride and kernel size.
+Public layouts are the reference's: NHWC activations, HWIO conv weights,
+(d_in, d_out) dense weights, (..., seq, heads, head_dim) rope inputs.
+``dense_impl`` / ``conv_impl`` are the override hooks through which the
+Origami executor routes tier-1 linear ops into the Slalom protocol
+(core/origami.py).
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import prng
+from repro_torch.core.tree import tree_leaves, tree_map
 
 # stacking axes: not part of a leaf's fan-in
 _STACK_AXES = ("layers", "experts")
@@ -68,6 +74,29 @@ def init_params(defs, generator: torch.Generator, device="cuda",
             for name in sorted(defs)}
 
 
+def init_params_keyed(key, defs, dtype: torch.dtype = torch.float32,
+                      device="cuda"):
+    """The reference's ``init_params(key, defs, dtype)``: ``prng.split``
+    gives one key per leaf in flatten order (dict keys sorted), and
+    "zeros"/"ones" leaves use up theirs too; the others are
+    ``prng.normal`` times 0.02 ("normal", "embed") or 1/sqrt(fan_in)
+    ("scaled"), cast to the leaf's dtype. The same key gives the
+    reference's parameters, to the few ulps ``prng.normal`` allows."""
+    keys = iter(prng.split(key, max(len(tree_leaves(defs)), 1)))
+
+    def build(d):
+        k = next(keys)
+        dt = d.dtype or dtype
+        if d.init in ("zeros", "ones"):
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(d.shape, dtype=dt, device=device)
+        scale = {"normal": 0.02, "embed": 0.02,
+                 "scaled": 1.0 / math.sqrt(_fan_in(d))}[d.init]
+        return (prng.normal(k, d.shape, device=device) * scale).to(dt)
+
+    return tree_map(build, defs)
+
+
 def dense_def(d_in: int, d_out: int, axes=("embed", "ffn"),
               bias: bool = False):
     d = {"w": ParamDef((d_in, d_out), "scaled", tuple(axes))}
@@ -117,14 +146,30 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: ceil(size / stride) outputs,
+    the total pad split with the smaller half before."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """SAME convolution of NHWC ``x`` with an HWIO weight (odd kernel)."""
+    """SAME convolution of NHWC ``x`` with an HWIO weight, XLA's padding
+    for any stride and kernel size."""
     if _CONV_IMPL is not None:
         return _CONV_IMPL(p, x, stride)
-    assert stride == 1, "SAME padding is implemented for stride 1"
     w = p["w"].to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 padding="same")
+    kh, kw = w.shape[0], w.shape[1]
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1)
+    if stride == 1 and kh % 2 == 1 and kw % 2 == 1:
+        y = F.conv2d(xc, wc, padding="same")
+    else:
+        top, bottom = _same_pads(x.shape[1], kh, stride)
+        left, right = _same_pads(x.shape[2], kw, stride)
+        y = F.conv2d(F.pad(xc, (left, right, top, bottom)), wc,
+                     stride=stride)
     return y.permute(0, 2, 3, 1) + p["b"].to(x.dtype)
 
 
@@ -188,6 +233,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def maxpool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     """k x k / stride k VALID max pool of NHWC ``x``."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), k, k).permute(0, 2, 3, 1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy; ``logits`` may be over a padded vocab, whose
+    pad columns are masked with -1e9."""
+    logits = logits.to(torch.float32)
+    if logits.shape[-1] > vocab_size:
+        pad = logits.shape[-1] - vocab_size
+        mask = torch.cat([
+            torch.zeros(vocab_size, dtype=torch.float32,
+                        device=logits.device),
+            torch.full((pad,), -1e9, dtype=torch.float32,
+                       device=logits.device)])
+        logits = logits + mask
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    ll = torch.sum(torch.where(iota == labels[..., None], logits, 0.0),
+                   dim=-1)
+    return torch.mean(lse - ll)
 
 
 def set_exact_float(device: Optional[torch.device]) -> None:

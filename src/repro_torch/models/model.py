@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -74,7 +75,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
 def params_to_numpy(params):
     """Tensors -> float32 numpy arrays of the same tree (exact for bf16;
     the caller casts to the reference's dtype)."""
-    return T.tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
                       params)
 
 

@@ -10,20 +10,14 @@ families wait (ROADMAP Queue 1 items 11-12).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-
-
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _supported(cfg: ModelConfig) -> None:

@@ -54,7 +54,9 @@ def test_port_files_exist():
                    "runtime/observability.py", "runtime/profiling.py",
                    "runtime/aot.py", "privacy/data.py", "privacy/ssim.py",
                    "runtime/engine.py", "runtime/chaos.py",
-                   "launch/__init__.py", "launch/serve.py"):
+                   "launch/__init__.py", "launch/serve.py",
+                   "optim/adamw.py", "privacy/cgan.py",
+                   "privacy/reconstruct.py", "core/tree.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
