@@ -1,9 +1,11 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU — sealed VGG-16
 serving, the serving engine over VGG-16 and VGG-19, the c-GAN adversary
-and Algorithm 1 with the partition they choose, and SmolLM-135M: private
+and Algorithm 1 with the partition they choose, SmolLM-135M: private
 token generation, the LM forward, engine-served LM requests and token
-streams, sampling, ``generate_origami`` and the token-recovery probe —
-and hold every kernel of them against its plain PyTorch version.
+streams, sampling, ``generate_origami`` and the token-recovery probe, and
+Qwen3-MoE-235B-A22B at full width: its MoE layer, the LM forward,
+engine-served requests and ``generate_origami`` — and hold every kernel
+of them against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -55,7 +57,10 @@ Phases (any failure is fatal and exits non-zero):
    matmuls, TF32 off) at the SmolLM-135M prefill shape (batch 4, 1024
    tokens, 9 query and 3 KV heads of 64, bf16, causal, 2e-2), the
    shapes the LM phases and the token probe give it, and a sweep
-   (float32 at 2e-5, non-causal, MHA, ragged 6 and 1000 tokens), with its
+   (float32 at 2e-5, non-causal, MHA, ragged 6 and 1000 tokens); at head
+   width 128 the Qwen3-MoE prefill (4 x 1024, 64 query and 4 KV heads),
+   the MoE engine's buckets (2 x 32, 1 x 128) and a sweep (float32 2 x
+   256 with 8/2 heads at 2e-5, non-causal, ragged 1000), with its
    time and device time, the plain version's time, one
    ``scaled_dot_product_attention`` call's (timed only) and the card's
    bound;
@@ -189,11 +194,49 @@ Phases (any failure is fatal and exits non-zero):
    (random bf16 weights, seed 0, open forward): the accuracy and its
    time, a reading not gated on its value. Gate: flash_attention
    launched once a block at each boundary the probe draws (3 x 101),
-   at shapes the flash phase checks (8 x 32 and 32 x 32).
+   at shapes the flash phase checks (8 x 32 and 32 x 32);
+22. moe layer (after the token probe, the SmolLM weights freed) — one
+   full-width Qwen3-MoE layer (128 experts of 4096 x 1536, top-8, bf16,
+   seed 0): ``sorted_grouped`` on 4 x 1024 tokens twice bit-equal with no
+   value read back to the host (CUDA sync debug mode "error"); on 2 x 256
+   tokens at capacity factor 16 (no drops) within 2e-2 x max of
+   ``gshard``. Printed: the assignments dropped at 1.25, the layer's time
+   (CUDA events) beside its bound;
+23. moe infer — Qwen3-MoE-235B-A22B at every published width, 6 of its 94
+   blocks (tier-1 = blocks 1-4, all 128 experts; random bf16 weights,
+   seed 0, as in 24-25), ``OrigamiExecutor.infer`` on 4 x 1024 tokens
+   under full(k=2). Gates: blinded logits bit-equal to the trusted
+   recompute; 16/16 ops checked; exactly 16 blind_encode, 16 fused, 32
+   limb_matmul, 16 fold and 6 flash launches; a bit-flipping device
+   caught op by op; the block-1 router logits within 0.25 of the "split"
+   plan's float forward's (the 8-bit tier-1 activations flip near-tied
+   top-8 choices, and a flip moves its group's capacity drops: most rows
+   route differently somewhere in tier-1, so this gate replaces a share of
+   flips) and the tier-1 boundary within 0.25 of the float one on the
+   rows routed alike in every tier-1 block; the trusted forward at 2 x 32
+   captured as a CUDA graph through a ``CompileCache`` and replayed
+   bit-equal to the eager one. Printed: the rows routed differently and
+   where, blinded, trusted and open times, the device-busy share;
+24. moe engine — Qwen3-MoE in a ``ServingEngine`` (``input_key="tokens"``,
+   max_batch 2): two sealed 32-token requests and one of 128, two
+   batches, each response bit-equal to an eager infer of its padded
+   batch; no engine thread outlives ``close()``;
+25. moe generate_origami — a 2 x 32 prompt and 8 new tokens: one
+   telemetry count per runtime op (4 x 4 x 39), exactly that many
+   blind_encode, fused and limb_matmul launches, no other;
+   ``private_generate`` and ``attach_decode_plan`` raise ``ScanExclusion``
+   with the reference's reason; one tiered step of the prompt's 64 tokens
+   against the open float step: the block-1 router logits within 0.25,
+   the logits within 0.15 on the rows routed alike in every block.
+   Printed: ms a step, open ``generate``'s wall for the same prompt.
 
-Phases 3, 5-8, 10-18, 20 and 21 each read the launch counts around exactly
-the calls they drive and fail unless their path launched its kernels and
-no other.
+The kernels phase also checks every field kernel and ``blind_encode`` at
+the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
+at the rows phases 23-25 give them (2, 64, 128, 4096).
+
+Phases 3, 5-8, 10-18, 20, 21 and 23-25 each read the launch counts around
+exactly the calls they drive and fail unless their path launched its
+kernels and no other (22 launches none).
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
@@ -614,6 +657,12 @@ LM_FOLD_SHAPES = (("decode check", 4, 2112, 2),
 LM_PROJECTIONS = (("q/o", 576, 576), ("k/v", 576, 192),
                   ("gate/up", 576, 1536), ("down", 1536, 576))
 LM_PATH_ROWS = (1, 2, 4, 64, 128, 256, 512, 1024)
+# the Qwen3-MoE tier-1 projections and their row counts: 2 (a
+# generate_origami token step), 64 (moe engine's 2 x 32 bucket, the
+# captured trusted forward, generate_origami's batched step check), 128
+# (the 1 x 128 bucket) and 4096 (moe infer's 4 x 1024)
+MOE_PROJECTIONS = (("q", 4096, 8192), ("k/v", 4096, 512), ("o", 8192, 4096))
+MOE_PATH_ROWS = (2, 64, 128, 4096)
 
 
 def _bound_ms(nbytes, nops):
@@ -686,27 +735,29 @@ def phase_lm_limb_shapes(gen, dev):
         print(f"limb_fold smollm {label} ({M}x{Kf}x{kf}): {ms:.4f} ms "
               f"(device {fmt_ms(dms)}), plain {pms:.4f} ms, bound "
               f"{bound:.4g} ms; bit-equal")
-    phase_lm_path_shapes(gen, dev)
+    phase_path_shapes(gen, dev, "lm", LM_PROJECTIONS, LM_PATH_ROWS)
+    phase_path_shapes(gen, dev, "moe", MOE_PROJECTIONS, MOE_PATH_ROWS)
 
 
-def phase_lm_path_shapes(gen, dev):
+def phase_path_shapes(gen, dev, tag, projections, path_rows):
     """Every field-product kernel and ``blind_encode`` at every shape the
-    LM serving phases give it (``LM_PROJECTIONS`` x ``LM_PATH_ROWS``; the
-    fold material ``W_q @ s`` once per projection), each bit-for-bit
-    against its plain version; checked, not timed."""
+    LM (``tag`` "lm", SmolLM-135M) or MoE ("moe", Qwen3-MoE) serving phases
+    give it (``projections`` x ``path_rows``; the fold material
+    ``W_q @ s`` once per projection), each bit-for-bit against its plain
+    version; checked, not timed."""
     def field(rows, cols):
         return torch.randint(0, ref.P, (rows, cols), generator=gen,
                              device=dev, dtype=torch.int32)
 
     def check(name, shape, got, want):
         if not torch.equal(got, want):
-            raise AssertionError(f"{name} at the lm path shape {shape}: "
+            raise AssertionError(f"{name} at the {tag} path shape {shape}: "
                                  f"kernel differs from its plain version")
         n_checked[name] = n_checked.get(name, 0) + 1
 
     n_checked = {}
     scale = torch.tensor(3.1e-6, device=dev)
-    for label, K, N in LM_PROJECTIONS:
+    for label, K, N in projections:
         w = field(K, N)
         wl = ops.encode_weight_planes(w)
         Kp = wl.shape[1]
@@ -715,7 +766,7 @@ def phase_lm_path_shapes(gen, dev):
         check("limb_matmul", (label, "ws", K, N, 2),
               limb_matmul_planes(wp, sl), limb_matmul_planes_plain(wp, sl))
         fold_s = ops.encode_weight_planes(field(K + N, 2))
-        for M in LM_PATH_ROWS:
+        for M in path_rows:
             shape = (label, M, K, N)
             x = torch.randn((M, K), generator=gen, device=dev)
             r = field(M, K)
@@ -734,9 +785,9 @@ def phase_lm_path_shapes(gen, dev):
             check("limb_fold", (label, M, K + N, 2),
                   limb_fold_planes(fl, fold_s),
                   limb_fold_planes_plain(fl, fold_s))
-    print(f"lm path shapes: projections "
-          f"{[(lb, K, N) for lb, K, N in LM_PROJECTIONS]} at rows "
-          f"{list(LM_PATH_ROWS)}: bit-equal to the plain versions at "
+    print(f"{tag} path shapes: projections "
+          f"{[(lb, K, N) for lb, K, N in projections]} at rows "
+          f"{list(path_rows)}: bit-equal to the plain versions at "
           + ", ".join(f"{n} shapes of {name}"
                       for name, n in n_checked.items()))
 
@@ -1783,28 +1834,36 @@ def phase_breakdown(server, batch):
           f"float forward {plain_ms:.1f} ms")
 
 
-# (label, B, S, H, KH, dtype, causal, tolerance): the smollm prefill shape
-# first, then the reference test's sweep
+# (label, B, S, H, KH, D, dtype, causal, tolerance): the smollm prefill
+# shape first, then the reference test's sweep
 FLASH_CASES = (
-    ("smollm prefill", 4, 1024, 9, 3, torch.bfloat16, True, 2e-2),
+    ("smollm prefill", 4, 1024, 9, 3, 64, torch.bfloat16, True, 2e-2),
     # the LM serving phases' attention: the lm infer batch, the prompt
     # pass of generate engine and sampling (and its bucket-2 and bucket-1
     # captures), lm engine's 128-token bucket 1 and its 32-token bucket 2
-    ("lm infer", 4, 256, 9, 3, torch.bfloat16, True, 2e-2),
-    ("prompt 128", 4, 128, 9, 3, torch.bfloat16, True, 2e-2),
-    ("prompt 128 bucket 2", 2, 128, 9, 3, torch.bfloat16, True, 2e-2),
-    ("prompt 128 bucket 1", 1, 128, 9, 3, torch.bfloat16, True, 2e-2),
-    ("lm engine bucket 2", 2, 32, 9, 3, torch.bfloat16, True, 2e-2),
+    ("lm infer", 4, 256, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("prompt 128", 4, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("prompt 128 bucket 2", 2, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("prompt 128 bucket 1", 1, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("lm engine bucket 2", 2, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
     # token probe: its 100 training boundaries and its evaluation
-    ("token probe train", 8, 32, 9, 3, torch.bfloat16, True, 2e-2),
-    ("token probe eval", 32, 32, 9, 3, torch.bfloat16, True, 2e-2),
-    ("float32", 4, 1024, 9, 3, torch.float32, True, 2e-5),
-    ("non-causal", 4, 1024, 9, 3, torch.bfloat16, False, 2e-2),
-    ("MHA", 4, 1024, 9, 9, torch.bfloat16, True, 2e-2),
-    ("ragged 6", 4, 6, 9, 3, torch.bfloat16, True, 2e-2),
-    ("ragged 1000", 4, 1000, 9, 3, torch.bfloat16, True, 2e-2),
+    ("token probe train", 8, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("token probe eval", 32, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("float32", 4, 1024, 9, 3, 64, torch.float32, True, 2e-5),
+    ("non-causal", 4, 1024, 9, 3, 64, torch.bfloat16, False, 2e-2),
+    ("MHA", 4, 1024, 9, 9, 64, torch.bfloat16, True, 2e-2),
+    ("ragged 6", 4, 6, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("ragged 1000", 4, 1000, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    # head width 128, Qwen3-MoE's 64 query and 4 KV heads: moe infer's
+    # prefill, moe engine's buckets (2 x 32, also the captured trusted
+    # forward, and 1 x 128), and the sweep
+    ("qwen prefill", 4, 1024, 64, 4, 128, torch.bfloat16, True, 2e-2),
+    ("moe engine bucket 2", 2, 32, 64, 4, 128, torch.bfloat16, True, 2e-2),
+    ("moe engine bucket 1", 1, 128, 64, 4, 128, torch.bfloat16, True, 2e-2),
+    ("float32 D 128", 2, 256, 8, 2, 128, torch.float32, True, 2e-5),
+    ("non-causal D 128", 4, 1024, 64, 4, 128, torch.bfloat16, False, 2e-2),
+    ("ragged 1000 D 128", 4, 1000, 64, 4, 128, torch.bfloat16, True, 2e-2),
 )
-HEAD_DIM = 64
 
 
 def flash_bound(B, S, H, KH, D, dtype, causal):
@@ -1831,10 +1890,9 @@ def phase_flash(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     main_case, err_max = None, 0.0
-    for label, B, S, H, KH, dtype, causal, tol in FLASH_CASES:
-        q = torch.randn((B, S, H, HEAD_DIM), generator=gen, device=dev,
-                        dtype=dtype)
-        k, v = (torch.randn((B, S, KH, HEAD_DIM), generator=gen, device=dev,
+    for label, B, S, H, KH, D, dtype, causal, tol in FLASH_CASES:
+        q = torch.randn((B, S, H, D), generator=gen, device=dev, dtype=dtype)
+        k, v = (torch.randn((B, S, KH, D), generator=gen, device=dev,
                             dtype=dtype) for _ in range(2))
         got = flash_attention_fwd(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
@@ -1855,9 +1913,9 @@ def phase_flash(dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by = flash_bound(B, S, H, KH, HEAD_DIM, dtype, causal)
+        bound, by = flash_bound(B, S, H, KH, D, dtype, causal)
         print(f"flash_attention {label} (B {B}, S {S}, H {H}, KH {KH}, D "
-              f"{HEAD_DIM}, {str(dtype)[6:]}, "
+              f"{D}, {str(dtype)[6:]}, "
               f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
               f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
               f"ms (device {fmt_ms(sdpa_dms)}), bound "
@@ -2170,21 +2228,33 @@ def phase_lm_engine(cfg, params, dev, card):
     ``input_key="tokens"``, ``input_dtype="int32"``, max_batch 2; two
     requests of 32 tokens and one of 128 in two buckets, each response
     bit-equal to an eager infer of its padded batch."""
+    _serve_lm_engine("lm", cfg, params, LM_P, LM_ENGINE_SEQS, SEED + 42, dev,
+                     card)
+
+
+def _serve_lm_engine(name, cfg, params, partition, seq_lens, seed, dev,
+                     card):
+    """One LM in a ``ServingEngine`` (max_batch 2, ``input_key="tokens"``,
+    full(k=2)) serving one sealed request a length of ``seq_lens``; the
+    launches read around exactly the requests; every response opened and
+    held bit for bit to an eager infer of its padded batch; no engine
+    thread outlives ``close()``."""
     from repro_torch.runtime.engine import EngineConfig, ServingEngine
-    tag = f"lm engine on {card}"
+    tag = f"{name} engine on {card}"
     before = _owned_threads()
-    rng = np.random.default_rng(SEED + 42)
+    rng = np.random.default_rng(seed)
     reqs = [_lm_request_sealed(cfg, 300 + i, s, rng)
-            for i, s in enumerate(LM_ENGINE_SEQS)]
+            for i, s in enumerate(seq_lens)]
     engine = ServingEngine(EngineConfig(max_batch=2, max_wait_ms=150.0))
     try:
         entry = engine.register_model(
-            "lm", cfg, params, input_key="tokens", input_dtype="int32",
-            partition=LM_P, integrity=IntegrityPolicy.full(k=2), device=dev)
+            name, cfg, params, input_key="tokens", input_dtype="int32",
+            partition=partition, integrity=IntegrityPolicy.full(k=2),
+            device=dev)
         torch.cuda.synchronize()
         KB.reset_launches()
         t = time.perf_counter()
-        futs = [engine.submit("lm", r) for r, _ in reqs]
+        futs = [engine.submit(name, r) for r, _ in reqs]
         got = [f.result(timeout=RESULT_S) for f in futs]
         wall = time.perf_counter() - t
         torch.cuda.synchronize()
@@ -2192,9 +2262,9 @@ def phase_lm_engine(cfg, params, dev, card):
         snap = engine.snapshot()
     finally:
         engine.close()
-    _no_owned_threads_left(before, "lm engine")
+    _no_owned_threads_left(before, f"{name} engine")
     assert all(r.ok for r in got), [r.error for r in got]
-    check_launches(launches, GENERATE_PATH, "lm engine path")
+    check_launches(launches, GENERATE_PATH, f"{name} engine path")
     assert snap["batches"] == 2, snap["batches"]
     ex = entry.executor
     seqs = {}
@@ -2206,15 +2276,15 @@ def phase_lm_engine(cfg, params, dev, card):
             for r, k, _ in group])
         pad = 2 if len(group) == 2 else 1
         toks = torch.cat([toks, torch.zeros((pad - len(group), seq))])
-        want = ex.infer({"tokens": toks.to(torch.int32)}, PRNGKey(SEED + 43),
+        want = ex.infer({"tokens": toks.to(torch.int32)}, PRNGKey(seed + 1),
                         jit=False).logits.float().cpu()
         for row, (r, k, resp) in enumerate(group):
             lg = PrivateInferenceServer.client_open(
                 k, resp.box, (seq, cfg.padded_vocab))
             if not np.array_equal(lg, want[row].numpy()):
-                raise AssertionError(f"lm engine: response {r.rid} differs "
-                                     f"from the eager infer")
-    print(f"{tag}: {len(reqs)} sealed requests of {list(LM_ENGINE_SEQS)} "
+                raise AssertionError(f"{name} engine: response {r.rid} "
+                                     f"differs from the eager infer")
+    print(f"{tag}: {len(reqs)} sealed requests of {list(seq_lens)} "
           f"tokens in {wall * 1e3:.1f} ms, {snap['batches']} batches "
           f"(buckets {snap['buckets']}), each response (tokens, "
           f"{cfg.padded_vocab}) bit-equal to the eager infer of its padded "
@@ -2651,6 +2721,380 @@ def phase_token_probe(cfg, params, dev, card):
           f"{ms / 1e3:.2f} s; {want} flash_attention launches")
 
 
+# -- the mixture-of-experts family: Qwen3-MoE-235B-A22B at full width -------
+
+MOE_ARCH = "qwen3_moe_235b"
+MOE_BLOCKS = 6                          # of 94: tier-1 (4) and 2 of tier-2
+MOE_OPS = 4                             # blinded ops a tier-1 block: q k v o
+MOE_INFER_SHAPE = (4, 1024)
+MOE_CAPTURE_SHAPE = (2, 32)
+MOE_ENGINE_SEQS = (32, 32, 128)         # two buckets of max_batch 2
+MOE_ORIGAMI_SHAPE, MOE_ORIGAMI_NEW = (2, 32), 8
+MOE_NO_DROP_SHAPE = (2, 256)            # sorted_grouped vs gshard at cf 16
+MOE_NO_DROP_TOL = 2e-2
+# a blinded op's 8-bit activations flip near-tied top-8 choices (the
+# router's 8th and 9th logits lie ~0.04 apart, the quantization moves them
+# by up to ~0.35), and a flip moves the capacity queues of its token group
+# (the drops of the other tokens): on the card 41% of the 4 x 1024 token
+# rows route differently in block 1 and 92% somewhere in blocks 1-4
+# (PERF.md). So the gates that compare with a float path hold the block-1
+# router logits, whose input only the attention sublayer's quantization
+# moves, to PREFILL_REL_BOUND, and the outputs to their bounds on the rows
+# routed alike in every block compared.
+
+
+def _moe_config():
+    """The published Qwen3-MoE-235B-A22B at every width, cut to
+    ``MOE_BLOCKS`` blocks (the config's 4 tier-1 blocks and 2 of tier-2)."""
+    return get_config(MOE_ARCH).replace(num_layers=MOE_BLOCKS)
+
+
+class _Routes:
+    """The router logits (tokens, E) and the experts (tokens, k) every
+    ``moe._route`` call computes while the block is entered, in call order
+    (a MoE forward routes once a block): the script wraps the module's
+    function for the duration of one call; the package has no switch for
+    it."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.module, self.inner = moe, moe._route
+        self.logits, self.experts = [], []
+
+    def __call__(self, p, x, cfg):
+        w, e, aux = self.inner(p, x, cfg)
+        self.logits.append((x.to(torch.float32) @ p["router"]["w"])
+                           .reshape(-1, cfg.moe.num_experts))
+        self.experts.append(e.reshape(-1, e.shape[-1]))
+        return w, e, aux
+
+    def __enter__(self):
+        self.module._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module._route = self.inner
+
+
+def _route_agreement(a, b, blocks, where):
+    """The first ``blocks`` routing calls of two paths (``_Routes``): (the
+    rows whose top-k expert sets agree in every one of them, a bool
+    tensor; how many rows first disagree in each block; the mean experts
+    a row keeps in each block; the block-1 router logits' rel err of ``a``
+    against ``b``). Fails unless that rel err is below
+    ``PREFILL_REL_BOUND`` and some row routes alike everywhere."""
+    agree, first, means = None, [], []
+    for ea, eb in zip(a.experts[:blocks], b.experts[:blocks]):
+        hits = (ea[:, :, None] == eb[:, None, :]).any(dim=-1).sum(dim=-1)
+        same = hits == ea.shape[-1]
+        before = agree if agree is not None else torch.ones_like(same)
+        first.append(int((before & ~same).sum()))
+        agree = before & same
+        means.append(hits.float().mean().item())
+    router_rel = _rel(a.logits[0], b.logits[0])
+    if not router_rel < PREFILL_REL_BOUND:
+        raise AssertionError(f"{where}: block-1 router logits rel err "
+                             f"{router_rel} (bound {PREFILL_REL_BOUND})")
+    if not agree.any():
+        raise AssertionError(f"{where}: no row routes alike in every block")
+    return agree, first, means, router_rel
+
+
+def phase_moe_layer(dev, card):
+    """One full-width MoE layer (128 experts, top-8, d 4096, bf16, seed 0):
+    ``sorted_grouped`` deterministic on 4 x 1024 tokens with no value read
+    back to the host (sync debug mode "error"), equal to ``gshard``
+    within 2e-2 x max on 2 x 256 tokens at capacity factor 16 (no drops;
+    the reference's test_sorted_equals_gshard_when_no_drops at full
+    width); the dropped assignments at 1.25 and the layer's time beside
+    its bound."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    tag = f"moe layer on {card}"
+    cfg = _moe_config()
+    m = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    p = L.init_params(MOE.moe_defs(cfg), gen, device=dev,
+                      dtype=torch.bfloat16)
+    B, S = MOE_INFER_SHAPE
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches, _, (y, aux) = counted(lambda: _no_sync(
+        lambda: MOE.moe_forward(p, x, cfg)))
+    assert all(n == 0 for n in launches.values()), launches
+    y2, aux2 = MOE.moe_forward(p, x, cfg)
+    if not (torch.equal(y, y2) and torch.equal(aux, aux2)):
+        raise AssertionError("moe layer: two runs of sorted_grouped differ")
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()
+    # assignments past their expert's capacity, group by group
+    T = B * S
+    G = MOE.token_groups(T)
+    C = MOE._capacity(T // G, cfg)
+    _, experts, _ = MOE._route(p, x.reshape(G, T // G, cfg.d_model), cfg)
+    counts = torch.zeros((G, m.num_experts), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, experts.reshape(G, -1),
+                        torch.ones_like(experts.reshape(G, -1)))
+    dropped = int(torch.clamp(counts - C, min=0).sum())
+
+    wide = cfg.replace(moe=dataclasses.replace(m, capacity_factor=16.0))
+    dense = wide.replace(moe=dataclasses.replace(wide.moe, dispatch="gshard"))
+    xs = x[:MOE_NO_DROP_SHAPE[0], :MOE_NO_DROP_SHAPE[1]]
+    ys, _ = MOE.moe_forward(p, xs, wide)
+    yg, _ = MOE.moe_forward(p, xs, dense)
+    err = (ys.float() - yg.float()).abs().max().item()
+    scale = yg.float().abs().max().item()
+    if not err <= MOE_NO_DROP_TOL * scale:
+        raise AssertionError(f"moe layer: sorted_grouped vs gshard max abs "
+                             f"err {err} > {MOE_NO_DROP_TOL} x {scale}")
+    del ys, yg
+    ms = cuda_ms(lambda: MOE.moe_forward(p, x, cfg), reps=10, warmup=2)
+    # bound: the experts' banks, the router and x in / y out once; the
+    # capacity rows' three expert products at the bf16 peak and the float32
+    # router at the CUDA cores' peak
+    rows = m.num_experts * G * C
+    nbytes = (3 * m.num_experts * cfg.d_model * m.d_ff_expert * 2
+              + cfg.d_model * m.num_experts * 4 + 2 * T * cfg.d_model * 2)
+    t_bytes = nbytes / BYTES_S * 1e3
+    t_ops = (rows * 3 * 2 * cfg.d_model * m.d_ff_expert / BF16_OPS_S
+             + 2 * T * cfg.d_model * m.num_experts / F32_OPS_S) * 1e3
+    print(f"{tag}: {m.num_experts} experts of {cfg.d_model}x"
+          f"{m.d_ff_expert}, top-{m.top_k}, bf16, seed {SEED} (set-up "
+          f"{setup_s:.2f} s): sorted_grouped on {B}x{S} tokens in {G} "
+          f"groups of capacity {C}: two runs bit-equal with no host sync; "
+          f"{dropped} of {T * m.top_k} assignments dropped at capacity "
+          f"factor {m.capacity_factor}; on {MOE_NO_DROP_SHAPE[0]}x"
+          f"{MOE_NO_DROP_SHAPE[1]} tokens at capacity factor 16 "
+          f"sorted_grouped vs gshard max abs err {err:.4g} (tol "
+          f"{MOE_NO_DROP_TOL} x {scale:.4g}); layer {ms:.4f} ms (CUDA "
+          f"events, median of 10), bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{nbytes / 1e9:.3f} GB in {t_bytes:.4f} ms, {rows} capacity rows "
+          f"in {t_ops:.4f} ms)")
+    del p, x, y, y2
+
+
+def _no_sync(fn):
+    """``fn()`` with the CUDA sync debug mode at "error": a call that
+    reads a value back to the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def phase_moe_infer(cfg, params, dev, card):
+    """The LM forward ``infer`` of Qwen3-MoE (6 blocks) on 4 x 1024 tokens
+    at p = 4 under full(k=2): blinded == trusted bit for bit, 16/16 ops
+    checked, exact launch counts, a bit-flipping device caught op by op,
+    the tier-1 boundary against the "split" plan's float one on the rows
+    whose routing agrees, the trusted forward at 2 x 32 captured as a CUDA
+    graph and replayed bit-equal; times and the device-busy share."""
+    from repro_torch.runtime.aot import CompileCache, GraphStep
+    tag = f"moe infer on {card}"
+    policy = IntegrityPolicy.full(k=2)
+    p = cfg.origami.tier1_layers
+    ex = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
+                         device=dev)
+    batch = {"tokens": _lm_tokens(cfg, MOE_INFER_SHAPE, SEED + 60)}
+    key = PRNGKey(SEED + 61)
+    n_ops = MOE_OPS * p
+    with _Routes() as routes:
+        launches, _, res = counted(lambda: ex.infer(batch, key))
+    check_launches(launches, GENERATE_PATH, "moe infer path")
+    want = {"blind_encode": n_ops, "limb_matmul_fused": n_ops,
+            "limb_fold": n_ops, "limb_matmul": 2 * n_ops,
+            "flash_attention": cfg.num_layers}
+    for name, n in want.items():
+        assert launches[name] == n, (name, launches[name], n)
+    rep, tele = res.integrity, res.telemetry
+    assert rep.n_ops == rep.n_checked == n_ops and rep.ok, rep
+    assert tele.calls == tele.device_matmuls == tele.verify_ops == n_ops
+    assert res.logits.shape == MOE_INFER_SHAPE + (cfg.padded_vocab,)
+    assert torch.isfinite(res.logits.float()).all()
+    t_launches, _, trusted = counted(lambda: ex.infer(batch, key,
+                                                      trusted=True))
+    check_launches(t_launches, TRUSTED_GENERATE_PATH, "trusted moe infer")
+    assert t_launches["limb_matmul"] == n_ops, t_launches
+    if not torch.equal(res.logits, trusted.logits):
+        raise AssertionError("moe infer: blinded logits differ from the "
+                             "trusted recompute")
+    del trusted
+    split = OrigamiExecutor(cfg, params, "split", p, device=dev)
+    with _Routes() as split_routes:
+        split_boundary = split.infer(batch).boundary
+    agree, first, means, router_rel = _route_agreement(
+        routes, split_routes, p, "moe infer routing")
+    n_bad = int((~agree).sum())
+    d = cfg.d_model
+    boundary_rel = _rel(res.boundary.reshape(-1, d)[agree],
+                        split_boundary.reshape(-1, d)[agree])
+    assert boundary_rel < PREFILL_REL_BOUND, boundary_rel
+    boundary_rel_all = _rel(res.boundary, split_boundary)
+    del split, split_boundary
+    bad = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
+                          fault=DishonestDevice(FaultSpec("bit_flip")),
+                          device=dev)
+    drep = bad.infer(batch, key).integrity
+    if not torch.equal(drep.failed, drep.corrupted):
+        raise AssertionError("moe infer bit_flip: failed != corrupted")
+    assert drep.n_corrupted == drep.n_failed == n_ops, drep
+    del bad
+
+    # the trusted forward as a CUDA graph: a MoE forward that read a value
+    # back to the host could not be captured
+    small = {"tokens": _lm_tokens(cfg, MOE_CAPTURE_SHAPE, SEED + 62)}
+    cap = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
+                          device=dev)
+    eager = cap.infer(small, key, trusted=True).logits
+    cache = CompileCache()
+    cap.attach_aot(cache)
+    cap_ms, first_replay = _timed(lambda: cap.infer(small, key,
+                                                    trusted=True))
+    replay = cap.infer(small, key, trusted=True)
+    graphs = [e for e in cap._executables.values()
+              if isinstance(e, GraphStep)]
+    stats = cache.stats()
+    assert len(graphs) == 1 and stats["compiles"] == 1, stats
+    assert stats["exec_fallbacks"] == 0, stats
+    if not (torch.equal(first_replay.logits, eager)
+            and torch.equal(replay.logits, eager)):
+        raise AssertionError("moe infer: the replayed trusted forward "
+                             "differs from the eager one")
+    replay_ms = cuda_ms(lambda: cap.infer(small, key, trusted=True),
+                        reps=10, warmup=1)
+    small_ms = cuda_ms(lambda: cap.infer(small, key, trusted=True,
+                                         jit=False), reps=10, warmup=1)
+    del cap, cache, graphs, first_replay, replay, eager
+    _free()
+
+    blinded_ms = cuda_ms(lambda: ex.infer(batch, key), reps=10, warmup=1)
+    trusted_ms = cuda_ms(lambda: ex.infer(batch, key, trusted=True),
+                         reps=10, warmup=1)
+    open_ms = cuda_ms(lambda: ex.reference(batch), reps=10, warmup=1)
+    share, tops = _busy_share(lambda: ex.infer(batch, key))
+    B, S = MOE_INFER_SHAPE
+    print(f"{tag}: {cfg.name} at full width, {cfg.num_layers} blocks, "
+          f"{B}x{S} tokens, tier-1 = blocks 1-{p}, full(k=2): blinded == "
+          f"trusted (logits {tuple(res.logits.shape)} bit-equal); checks "
+          f"{rep.n_checked}/{rep.n_ops}; bit_flip caught {drep.n_failed}/"
+          f"{drep.n_ops} op by op; tier-1 boundary rel err vs the split "
+          f"plan's float boundary {boundary_rel:.5f} (bound "
+          f"{PREFILL_REL_BOUND}) over the {int(agree.sum())} of "
+          f"{agree.numel()} token rows routed alike, {boundary_rel_all:.5f} "
+          f"over all; block-1 router logits rel err {router_rel:.5f} (bound "
+          f"{PREFILL_REL_BOUND}); {n_bad} rows route differently in tier-1 "
+          f"(first in blocks 1-{p}: {first}; experts kept of "
+          f"{cfg.moe.top_k}, mean a block: {[round(x, 4) for x in means]}); "
+          f"launches {launches}; trusted {t_launches}")
+    print(f"{tag}: trusted forward at {MOE_CAPTURE_SHAPE[0]}x"
+          f"{MOE_CAPTURE_SHAPE[1]} captured as a CUDA graph (first call "
+          f"{cap_ms:.1f} ms with the capture), replays bit-equal to the "
+          f"eager trusted infer: replayed {replay_ms:.2f} ms, eager "
+          f"{small_ms:.2f} ms (median of 10)")
+    print(f"{tag}: blinded infer {blinded_ms:.2f} ms, trusted "
+          f"{trusted_ms:.2f} ms, open float forward {open_ms:.2f} ms "
+          f"(median of 10); device-busy share of one blinded infer "
+          f"{'not measured' if share is None else f'{share:.4f}'}; top "
+          f"device ops: "
+          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in tops))
+    del ex, res
+
+
+def phase_moe_engine(cfg, params, dev, card):
+    """Qwen3-MoE in a ``ServingEngine`` (``input_key="tokens"``, max_batch
+    2): two sealed 32-token requests and one of 128 in two buckets, each
+    response bit-equal to an eager infer of its padded batch."""
+    _serve_lm_engine("moe", cfg, params, cfg.origami.tier1_layers,
+                     MOE_ENGINE_SEQS, SEED + 64, dev, card)
+
+
+def phase_moe_generate_origami(cfg, params, dev, card):
+    """``generate_origami`` of Qwen3-MoE on a 2 x 32 prompt with 8 new
+    tokens: one count per runtime op, exact launches; the decode-plan
+    paths refuse MoE; one tiered step of the prompt's 64 tokens within
+    0.15 of the open float step on the rows whose routing agrees."""
+    from repro_torch.core import plan as PL
+    from repro_torch.core.blinding import BlindingSpec
+    from repro_torch.core.slalom import SlalomContext
+    from repro_torch.runtime.generate import (generate_origami,
+                                              tiered_decode_step)
+    tag = f"moe generate_origami on {card}"
+    p = cfg.origami.tier1_layers
+    prompt = _lm_tokens(cfg, MOE_ORIGAMI_SHAPE, SEED + 66)
+    launches, ms, res = counted(lambda: generate_origami(
+        params, prompt, cfg, max_new_tokens=MOE_ORIGAMI_NEW, partition=p,
+        device=dev))
+    check_launches(launches, ORIGAMI_PATH, "moe generate_origami path")
+    steps = MOE_ORIGAMI_SHAPE[1] + MOE_ORIGAMI_NEW - 1
+    n_ops = MOE_OPS * p * steps
+    tele = res.telemetry
+    assert tele.calls == tele.device_matmuls == tele.enclave_matmuls \
+        == n_ops, tele
+    for name in ORIGAMI_PATH:
+        assert launches[name] == n_ops, (name, launches[name], n_ops)
+    assert res.tokens.shape == (MOE_ORIGAMI_SHAPE[0], steps + 1)
+    assert torch.equal(res.tokens[:, :MOE_ORIGAMI_SHAPE[1]], prompt)
+
+    reason = PL._DECODE_EXCLUSIONS["moe"]
+    refusals = {
+        "private_generate": lambda: private_generate(
+            params, prompt, cfg, max_new_tokens=2, device=dev),
+        "attach_decode_plan": lambda: OrigamiExecutor(
+            cfg, params, "origami", p, device=dev).attach_decode_plan()}
+    for name, call in refusals.items():
+        try:
+            call()
+        except PL.ScanExclusion as e:
+            assert reason in str(e), str(e)
+        else:
+            raise AssertionError(f"{name} ran a MoE model: no ScanExclusion")
+
+    # one tiered step against the open float step: every prompt token at
+    # position 0, a batch of 64 independent rows
+    token = prompt.reshape(-1, 1)
+    n = token.shape[0]
+    with torch.no_grad():
+        with _Routes() as open_routes:
+            open_step, _ = M.decode_step(params, token, M.init_caches(
+                cfg, n, 8, device=dev), 0, cfg)
+        with _Routes() as priv_routes:
+            priv_step, _ = tiered_decode_step(
+                params, token, M.init_caches(cfg, n, 8, device=dev), 0, cfg,
+                SlalomContext(PRNGKey(7), BlindingSpec()), p)
+    agree, first, means, router_rel = _route_agreement(
+        priv_routes, open_routes, cfg.num_layers,
+        "moe generate_origami step routing")
+    n_bad = int((~agree).sum())
+    rel = _rel(priv_step[agree], open_step[agree])
+    assert rel < 0.15, rel
+    rel_all = _rel(priv_step, open_step)
+    open_ms, opened = _timed(lambda: generate(
+        params, prompt, cfg, max_new_tokens=MOE_ORIGAMI_NEW, device=dev))
+    assert opened.tokens.shape == res.tokens.shape
+    print(f"{tag}: {MOE_ORIGAMI_SHAPE[0]}x{MOE_ORIGAMI_SHAPE[1]} prompt, "
+          f"{MOE_ORIGAMI_NEW} new, tier-1 = blocks 1-{p}: {steps} tiered "
+          f"steps in {ms:.1f} ms ({ms / steps:.2f} ms a step); telemetry "
+          f"calls {tele.calls} == {MOE_OPS} x {p} x {steps}; "
+          f"private_generate and attach_decode_plan refuse MoE "
+          f"(ScanExclusion); rel err of one tiered step vs the open float "
+          f"step {rel:.5f} (bound 0.15) over the {int(agree.sum())} of {n} "
+          f"rows routed alike, {rel_all:.5f} over all; block-1 router logits "
+          f"rel err {router_rel:.5f} (bound {PREFILL_REL_BOUND}); {n_bad} "
+          f"rows route differently (first in blocks 1-{cfg.num_layers}: "
+          f"{first}; "
+          f"experts kept of {cfg.moe.top_k}, mean a block: "
+          f"{[round(x, 4) for x in means]}); "
+          f"open generate of the same prompt {open_ms:.1f} ms; launches "
+          f"{launches}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2689,6 +3133,23 @@ def main():
     phase_generate_origami(lm_cfg, lm_params, dev, card)
     phase_token_probe(lm_cfg, lm_params, dev, card)
     del lm_params
+    _free()
+    phase_moe_layer(dev, card)
+    _free()
+    moe_cfg = _moe_config()
+    t0 = time.perf_counter()
+    moe_params = M.init_params(moe_cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"moe: {moe_cfg.name}, {moe_cfg.num_layers} of 94 blocks at full "
+          f"width, {sum(t.numel() for t in _leaves(moe_params))} params "
+          f"(bf16, router float32, seed {SEED}) in "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    phase_moe_infer(moe_cfg, moe_params, dev, card)
+    _free()
+    phase_moe_engine(moe_cfg, moe_params, dev, card)
+    phase_moe_generate_origami(moe_cfg, moe_params, dev, card)
+    del moe_params
     # each kernel's launches, read on the main path that uses it
     launches = {name: (unfused_launches if name in READ_ON_UNFUSED
                        else fused_launches)[name] for name in KB.KERNELS}

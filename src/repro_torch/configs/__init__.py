@@ -1,4 +1,5 @@
-"""Config registry of the port: the paper's two CNNs and the dense LM.
+"""Config registry of the port: the paper's two CNNs, the dense LM and
+the two mixture-of-experts LMs.
 
 ``get_config(name)`` returns the published configuration;
 ``get_smoke(name)`` a reduced same-family one for CPU tests.
@@ -7,12 +8,14 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, OrigamiConfig
+from repro_torch.configs.base import ModelConfig, MoEConfig, OrigamiConfig
 
 PAPER_MODELS = ("vgg16", "vgg19")
-ARCHS = ("smollm_135m",)
+ARCHS = ("smollm_135m", "qwen3_moe_235b", "arctic_480b")
 ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19",
-           "smollm-135m": "smollm_135m"}
+           "smollm-135m": "smollm_135m",
+           "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+           "arctic-480b": "arctic_480b"}
 
 
 def _module(name: str):
@@ -31,5 +34,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "PAPER_MODELS", "ModelConfig", "OrigamiConfig",
-           "get_config", "get_smoke"]
+__all__ = ["ARCHS", "PAPER_MODELS", "ModelConfig", "MoEConfig",
+           "OrigamiConfig", "get_config", "get_smoke"]

@@ -3,11 +3,13 @@
 same order and with the same defaults, so ``to_json()`` — which the
 enclave measurement hashes — is identical for the same model.
 
-The mixture-of-experts, latent-attention and state-space sub-configs
-belong to language-model families this port does not carry yet; their
-fields stay (as ``None``) to keep the JSON identical. The properties
-(``resolved_head_dim``, ``padded_vocab``) are not fields, so they do not
-enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
+``MoEConfig`` copies the reference's fields, order and defaults: the
+mixture-of-experts family (models/moe.py) reads it, and ``to_json()``
+nests it as the reference does. The latent-attention and state-space
+sub-configs belong to language-model families this port does not carry
+yet; their fields stay (as ``None``) to keep the JSON identical. The
+properties (``resolved_head_dim``, ``padded_vocab``) are not fields, so
+they do not enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
 (optim/adamw.py) reads it.
 """
 from __future__ import annotations
@@ -16,6 +18,21 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # Arctic-style dense residual FFN running in parallel with the experts.
+    dense_residual_d_ff: int = 0
+    # "gshard" = dense one-hot dispatch (baseline); "sorted" = argsort +
+    # capacity buffers; "sorted_grouped" = the sorted dispatch within
+    # token groups (models/moe.py).
+    dispatch: str = "gshard"
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -47,7 +64,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # this port runs "cnn" and "dense"
+    family: str                    # this port runs "cnn", "dense", "moe"
     num_layers: int
     d_model: int
     num_heads: int
@@ -63,7 +80,7 @@ class ModelConfig:
     norm: str = "rmsnorm"
     activation: str = "silu"
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     mla: Optional[Any] = None
     ssm: Optional[Any] = None
     hybrid_attn_every: int = 0

@@ -28,13 +28,20 @@ derives material from the session key on the host (no precompute cache,
 or a "sampled" Freivalds policy, whose check decisions are host draws).
 Without an attached cache ``infer`` runs eagerly.
 
-For the dense LM, ``infer`` on {"tokens": (B, S)} is the forward over
-every position, and the executor runs private autoregressive decode
-(runtime/generate.py): ``attach_decode_plan`` adopts a DecodePlan,
+For an LM (the dense and the mixture-of-experts families), ``infer`` on
+{"tokens": (B, S)} is the forward over every position. A MoE block's
+experts and router are not ``layers.dense`` calls: they run as plain
+float ops in every segment (in tier-1 on the enclave's side, as in the
+reference), and only its attention projections (and Arctic's
+dense-residual FFN) are blinded. For the dense LM the executor also runs
+private autoregressive decode (runtime/generate.py):
+``attach_decode_plan`` adopts a DecodePlan,
 ``prefill_session`` walks the prompt through the base plan's segments
 (every tier-1 op blinded with its own key, ``step`` 0) and
 ``decode_once`` walks one token through the scan segments (``step`` = the
 token's position), its factors from a TokenSlotRing slot or derived live.
+A MoE executor has no decode plan: ``attach_decode_plan`` raises
+plan.ScanExclusion with the reference's reason.
 With a CompileCache attached, the trusted prompt pass and the slot-fed
 and trusted token steps replay CUDA graphs keyed on the decode plan's
 digest (``warm_decode_aot`` captures them ahead of the first request).

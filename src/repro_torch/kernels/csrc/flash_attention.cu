@@ -42,15 +42,24 @@
 // copies (source size 0) and never stored or seen. The statistics are f32 in
 // the exp2 domain (scores scaled by log2(e) / sqrt(D), exp2f). D = 64 takes
 // ~160 registers a thread, so one 384-thread CTA an SM; q blocks of 32
-// (two CTAs an SM) measured the same.
+// (two CTAs an SM) measured the same. D = 128 (Qwen3-MoE, Arctic) holds
+// twice the output tiles and Q fragments (64 + 32 registers a thread beside
+// the 32 of S), more than the ~168 a thread that 384 threads leave, so its
+// CTA holds at most 2 heads (256 threads, up to 255 registers a thread):
+// 2 x 64 q rows and two K/V stages take 104,448 bytes of shared memory. At
+// Qwen's 16 query heads a KV head a CTA holds 2 heads at either width.
 //
 // float32: the CUDA cores (its tolerance, 2e-5, rules out bf16 and TF32
 // operands; at the prefill shape it takes 0.56 ms against 0.90 ms for
 // scaled_dot_product_attention in float32 on an H100 80GB HBM3 at 700 W).
 // One CTA per (q block of 64 rows, group of up to 4 query heads of
 // one KV head, batch); a thread owns one (row, head) pair with its q and f32
-// accumulator in registers; each 64-key K/V tile is staged once in shared
-// memory for all heads; the online softmax advances in chunks of 16 keys.
+// accumulator in registers; each 64-key K/V tile is staged once in dynamic
+// shared memory for all heads (64 KB at D = 128, past the 48 KB a static
+// array may take); the online softmax advances in chunks of 16 keys. At
+// D = 128 the thread's q and accumulator (256 floats) exceed the 255
+// registers a thread may hold, so they spill to local memory: a sweep-only
+// dtype, its spill bytes printed by the build line.
 //
 // Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
 // the first tile always holds key 0, which every row sees, so no exp argument
@@ -75,7 +84,9 @@ struct Strides {
 
 // ---- bf16: tensor cores ----
 
-constexpr int MMA_MAX_GB = 3;               // query heads a CTA
+// query heads a CTA: 3 at D <= 64, 2 at D = 128 (registers, above)
+template <int D>
+constexpr int mma_max_gb() { return D >= 128 ? 2 : 3; }
 constexpr int WARPS_PER_HEAD = BQ / 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -119,7 +130,7 @@ __device__ __forceinline__ void load_kv(char* kbuf, char* vbuf, const __nv_bfloa
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(MMA_MAX_GB * WARPS_PER_HEAD * 32, 1)
+__global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
     flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -314,8 +325,9 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
                          int Skv, int H, int G, int GB, Strides qs, Strides ks, Strides vs,
                          float scale) {
   constexpr int D4 = D / 4;
-  __shared__ float4 k_tile[BK][D4];
-  __shared__ float4 v_tile[BK][D4];
+  extern __shared__ float4 kv_tiles[];   // K then V: BK rows of D4 float4
+  float4* k_tile = kv_tiles;
+  float4* v_tile = kv_tiles + BK * D4;
 
   const int groups = G / GB;
   const int b = blockIdx.z;
@@ -370,7 +382,7 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
         float dot = 0.f;
 #pragma unroll
         for (int d4 = 0; d4 < D4; ++d4) {
-          const float4 kk = k_tile[c + jj][d4];
+          const float4 kk = k_tile[(c + jj) * D4 + d4];
           dot = fmaf(qv[4 * d4], kk.x, dot);
           dot = fmaf(qv[4 * d4 + 1], kk.y, dot);
           dot = fmaf(qv[4 * d4 + 2], kk.z, dot);
@@ -395,7 +407,7 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
       for (int jj = 0; jj < CHUNK; ++jj) {
 #pragma unroll
         for (int d4 = 0; d4 < D4; ++d4) {
-          const float4 vv = v_tile[c + jj][d4];
+          const float4 vv = v_tile[(c + jj) * D4 + d4];
           acc[4 * d4] = fmaf(p[jj], vv.x, acc[4 * d4]);
           acc[4 * d4 + 1] = fmaf(p[jj], vv.y, acc[4 * d4 + 1]);
           acc[4 * d4 + 2] = fmaf(p[jj], vv.z, acc[4 * d4 + 2]);
@@ -427,7 +439,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
                 int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
                 cudaStream_t stream) {
   const int G = H / KH;
-  const int GB = heads_per_cta(G, MMA_MAX_GB);
+  const int GB = heads_per_cta(G, mma_max_gb<D>());
   const int n_qblocks = (Sq + BQ - 1) / BQ;
   const int n_heads_b = B * KH * (G / GB);            // (batch, head group) pairs
   const long long blocks = static_cast<long long>(n_qblocks) * n_heads_b;
@@ -435,7 +447,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   auto kernel = flash_fwd_bf16_mma_kernel<D, CAUSAL>;
   // the limit is per device: set it on the current one at every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes(MMA_MAX_GB));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes(mma_max_gb<D>()));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, Smem<D>::bytes(GB),
            stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
@@ -452,7 +464,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const int GB = heads_per_cta(G, MAX_GB);
   const dim3 grid(static_cast<unsigned>((Sq + BQ - 1) / BQ),
                   static_cast<unsigned>(KH * (G / GB)), static_cast<unsigned>(B));
-  flash_fwd_f32_kernel<D, CAUSAL><<<grid, BQ * GB, 0, stream>>>(
+  auto kernel = flash_fwd_f32_kernel<D, CAUSAL>;
+  constexpr int smem = 2 * BK * D * static_cast<int>(sizeof(float));
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, BQ * GB, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), Sq, Skv, H, G, GB, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
@@ -499,6 +516,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       return dispatch<32>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
     case 64:
       return dispatch<64>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
+    case 128:
+      return dispatch<128>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

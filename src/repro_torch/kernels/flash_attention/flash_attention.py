@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import build as KB
 from repro_torch.kernels.flash_attention.ref import mha_ref
 
-HEAD_DIMS = (32, 64)            # the kernel's compiled head widths
+HEAD_DIMS = (32, 64, 128)       # the kernel's compiled head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

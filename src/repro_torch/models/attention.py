@@ -1,4 +1,5 @@
-"""Attention of the dense LM: GQA with RoPE, prefill and decode paths.
+"""Attention of the dense and MoE LMs: GQA with RoPE, prefill and decode
+paths.
 
 Port of the GQA part of ``repro/models/attention.py``. Projections work on
 the flat ``(..., n_heads * head_dim)`` layout and go through
@@ -9,8 +10,9 @@ k and v (B, S, KH, D), a layer's ``KVCache`` (B, max_seq, KH, D).
 ``sdpa`` is the prompt-side attention. The reference serves it with a
 plain or a chunked online-softmax core in jnp; both compute the function
 of the flash-attention kernel, so here every call goes to
-``flash_attention_fwd``: on a CUDA tensor the hand-written kernel, on a
-CPU tensor its plain version. The reference pads an irregular key length
+``flash_attention_fwd``: on a CUDA tensor the hand-written kernel (head
+widths 32 and 64 of SmolLM, 128 of Qwen3-MoE and Arctic), on a CPU
+tensor its plain version. The reference pads an irregular key length
 to a tile multiple and masks the padded keys; the kernel masks a ragged
 length itself, so such calls go to it unpadded. Sliding windows and query
 offsets are not ported. ``decode_sdpa`` (one query

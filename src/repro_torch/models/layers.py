@@ -2,9 +2,12 @@
 
 Port of ``repro/models/layers.py``: the dense / conv / pool part the CNN
 path runs and the LM part (RMS/layer norm in float32, embedding, the
-activations, rotary position embedding), the cross-entropy loss, and
-``init_params_keyed``, the reference's initializer driven by a jax-style
-key. ``conv2d`` pads as XLA's SAME does for any stride and kernel size.
+activations, rotary position embedding), the cross-entropy loss,
+``param_count`` and ``init_params_keyed``, the reference's initializer
+driven by a jax-style key. The stacking axes ("layers", and "experts" of
+a MoE bank) stay out of a leaf's fan-in, and a leaf's own dtype (the
+float32 norms and MoE router) survives the model dtype. ``conv2d`` pads
+as XLA's SAME does for any stride and kernel size.
 Public layouts are the reference's: NHWC activations, HWIO conv weights,
 (d_in, d_out) dense weights, (..., seq, heads, head_dim) rope inputs.
 ``dense_impl`` / ``conv_impl`` are the override hooks through which the
@@ -95,6 +98,11 @@ def init_params_keyed(key, defs, dtype: torch.dtype = torch.float32,
         return (prng.normal(k, d.shape, device=device) * scale).to(dt)
 
     return tree_map(build, defs)
+
+
+def param_count(defs) -> int:
+    """Elements of every leaf of a definition tree (nothing allocated)."""
+    return sum(math.prod(d.shape) for d in tree_leaves(defs))
 
 
 def dense_def(d_in: int, d_out: int, axes=("embed", "ffn"),

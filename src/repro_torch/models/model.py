@@ -1,17 +1,19 @@
-"""Top-level LM API of the dense family: config -> init / forward /
-prefill / decode.
+"""Top-level LM API of the dense and mixture-of-experts families: config
+-> init / forward / prefill / decode.
 
-Port of the dense part of ``repro/models/model.py``. Parameters are a
-nested dict of tensors with the reference's tree and layouts: block leaves
-are stacked (a leading layer dim), the KV cache is ``KVCache`` of
+Port of the dense and MoE part of ``repro/models/model.py``. Parameters
+are a nested dict of tensors with the reference's tree and layouts: block
+leaves are stacked (a leading layer dim; a MoE expert bank is
+(L, E, d, f), its router float32), the KV cache is ``KVCache`` of
 (L, B, max_seq, KH, D) tensors, activations are (B, S, d). The
 reference's ``lax.scan`` over blocks is a Python loop here, so the
 ``*_unrolled`` walks (which the reference keeps for per-op addressable
 tier-1 traces) are the same functions as their scanned names.
 
-``apply_range``/``prefill_range``/``decode_range`` run blocks [lo, hi) so
-the Origami executor can place tier-1 under the Slalom hook and run
-tier-2 in the clear (core/origami.py). Decode writes each token's K/V into
+``apply_range``/``prefill_range``/``decode_range`` run blocks [lo, hi)
+(``apply_range`` sums the blocks' aux losses) so the Origami executor
+can place tier-1 under the Slalom hook and run tier-2 in the clear
+(core/origami.py). Decode writes each token's K/V into
 the caches in place and returns them.
 """
 from __future__ import annotations
@@ -53,6 +55,21 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda"):
                          dtype=torch_dtype(cfg.dtype))
 
 
+def count_params_analytic(cfg: ModelConfig) -> int:
+    return L.param_count(model_defs(cfg))
+
+
+def active_params_analytic(cfg: ModelConfig) -> int:
+    """Activated params per token (MoE: top_k of num_experts)."""
+    total = count_params_analytic(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    inactive = cfg.num_layers * (m.num_experts - m.top_k) * per_expert
+    return total - inactive
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The reference's parameter tree as numpy arrays -> tensors on
     ``device``, each in its definition's dtype. JAX's bf16 leaves reach
@@ -84,8 +101,8 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 
 def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
-    """The embedding of one decode step's tokens (B, 1); the dense family
-    carries positions in RoPE, so ``pos`` adds nothing here."""
+    """The embedding of one decode step's tokens (B, 1); the dense and MoE
+    families carry positions in RoPE, so ``pos`` adds nothing here."""
     return embed_tokens(params, token, cfg)
 
 

@@ -1,11 +1,12 @@
-"""Decoder stack of the dense LM family.
+"""Decoder stack of the dense and mixture-of-experts LM families.
 
-Port of the dense part of ``repro/models/transformer.py``: the gated MLP,
-the pre-norm decoder block's forward / prefill / decode, stacked parameter
-definitions and ``lm_defs``. The reference scans blocks with ``lax.scan``
-over stacked parameters; the port keeps the stacked layout (a leading
-layer dim on every block leaf) and walks it with a Python loop
-(models/model.py). Mixture-of-experts, latent attention and the other
+Port of the dense and MoE part of ``repro/models/transformer.py``: the
+gated MLP, the pre-norm decoder block's forward / prefill / decode (a MoE
+block runs ``models/moe.py`` in the MLP's place and returns its aux
+loss), stacked parameter definitions and ``lm_defs``. The reference scans
+blocks with ``lax.scan`` over stacked parameters; the port keeps the
+stacked layout (a leading layer dim on every block leaf) and walks it
+with a Python loop (models/model.py). Latent attention and the other
 families wait (ROADMAP Queue 1 items 11-12).
 """
 from __future__ import annotations
@@ -18,12 +19,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def _supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa":
+    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa":
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense GQA family, not "
+            f"{cfg.name}: the port runs the dense and MoE GQA families, not "
             f"{cfg.family}/{cfg.attention} (ROADMAP Queue 1 items 11-12)")
 
 
@@ -53,22 +55,34 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def decoder_block_defs(cfg: ModelConfig):
     _supported(cfg)
-    return {"ln1": L.norm_def(cfg.d_model, cfg.norm), "attn": A.gqa_defs(cfg),
-            "ln2": L.norm_def(cfg.d_model, cfg.norm), "mlp": mlp_defs(cfg)}
+    d = {"ln1": L.norm_def(cfg.d_model, cfg.norm), "attn": A.gqa_defs(cfg),
+         "ln2": L.norm_def(cfg.d_model, cfg.norm)}
+    if cfg.moe is not None:
+        d["moe"] = MOE.moe_defs(cfg)
+    else:
+        d["mlp"] = mlp_defs(cfg)
+    return d
+
+
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig):
+    """The block's feed-forward: (y, aux loss; 0.0 for a dense block)."""
+    if cfg.moe is not None:
+        return MOE.moe_forward(p["moe"], x, cfg)
+    return mlp_forward(p["mlp"], x, cfg), 0.0
 
 
 def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
     h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
-    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
-    return h + y, 0.0
+    y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + y, aux
 
 
 def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
     a, cache = A.gqa_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                              cfg)
     h = x + a
-    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
-    return h + y, cache, 0.0
+    y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + y, cache, aux
 
 
 def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
@@ -76,7 +90,7 @@ def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
     a, cache = A.gqa_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                             cache, pos, cfg)
     h = x + a
-    y = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    y, _ = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
     return h + y, cache
 
 

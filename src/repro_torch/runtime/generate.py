@@ -1,7 +1,11 @@
 """Autoregressive generation: the open float path and private decode under
 the Origami two-tier protocol.
 
-Port of ``repro/runtime/generate.py`` for the dense family.
+Port of ``repro/runtime/generate.py`` for the dense and mixture-of-experts
+families: ``generate`` and ``generate_origami`` take both, as the
+reference's do; ``private_generate`` and ``GenerateExecutor`` need a
+decode plan, which refuses MoE (plan.ScanExclusion, the reference's
+reason), so they run the dense family only, as in the reference.
 ``private_generate`` prefills the prompt through the base plan's segments
 (tier-1 blinded op by op and Freivalds-checked, tier-2 open), then walks
 each token through the decode plan's scan segments, its tier-1 pads and
@@ -60,11 +64,15 @@ def _sample(logits: torch.Tensor, key, temperature: float,
                                                           temperature))
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+# the families of the reference's generate and generate_origami that the
+# port carries (the rest wait, ROADMAP Queue 1 item 12)
+FAMILIES = ("dense", "moe")
+
+
+def _family_in(cfg: ModelConfig, families) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(f"{cfg.family}: the port generates for "
-                                  f"the dense family (ROADMAP Queue 1 "
-                                  f"item 12)")
+                                  f"{families} (ROADMAP Queue 1 item 12)")
 
 
 def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
@@ -72,7 +80,7 @@ def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
              device="cuda") -> GenerationResult:
     """Open (non-private) generation: prefill, then one decode step per
     new token, all in the clear on ``device``."""
-    _dense_only(cfg)
+    _family_in(cfg, FAMILIES)
     dev = OG.resolve_device(device)
     key = key if key is not None else prng.PRNGKey(0)
     params = OG.params_to_device(params, dev)
@@ -106,7 +114,7 @@ def generate_origami(params, prompt, cfg: ModelConfig, *,
     draws its own pad (the reference's scanned step shares one pad among
     a step's layers, ROADMAP Queue 3); no policy verifies them, as in the
     reference. ``telemetry`` counts every op."""
-    _dense_only(cfg)
+    _family_in(cfg, FAMILIES)
     dev = OG.resolve_device(device)
     p = partition if partition is not None else cfg.origami.tier1_layers
     key = key if key is not None else prng.PRNGKey(0)

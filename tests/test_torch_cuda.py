@@ -236,8 +236,9 @@ def test_tensor_core_kernels_in_sass(dev):
             if any(k in n for k in ("limb_matmul_mma_kernel",
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
-    # the fold has two tilings, one kernel each
-    assert len(flash) == 4 and len(limb) == 4, sorted(bodies)
+    # flash: head widths 32, 64 and 128, causal and not; the fold has two
+    # tilings, one kernel each
+    assert len(flash) == 6 and len(limb) == 4, sorted(bodies)
     for body in flash:
         assert re.search(r"\bHG?MMA\b", body)
         assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
@@ -425,6 +426,12 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     (2, 100, 100, 6, 3, 32, True),        # D 32, causal, ragged
     (3, 1, 1, 9, 3, 64, True),            # Sq = 1
     (2, 1, 50, 9, 3, 64, True),           # Sq = 1 against 50 keys
+    (4, 1024, 1024, 64, 4, 128, True),    # the Qwen3-MoE prefill shape
+    (4, 1024, 1024, 64, 4, 128, False),   # D 128, non-causal
+    (4, 1000, 1000, 64, 4, 128, True),    # D 128, ragged
+    (2, 130, 130, 14, 2, 128, False),     # D 128, G = 7, ragged
+    (1, 200, 70, 16, 1, 128, True),       # D 128, causal, Sq > Skv
+    (2, 1, 50, 16, 2, 128, True),         # D 128, Sq = 1
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                        D, causal):
@@ -860,3 +867,69 @@ def test_categorical_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(
             prng.uniform(key, (1000,), 1e-30, 1e3, device=dev).cpu().numpy(),
             prng.uniform(key, (1000,), 1e-30, 1e3).numpy())
+
+
+@pytest.mark.parametrize("dispatch", ["gshard", "sorted", "sorted_grouped"])
+def test_moe_forward_on_card(dev, dispatch):
+    """The MoE layer (Qwen3-MoE smoke widths, bf16) on the card: no value
+    read back to the host (sync debug mode "error"), two runs bit-equal,
+    within the bf16 tolerance of the same layer on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cfg = get_smoke("qwen3_moe_235b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    gen = torch.Generator().manual_seed(0)
+    params = L.init_params(MOE.moe_defs(cfg), gen, device="cpu",
+                           dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    on_card = {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                   else {kk: vv.to(dev) for kk, vv in v.items()})
+               for k, v in params.items()}
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = MOE.moe_forward(on_card, xd, cfg)
+        y2, aux2 = MOE.moe_forward(on_card, xd, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    want, want_aux = MOE.moe_forward(params, x, cfg)
+    w = want.float().numpy()
+    np.testing.assert_allclose(y.float().cpu().numpy(), w, rtol=0,
+                               atol=3e-2 * np.abs(w).max())
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-4)
+
+
+def test_moe_infer_on_card(dev):
+    """The Qwen3-MoE smoke LM forward on the card: blinded == trusted bit
+    for bit, 4 ops a tier-1 block checked, the attention (head width 32)
+    through the flash kernel; the trusted forward captured as a CUDA graph
+    replays bit-equal to the eager one."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.models import model as M
+    from repro_torch.runtime import aot as AOT
+    cfg = get_smoke("qwen3_moe_235b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                              dispatch="sorted_grouped"))
+    params = M.init_params(cfg, 0, device="cpu")
+    ex = OrigamiExecutor(cfg, params, "origami", 2,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+    n, blinded = _counted(lambda: ex.infer({"tokens": tokens}))
+    trusted = ex.infer({"tokens": tokens}, trusted=True)
+    assert torch.equal(blinded.logits, trusted.logits)
+    assert blinded.integrity.n_checked == blinded.integrity.n_ops == 8
+    assert blinded.integrity.ok
+    assert n["flash_attention"] == cfg.num_layers
+    assert n["blind_encode"] == n["limb_matmul_fused"] == n["limb_fold"] == 8
+    ex.attach_aot(AOT.CompileCache())
+    replay = ex.infer({"tokens": tokens}, trusted=True)
+    assert isinstance(next(iter(ex._executables.values())), AOT.GraphStep)
+    assert torch.equal(replay.logits, trusted.logits)

@@ -9,7 +9,10 @@ the JAX reference on the CPU, on the same numpy inputs.
   the output, 2^-8 relative, on values of order 1);
 - ``sdpa`` against the reference's on both of its cores (the plain one
   for short sequences, the chunked online softmax above 512 queries);
-- ``decode_sdpa`` against the reference's.
+- ``decode_sdpa`` against the reference's;
+- head width 128 (Qwen3-MoE and Arctic) with 16 and 7 query heads a KV
+  head: the plain version against the interpret-mode kernel and
+  ``mha_ref``, ``sdpa`` against the reference's on both cores.
 """
 import numpy as np
 import pytest
@@ -113,6 +116,47 @@ def test_sdpa_matches_reference_on_both_cores(S, tdt, jdt, tol):
     """S = 64 takes the reference's plain core, S = 1024 its chunked
     online softmax (512-query chunks); both are the port's one function."""
     q, k, v = _qkv(np.random.default_rng(S), 1, S, S, 9, 3, 64)
+    got = A.sdpa(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=True)
+    want = np.asarray(JA.sdpa(_j(q, jdt), _j(k, jdt), _j(v, jdt),
+                              causal=True), np.float32)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                               rtol=tol, atol=tol)
+
+
+# (B, S, H, KH) at head width 128: G = 16 (Qwen3-MoE's 64 / 4 heads, cut
+# to one KV head) and G = 7 (Arctic's 56 / 8, cut to two)
+D128_HEADS = [(1, 128, 16, 1), (2, 128, 14, 2)]
+
+
+@pytest.mark.parametrize("B,S,H,KH", D128_HEADS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tdt,jdt,tol", [
+    (torch.float32, jnp.float32, F32_TOL),
+    (torch.bfloat16, jnp.bfloat16, BF16_TOL)])
+def test_plain_head_dim_128_matches_interpret_kernel(B, S, H, KH, causal,
+                                                     tdt, jdt, tol):
+    q, k, v = _qkv(np.random.default_rng(H + KH), B, S, S, H, KH, 128)
+    got = flash_attention_plain(_t(q, tdt), _t(k, tdt), _t(v, tdt),
+                                causal=causal)
+    assert got.dtype == tdt and got.shape == (B, S, H, 128)
+    kern = np.asarray(flash_attention(_j(q, jdt), _j(k, jdt), _j(v, jdt),
+                                      causal=causal, bq=64, bk=64,
+                                      impl="interpret"), np.float32)
+    want = np.asarray(jmha_ref(_j(q, jdt), _j(k, jdt), _j(v, jdt),
+                               causal=causal), np.float32)
+    got = got.to(torch.float32).numpy()
+    np.testing.assert_allclose(got, kern, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,KH", [(b, h, kh) for b, _, h, kh in D128_HEADS])
+@pytest.mark.parametrize("S", [64, 1024])
+@pytest.mark.parametrize("tdt,jdt,tol", [
+    (torch.float32, jnp.float32, F32_TOL),
+    (torch.bfloat16, jnp.bfloat16, BF16_TOL)])
+def test_sdpa_head_dim_128_matches_reference(B, H, KH, S, tdt, jdt, tol):
+    q, k, v = _qkv(np.random.default_rng(S + H), B, S, S, H, KH, 128)
     got = A.sdpa(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=True)
     want = np.asarray(JA.sdpa(_j(q, jdt), _j(k, jdt), _j(v, jdt),
                               causal=True), np.float32)

@@ -56,7 +56,9 @@ def test_port_files_exist():
                    "runtime/engine.py", "runtime/chaos.py",
                    "launch/__init__.py", "launch/serve.py",
                    "optim/adamw.py", "privacy/cgan.py",
-                   "privacy/reconstruct.py", "core/tree.py"):
+                   "privacy/reconstruct.py", "core/tree.py",
+                   "models/moe.py", "configs/qwen3_moe_235b.py",
+                   "configs/arctic_480b.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
