@@ -2,10 +2,12 @@
 serving, the serving engine over VGG-16 and VGG-19, the c-GAN adversary
 and Algorithm 1 with the partition they choose, SmolLM-135M: private
 token generation, the LM forward, engine-served LM requests and token
-streams, sampling, ``generate_origami`` and the token-recovery probe, and
+streams, sampling, ``generate_origami`` and the token-recovery probe,
 Qwen3-MoE-235B-A22B at full width: its MoE layer, the LM forward,
-engine-served requests and ``generate_origami`` — and hold every kernel
-of them against its plain PyTorch version.
+engine-served requests and ``generate_origami``, and at full width and
+depth Yi-9B and MiniCPM3-4B (Multi-head Latent Attention) through private
+token generation and Qwen2.5-14B (QKV biases) through the LM forward —
+and hold every kernel of them against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -60,8 +62,13 @@ Phases (any failure is fatal and exits non-zero):
    (float32 at 2e-5, non-causal, MHA, ragged 6 and 1000 tokens); at head
    width 128 the Qwen3-MoE prefill (4 x 1024, 64 query and 4 KV heads),
    the MoE engine's buckets (2 x 32, 1 x 128) and a sweep (float32 2 x
-   256 with 8/2 heads at 2e-5, non-causal, ragged 1000), with its
-   time and device time, the plain version's time, one
+   256 with 8/2 heads at 2e-5, non-causal, ragged 1000); Yi-9B's
+   (32/4 heads of 128) and Qwen2.5-14B's (40/8, five query heads a KV
+   head: one head a CTA) prompt passes at 4 x 1024 and 4 x 256; and
+   MiniCPM3's MLA, q/k 96 against v 64 with 40 heads of one KV head each,
+   at 4 x 1024, 4 x 256 and 2 x 32, and a sweep (float32 at 2e-5,
+   non-causal, ragged 1000; the smoke widths 48 against 32), each with
+   its time and device time, the plain version's time, one
    ``scaled_dot_product_attention`` call's (timed only) and the card's
    bound;
 10. private generation — full-width, full-depth SmolLM-135M (random bf16
@@ -172,9 +179,10 @@ Phases (any failure is fatal and exits non-zero):
    (layers 1-18: from a 1x1 fc map the c-GAN's decoder reaches 128, not
    224 pixels); the walk's layers train on one set of images, drawn
    once and kept on the card. One short run on layer 1 times a step,
-   and each layer gets the largest step count of 60 or more that keeps
-   the longest walk (every layer) within 80 s of the phase's ~90, else
-   60; the predicted walk time is printed beside the 60-step floor's.
+   and each layer gets the largest step count of 30 or more that keeps
+   the longest walk (every layer) within 40 s, else 30 (60 and 80 s
+   before the dense phases of 26-29 joined the script's time); the
+   predicted walk time is printed beside the 30-step floor's.
    Printed: the SSIM a constant gray image scores, and one line per
    evaluated layer (kind, SSIM beside the gray image's, G and D loss, ms
    a step and of ``collect_features``). Gates: every SSIM
@@ -228,13 +236,47 @@ Phases (any failure is fatal and exits non-zero):
    with the reference's reason; one tiered step of the prompt's 64 tokens
    against the open float step: the block-1 router logits within 0.25,
    the logits within 0.15 on the rows routed alike in every block.
-   Printed: ms a step, open ``generate``'s wall for the same prompt.
+   Printed: ms a step, open ``generate``'s wall for the same prompt;
+26. yi generate (after the MoE phases, their weights freed; each of 26-29
+   makes its model's random bf16 weights from seed 0 at every published
+   width and depth, prints the set-up time, and frees them after) —
+   Yi-9B (48 layers, d 4096, 32/4 heads of 128, 8.83 B parameters)
+   through ``private_generate`` on 4 x 1024-token prompts, 16 new tokens,
+   tier-1 = blocks 1-4, full(k=2): the gates of phase 10 (28 blinded ops
+   a pass, 48 flash launches a prompt pass), its breakdown, then
+   ``warm_decode_aot`` through a ``CompileCache`` (3 captures) and a
+   slot-fed token step replayed bit-equal to the eager ``decode_once``
+   in logits, caches, report and launches. Printed: the prompt pass, ms
+   a token step with and without the ring, eager and replayed, busy
+   shares, peak memory;
+27. qwen2.5 infer — Qwen2.5-14B (48 layers, d 5120, 40/8 heads of 128,
+   14.77 B parameters) with its QKV biases drawn non-zero from the seed
+   (the reference's init zeroes them): ``OrigamiExecutor.infer`` on 4 x
+   256 tokens at p = 4 under full(k=2) with the gates of phase 14 (28
+   ops, 48 flash launches);
+28. mla generate — MiniCPM3-4B (62 layers, d 2560, 40 heads, MLA: q rank
+   768, kv rank 256, q/k 64 + 32 rope, v 64; 4.26 B parameters) through
+   ``private_generate`` as in 26, the absorbed decode: 32 blinded ops in
+   the prompt pass, 28 a token step (``wkv_b`` is read in the enclave),
+   62 flash launches a prompt pass and none in a token step; the cache
+   is the latent (62, 4, 1040, 288) with no v (its bytes printed beside
+   a GQA cache of 40 heads); the replayed slot-fed step bit-equal to the
+   eager one; the absorbed attention's float32 einsums timed apart
+   against the token step;
+29. mla infer and generate_origami — MiniCPM3-4B: ``infer`` on 4 x 256
+   (blinded == trusted, 32/32 checked, exact launches, flash 62, the
+   boundary within 0.25 of the split plan's, a bit_flip drill) and
+   ``generate_origami`` on a 2 x 32 prompt with 8 new tokens (7 x 4 x
+   39 counts and exactly that many blind_encode, fused and limb_matmul
+   launches; one tiered step within 0.15 of the open float step).
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
-at the rows phases 23-25 give them (2, 64, 128, 4096).
+at the rows phases 23-25 give them (2, 64, 128, 4096), and at the tier-1
+projections of Yi-9B, Qwen2.5-14B (K up to 13,824) and MiniCPM3-4B (N
+down to 288) at 4, 64, 1024 and 4096 rows (MiniCPM3 also 2).
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-25 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-29 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
 kernels and no other (22 launches none).
 
@@ -663,6 +705,22 @@ LM_PATH_ROWS = (1, 2, 4, 64, 128, 256, 512, 1024)
 # (the 1 x 128 bucket) and 4096 (moe infer's 4 x 1024)
 MOE_PROJECTIONS = (("q", 4096, 8192), ("k/v", 4096, 512), ("o", 8192, 4096))
 MOE_PATH_ROWS = (2, 64, 128, 4096)
+# the tier-1 projections of Yi-9B, Qwen2.5-14B and MiniCPM3-4B and the row
+# counts their phases give them: 4 (a batch-4 token step), 64 (a 2 x 32
+# prompt), 1024 (qwen2.5 and mla infer's 4 x 256), 4096 (the 4 x 1024
+# prompt passes of yi and mla generate); MiniCPM3 also 2 (its
+# generate_origami steps). K = 13,824 (Qwen2.5's down) is the widest K of
+# the port, N = 288 (MLA's wkv_a) a ragged tile
+YI_PROJECTIONS = (("q/o", 4096, 4096), ("k/v", 4096, 512),
+                  ("gate/up", 4096, 11008), ("down", 11008, 4096))
+QWEN25_PROJECTIONS = (("q/o", 5120, 5120), ("k/v", 5120, 1024),
+                      ("gate/up", 5120, 13824), ("down", 13824, 5120))
+MLA_PROJECTIONS = (("wq_a", 2560, 768), ("wq_b", 768, 3840),
+                   ("wkv_a", 2560, 288), ("wkv_b", 256, 5120),
+                   ("wo", 2560, 2560), ("gate/up", 2560, 6400),
+                   ("down", 6400, 2560))
+DENSE_PATH_ROWS = (4, 64, 1024, 4096)
+MLA_PATH_ROWS = (2,) + DENSE_PATH_ROWS
 
 
 def _bound_ms(nbytes, nops):
@@ -737,12 +795,17 @@ def phase_lm_limb_shapes(gen, dev):
               f"{bound:.4g} ms; bit-equal")
     phase_path_shapes(gen, dev, "lm", LM_PROJECTIONS, LM_PATH_ROWS)
     phase_path_shapes(gen, dev, "moe", MOE_PROJECTIONS, MOE_PATH_ROWS)
+    phase_path_shapes(gen, dev, "yi", YI_PROJECTIONS, DENSE_PATH_ROWS)
+    phase_path_shapes(gen, dev, "qwen2.5", QWEN25_PROJECTIONS,
+                      DENSE_PATH_ROWS)
+    phase_path_shapes(gen, dev, "mla", MLA_PROJECTIONS, MLA_PATH_ROWS)
 
 
 def phase_path_shapes(gen, dev, tag, projections, path_rows):
     """Every field-product kernel and ``blind_encode`` at every shape the
-    LM (``tag`` "lm", SmolLM-135M) or MoE ("moe", Qwen3-MoE) serving phases
-    give it (``projections`` x ``path_rows``; the fold material
+    LM (``tag`` "lm", SmolLM-135M), MoE ("moe", Qwen3-MoE), Yi-9B ("yi"),
+    Qwen2.5-14B ("qwen2.5") or MiniCPM3-4B ("mla") phases give it
+    (``projections`` x ``path_rows``; the fold material
     ``W_q @ s`` once per projection), each bit-for-bit against its plain
     version; checked, not timed."""
     def field(rows, cols):
@@ -1834,47 +1897,76 @@ def phase_breakdown(server, batch):
           f"float forward {plain_ms:.1f} ms")
 
 
-# (label, B, S, H, KH, D, dtype, causal, tolerance): the smollm prefill
-# shape first, then the reference test's sweep
+# (label, B, S, H, KH, D, Dv, dtype, causal, tolerance): q and k D wide,
+# v and the output Dv; the smollm prefill shape first, then the reference
+# test's sweep
 FLASH_CASES = (
-    ("smollm prefill", 4, 1024, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("smollm prefill", 4, 1024, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
     # the LM serving phases' attention: the lm infer batch, the prompt
     # pass of generate engine and sampling (and its bucket-2 and bucket-1
     # captures), lm engine's 128-token bucket 1 and its 32-token bucket 2
-    ("lm infer", 4, 256, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("prompt 128", 4, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("prompt 128 bucket 2", 2, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("prompt 128 bucket 1", 1, 128, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("lm engine bucket 2", 2, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("lm infer", 4, 256, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
+    ("prompt 128", 4, 128, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
+    ("prompt 128 bucket 2", 2, 128, 9, 3, 64, 64, torch.bfloat16, True,
+     2e-2),
+    ("prompt 128 bucket 1", 1, 128, 9, 3, 64, 64, torch.bfloat16, True,
+     2e-2),
+    ("lm engine bucket 2", 2, 32, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
     # token probe: its 100 training boundaries and its evaluation
-    ("token probe train", 8, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("token probe eval", 32, 32, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("float32", 4, 1024, 9, 3, 64, torch.float32, True, 2e-5),
-    ("non-causal", 4, 1024, 9, 3, 64, torch.bfloat16, False, 2e-2),
-    ("MHA", 4, 1024, 9, 9, 64, torch.bfloat16, True, 2e-2),
-    ("ragged 6", 4, 6, 9, 3, 64, torch.bfloat16, True, 2e-2),
-    ("ragged 1000", 4, 1000, 9, 3, 64, torch.bfloat16, True, 2e-2),
+    ("token probe train", 8, 32, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
+    ("token probe eval", 32, 32, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
+    ("float32", 4, 1024, 9, 3, 64, 64, torch.float32, True, 2e-5),
+    ("non-causal", 4, 1024, 9, 3, 64, 64, torch.bfloat16, False, 2e-2),
+    ("MHA", 4, 1024, 9, 9, 64, 64, torch.bfloat16, True, 2e-2),
+    ("ragged 6", 4, 6, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
+    ("ragged 1000", 4, 1000, 9, 3, 64, 64, torch.bfloat16, True, 2e-2),
     # head width 128, Qwen3-MoE's 64 query and 4 KV heads: moe infer's
     # prefill, moe engine's buckets (2 x 32, also the captured trusted
     # forward, and 1 x 128), and the sweep
-    ("qwen prefill", 4, 1024, 64, 4, 128, torch.bfloat16, True, 2e-2),
-    ("moe engine bucket 2", 2, 32, 64, 4, 128, torch.bfloat16, True, 2e-2),
-    ("moe engine bucket 1", 1, 128, 64, 4, 128, torch.bfloat16, True, 2e-2),
-    ("float32 D 128", 2, 256, 8, 2, 128, torch.float32, True, 2e-5),
-    ("non-causal D 128", 4, 1024, 64, 4, 128, torch.bfloat16, False, 2e-2),
-    ("ragged 1000 D 128", 4, 1000, 64, 4, 128, torch.bfloat16, True, 2e-2),
+    ("qwen prefill", 4, 1024, 64, 4, 128, 128, torch.bfloat16, True, 2e-2),
+    ("moe engine bucket 2", 2, 32, 64, 4, 128, 128, torch.bfloat16, True,
+     2e-2),
+    ("moe engine bucket 1", 1, 128, 64, 4, 128, 128, torch.bfloat16, True,
+     2e-2),
+    ("float32 D 128", 2, 256, 8, 2, 128, 128, torch.float32, True, 2e-5),
+    ("non-causal D 128", 4, 1024, 64, 4, 128, 128, torch.bfloat16, False,
+     2e-2),
+    ("ragged 1000 D 128", 4, 1000, 64, 4, 128, 128, torch.bfloat16, True,
+     2e-2),
+    # Yi-9B (32/4 heads of 128, G 8) and Qwen2.5-14B (40/8, G 5: one head
+    # a CTA): the prompt passes of yi generate and the breakdown, the
+    # captured trusted prompt pass, qwen2.5 infer
+    ("yi prefill", 4, 1024, 32, 4, 128, 128, torch.bfloat16, True, 2e-2),
+    ("yi 4 x 256", 4, 256, 32, 4, 128, 128, torch.bfloat16, True, 2e-2),
+    ("qwen2.5 prefill", 4, 1024, 40, 8, 128, 128, torch.bfloat16, True,
+     2e-2),
+    ("qwen2.5 infer", 4, 256, 40, 8, 128, 128, torch.bfloat16, True, 2e-2),
+    # MiniCPM3's MLA: q/k 96 (64 + 32 rope) against v 64, 40 heads of one
+    # KV head each: mla generate's prompt pass, mla infer, a 2 x 32 prompt;
+    # the sweep; and the smoke widths (48, 32)
+    ("minicpm3 prefill", 4, 1024, 40, 40, 96, 64, torch.bfloat16, True,
+     2e-2),
+    ("minicpm3 4 x 256", 4, 256, 40, 40, 96, 64, torch.bfloat16, True, 2e-2),
+    ("minicpm3 2 x 32", 2, 32, 40, 40, 96, 64, torch.bfloat16, True, 2e-2),
+    ("float32 (96, 64)", 2, 256, 40, 40, 96, 64, torch.float32, True, 2e-5),
+    ("non-causal (96, 64)", 4, 1024, 40, 40, 96, 64, torch.bfloat16, False,
+     2e-2),
+    ("ragged 1000 (96, 64)", 4, 1000, 40, 40, 96, 64, torch.bfloat16, True,
+     2e-2),
+    ("smoke MLA (48, 32)", 2, 128, 4, 4, 48, 32, torch.bfloat16, True, 2e-2),
+    ("float32 (48, 32)", 2, 130, 4, 4, 48, 32, torch.float32, False, 2e-5),
 )
 
 
-def flash_bound(B, S, H, KH, D, dtype, causal):
+def flash_bound(B, S, H, KH, D, Dv, dtype, causal):
     """(bound ms, "bytes" | "operations") of one attention call: q, k, v
-    read once and the output written once against 3.35 TB/s; 4 D
+    read once and the output written once against 3.35 TB/s; 2 (D + Dv)
     operations for every (query, key) pair the mask lets through (QK and
     PV) against the dense peak of the input type."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (2 * B * S * H * D + 2 * B * S * KH * D)
+    nbytes = size * (B * S * H * (D + Dv) + B * S * KH * (D + Dv))
     pairs = S * (S + 1) // 2 if causal else S * S
-    ops = 4 * B * H * D * pairs
+    ops = 2 * B * H * (D + Dv) * pairs
     peak = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
     t_bytes, t_ops = nbytes / BYTES_S * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1890,10 +1982,12 @@ def phase_flash(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     main_case, err_max = None, 0.0
-    for label, B, S, H, KH, D, dtype, causal, tol in FLASH_CASES:
+    for label, B, S, H, KH, D, Dv, dtype, causal, tol in FLASH_CASES:
         q = torch.randn((B, S, H, D), generator=gen, device=dev, dtype=dtype)
-        k, v = (torch.randn((B, S, KH, D), generator=gen, device=dev,
-                            dtype=dtype) for _ in range(2))
+        k = torch.randn((B, S, KH, D), generator=gen, device=dev,
+                        dtype=dtype)
+        v = torch.randn((B, S, KH, Dv), generator=gen, device=dev,
+                        dtype=dtype)
         got = flash_attention_fwd(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -1913,9 +2007,10 @@ def phase_flash(dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by = flash_bound(B, S, H, KH, D, dtype, causal)
-        print(f"flash_attention {label} (B {B}, S {S}, H {H}, KH {KH}, D "
-              f"{D}, {str(dtype)[6:]}, "
+        bound, by = flash_bound(B, S, H, KH, D, Dv, dtype, causal)
+        width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
+        print(f"flash_attention {label} (B {B}, S {S}, H {H}, KH {KH}, "
+              f"{width}, {str(dtype)[6:]}, "
               f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
               f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
               f"ms (device {fmt_ms(sdpa_dms)}), bound "
@@ -1947,11 +2042,6 @@ def phase_generate(dev):
     cfg = get_config("smollm_135m")
     t0 = time.perf_counter()
     params = M.init_params(cfg, SEED, device=dev)
-    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (GEN_BATCH, PROMPT_LEN))).to(dev)
-    policy = IntegrityPolicy.full(k=2)
-    ex = OrigamiExecutor(cfg, params, "origami", integrity=policy,
-                         device=dev)
     n_params = sum(t.numel() for t in _leaves(params))
     torch.cuda.synchronize()
     print(f"generate: smollm-135m, {cfg.num_layers} layers, d_model "
@@ -1959,10 +2049,37 @@ def phase_generate(dev):
           f"blocks 1-{cfg.origami.tier1_layers}, batch {GEN_BATCH}, prompt "
           f"{PROMPT_LEN}, {NEW_TOKENS} new tokens; set-up "
           f"{time.perf_counter() - t0:.2f} s")
+    ex, prompt, launches, open_ms = _generate_gates(cfg, params, dev,
+                                                    "generate", 7, 7)
+    phase_generate_breakdown(cfg, ex, params, prompt, open_ms)
+    del ex
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _generate_gates(cfg, params, dev, tag, prompt_ops, step_ops,
+                    drill_new=None):
+    """``private_generate`` of a dense LM at full width on GEN_BATCH x
+    PROMPT_LEN prompts, NEW_TOKENS new, under full(k=2), with
+    ``prompt_ops`` blinded ops a tier-1 block in the prompt pass and
+    ``step_ops`` in a token step: private and trusted logits and tokens
+    bit-equal, every op checked and passing, the exact launch counts, one
+    private token step within 0.15 of the open float step, the first new
+    token within PREFILL_REL_BOUND of the open float prefill, no failed
+    ring refill, a bit-flipping device caught op by op over a stream of
+    ``drill_new`` new tokens (NEW_TOKENS when None). Returns (the executor,
+    the prompt, the private run's launches, the ms of an open ``generate``
+    of 2 tokens)."""
+    drill_new = drill_new or NEW_TOKENS
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (GEN_BATCH, PROMPT_LEN))).to(dev)
+    policy = IntegrityPolicy.full(k=2)
+    ex = OrigamiExecutor(cfg, params, "origami", integrity=policy,
+                         device=dev)
     key = PRNGKey(SEED + 30)
     kw = dict(max_new_tokens=NEW_TOKENS, session_key=key)
     p = cfg.origami.tier1_layers
-    n_ops = 7 * p                                # dense ops a tier-1 pass
+    n_prompt, n_step = prompt_ops * p, step_ops * p   # ops a tier-1 pass
 
     # the main path: counts from 0 around exactly this call
     torch.cuda.reset_peak_memory_stats()
@@ -1976,48 +2093,49 @@ def phase_generate(dev):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     cache = ex.decode_cache(GEN_BATCH)
     steps = priv.decode_steps
-    passes = 1 + steps                           # prefill + token steps
-    check_launches(launches, GENERATE_PATH, "private generation path")
+    n_ops = n_prompt + n_step * steps            # prefill + token steps
+    check_launches(launches, GENERATE_PATH, f"{tag} private path")
     # prefill: each op draws u = r @ W_q and ws = W_q @ s live; decode: the
     # ring's refill (and any miss) drew every slot it made, consumed or not
     want = {"flash_attention": cfg.num_layers,
-            "blind_encode": n_ops * passes,
-            "limb_matmul_fused": n_ops * passes,
-            "limb_fold": n_ops * passes,
-            "limb_matmul": 2 * n_ops + cache.factor_matmuls
+            "blind_encode": n_ops,
+            "limb_matmul_fused": n_ops,
+            "limb_fold": n_ops,
+            "limb_matmul": 2 * n_prompt + cache.factor_matmuls
             + cache.fold_matmuls}
     for name, n in want.items():
         assert launches[name] == n, (name, launches[name], n)
     rep = priv.integrity
-    assert rep.n_ops == rep.n_checked == n_ops * passes and rep.ok, rep
+    assert rep.n_ops == rep.n_checked == n_ops and rep.ok, rep
     assert priv.ring["consumed"] == steps == NEW_TOKENS - 1, priv.ring
     assert priv.ring["refill_errors"] == 0, priv.ring
-    assert priv.telemetry.device_matmuls == n_ops, priv.telemetry
+    assert priv.telemetry.device_matmuls == n_step, priv.telemetry
     assert priv.tokens.shape == (GEN_BATCH, PROMPT_LEN + NEW_TOKENS)
     assert torch.isfinite(priv.logits.float()).all()
 
     t_launches, _, oracle = counted(lambda: private_generate(
         params, prompt, cfg, executor=ex, trusted=True, **kw))
-    check_launches(t_launches, TRUSTED_GENERATE_PATH, "trusted generation")
-    assert t_launches["limb_matmul"] == n_ops * passes, t_launches
+    check_launches(t_launches, TRUSTED_GENERATE_PATH, f"trusted {tag}")
+    assert t_launches["limb_matmul"] == n_ops, t_launches
     assert t_launches["flash_attention"] == cfg.num_layers, t_launches
     if not (torch.equal(priv.logits, oracle.logits)
             and torch.equal(priv.tokens, oracle.tokens)):
-        raise AssertionError("private logits or tokens differ from the "
-                             "trusted recompute")
+        raise AssertionError(f"{tag}: private logits or tokens differ from "
+                             f"the trusted recompute")
     assert oracle.telemetry.device_matmuls == 0, oracle.telemetry
-    assert oracle.telemetry.trusted_matmuls == n_ops, oracle.telemetry
+    assert oracle.telemetry.trusted_matmuls == n_step, oracle.telemetry
     assert oracle.integrity.n_ops == 0 and oracle.ring is None
 
     open_ms, opened = _timed(lambda: generate(params, prompt, cfg,
                                               max_new_tokens=2, device=dev))
     assert torch.equal(opened.tokens[:, :PROMPT_LEN], prompt)
+    del opened
     with torch.no_grad():
         first_open, _ = M.prefill(params, {"tokens": prompt}, cfg)
     prefill_rel = _rel(priv.logits[:, 0], first_open[:, -1])
     # tier-1 quantizes each op with one scale over all B x S rows, so the
     # prompt pass drifts further from float than one token step, in the
-    # reference as here; with these weights the card reads 0.167 (PERF.md)
+    # reference as here (PERF.md holds the card's readings)
     assert prefill_rel < PREFILL_REL_BOUND, prefill_rel
     # the bound of the reference's tests/test_generate.py: one token step
     # from an empty cache, tier-1 blinded against the open float step
@@ -2029,7 +2147,7 @@ def phase_generate(dev):
         cfg, GEN_BATCH, 8, device=dev), 0, PRNGKey(SEED + 32))
     rel = _rel(priv_step, open_step)
     assert rel < 0.15, rel
-    print(f"generate: private == trusted (logits {tuple(priv.logits.shape)} "
+    print(f"{tag}: private == trusted (logits {tuple(priv.logits.shape)} "
           f"and tokens bit-equal); checks {rep.n_checked}/{rep.n_ops} failed "
           f"{rep.n_failed}; device matmuls a step "
           f"{priv.telemetry.device_matmuls} private, "
@@ -2040,31 +2158,32 @@ def phase_generate(dev):
           f"new token (the {PROMPT_LEN}-token prompt's last position) vs "
           f"the open float prefill {prefill_rel:.5f} (bound "
           f"{PREFILL_REL_BOUND})")
-    print(f"launches, private run: {launches}; trusted run: {t_launches}; "
-          f"ring cache drew {cache.factor_matmuls} u and "
+    print(f"{tag}: launches, private run: {launches}; trusted run: "
+          f"{t_launches}; ring cache drew {cache.factor_matmuls} u and "
           f"{cache.fold_matmuls} ws matmuls")
-    print(f"private_generate wall {wall_ms:.1f} ms ({NEW_TOKENS} tokens, "
-          f"batch {GEN_BATCH}); peak device memory {peak_gib:.2f} GiB")
+    print(f"{tag}: private_generate wall {wall_ms:.1f} ms ({NEW_TOKENS} "
+          f"tokens, batch {GEN_BATCH}); peak device memory {peak_gib:.2f} "
+          f"GiB")
+    del priv, oracle, first_open
 
     # a bit-flipping device: every check fails exactly where it corrupted
     bad = OrigamiExecutor(cfg, params, "origami", integrity=policy,
                           fault=DishonestDevice(FaultSpec("bit_flip")),
                           device=dev)
     f_launches, _, drill = counted(lambda: private_generate(
-        params, prompt, cfg, executor=bad, **kw))
-    check_launches(f_launches, GENERATE_PATH, "bit_flip drill")
+        params, prompt, cfg, executor=bad, **{**kw,
+                                               "max_new_tokens": drill_new}))
+    check_launches(f_launches, GENERATE_PATH, f"{tag} bit_flip drill")
     drep = drill.integrity
     if not torch.equal(drep.failed, drep.corrupted):
-        raise AssertionError("bit_flip drill: failed != corrupted")
-    assert drep.n_corrupted == drep.n_failed == n_ops * passes, drep
-    print(f"bit_flip drill: corrupted {drep.n_corrupted}, failed "
+        raise AssertionError(f"{tag} bit_flip drill: failed != corrupted")
+    assert drep.n_corrupted == drep.n_failed == \
+        n_prompt + n_step * (drill_new - 1), drep
+    print(f"{tag} bit_flip drill: corrupted {drep.n_corrupted}, failed "
           f"{drep.n_failed} of {drep.n_ops} ops, op by op")
     del bad, drill
-
-    phase_generate_breakdown(cfg, ex, params, prompt, open_ms)
-    del ex, priv, oracle
     torch.cuda.empty_cache()
-    return launches
+    return ex, prompt, launches, open_ms
 
 
 def _leaves(tree):
@@ -2075,7 +2194,8 @@ def _leaves(tree):
         yield tree
 
 
-def phase_generate_breakdown(cfg, ex, params, prompt, open_ms):
+def phase_generate_breakdown(cfg, ex, params, prompt, open_ms,
+                             tag="breakdown"):
     """Where a warm private session's time goes (host clock,
     synchronized): the prefill alone, split into tier-2 and the rest; one
     token slot's factors drawn on the main thread; one token step fed a
@@ -2114,7 +2234,7 @@ def phase_generate_breakdown(cfg, ex, params, prompt, open_ms):
         open_step_ms, _ = _timed(lambda: M.decode_step(
             params, tok, caches, total - 1, cfg))
     decode_ms = statistics.median(step_ms)
-    print(f"breakdown (warm, batch {GEN_BATCH}): private prefill "
+    print(f"{tag} (warm, batch {GEN_BATCH}): private prefill "
           f"{prefill_ms:.1f} ms = tier-2 {tier2_ms:.1f} ms + the rest "
           f"{prefill_ms - tier2_ms:.1f} ms (tier-1, embedding, head; open "
           f"float prefill {open_prefill_ms:.1f} ms); one token slot's "
@@ -2152,15 +2272,23 @@ def phase_lm_infer(cfg, params, dev, card):
     against the "split" plan's float one, every op checked, exact launch
     counts, a bit-flipping device caught op by op; times and the
     device-busy share."""
-    tag = f"lm infer on {card}"
+    return _lm_infer_gates(cfg, params, dev, f"lm infer on {card}", LM_P,
+                           7, LM_INFER_SHAPE, SEED + 40)
+
+
+def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed):
+    """``OrigamiExecutor.infer`` of a dense LM on ``shape`` tokens at
+    partition ``p`` under full(k=2), ``block_ops`` blinded ops a tier-1
+    block: the gates and readings of ``phase_lm_infer``; returns the
+    blinded run's launches."""
     policy = IntegrityPolicy.full(k=2)
-    ex = OrigamiExecutor(cfg, params, "origami", LM_P, integrity=policy,
+    ex = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
                          device=dev)
-    batch = {"tokens": _lm_tokens(cfg, LM_INFER_SHAPE, SEED + 40)}
-    key = PRNGKey(SEED + 41)
-    n_ops = 7 * LM_P
+    batch = {"tokens": _lm_tokens(cfg, shape, seed)}
+    key = PRNGKey(seed + 1)
+    n_ops = block_ops * p
     launches, _, res = counted(lambda: ex.infer(batch, key))
-    check_launches(launches, GENERATE_PATH, "lm infer path")
+    check_launches(launches, GENERATE_PATH, f"{tag} path")
     want = {"blind_encode": n_ops, "limb_matmul_fused": n_ops,
             "limb_fold": n_ops, "limb_matmul": 2 * n_ops,
             "flash_attention": cfg.num_layers}
@@ -2169,24 +2297,26 @@ def phase_lm_infer(cfg, params, dev, card):
     rep, tele = res.integrity, res.telemetry
     assert rep.n_ops == rep.n_checked == n_ops and rep.ok, rep
     assert tele.calls == tele.device_matmuls == tele.verify_ops == n_ops
-    assert res.logits.shape == LM_INFER_SHAPE + (cfg.padded_vocab,)
+    assert res.logits.shape == tuple(shape) + (cfg.padded_vocab,)
     assert torch.isfinite(res.logits.float()).all()
     t_launches, _, trusted = counted(lambda: ex.infer(batch, key,
                                                       trusted=True))
-    check_launches(t_launches, TRUSTED_GENERATE_PATH, "trusted lm infer")
+    check_launches(t_launches, TRUSTED_GENERATE_PATH, f"trusted {tag}")
     assert t_launches["limb_matmul"] == n_ops, t_launches
     if not torch.equal(res.logits, trusted.logits):
-        raise AssertionError("lm infer: blinded logits differ from the "
-                             "trusted recompute")
-    split = OrigamiExecutor(cfg, params, "split", LM_P, device=dev)
+        raise AssertionError(f"{tag}: blinded logits differ from the "
+                             f"trusted recompute")
+    del trusted
+    split = OrigamiExecutor(cfg, params, "split", p, device=dev)
     boundary_rel = _rel(res.boundary, split.infer(batch).boundary)
+    del split
     assert boundary_rel < PREFILL_REL_BOUND, boundary_rel
-    bad = OrigamiExecutor(cfg, params, "origami", LM_P, integrity=policy,
+    bad = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
                           fault=DishonestDevice(FaultSpec("bit_flip")),
                           device=dev)
     drep = bad.infer(batch, key).integrity
     if not torch.equal(drep.failed, drep.corrupted):
-        raise AssertionError("lm infer bit_flip: failed != corrupted")
+        raise AssertionError(f"{tag} bit_flip: failed != corrupted")
     assert drep.n_corrupted == drep.n_failed == n_ops, drep
     del bad
     blinded_ms = cuda_ms(lambda: ex.infer(batch, key), reps=10, warmup=1)
@@ -2195,8 +2325,8 @@ def phase_lm_infer(cfg, params, dev, card):
     open_ms = cuda_ms(lambda: ex.reference(batch), reps=10, warmup=1)
     share, tops = _busy_share(lambda: ex.infer(batch, key))
     open_share, open_tops = _busy_share(lambda: ex.reference(batch))
-    print(f"{tag}: smollm-135m {LM_INFER_SHAPE[0]}x{LM_INFER_SHAPE[1]} "
-          f"tokens, tier-1 = blocks 1-{LM_P}, full(k=2): blinded == trusted "
+    print(f"{tag}: {cfg.name} {shape[0]}x{shape[1]} "
+          f"tokens, tier-1 = blocks 1-{p}, full(k=2): blinded == trusted "
           f"(logits {tuple(res.logits.shape)} bit-equal); checks "
           f"{rep.n_checked}/{rep.n_ops}; tier-1 boundary rel err vs the "
           f"split plan's float boundary {boundary_rel:.5f} (bound "
@@ -2293,18 +2423,25 @@ def _serve_lm_engine(name, cfg, params, partition, seq_lens, seed, dev,
     _free()
 
 
-def _step_readings(ex, cfg, prompt, key):
-    """The slot-fed token step at the bucket-4 shape, at a position past
+def _clone_caches(caches):
+    from repro_torch.models.attention import KVCache
+    return KVCache(caches.k.clone(),
+                   None if caches.v is None else caches.v.clone())
+
+
+def _step_readings(ex, cfg, prompt, key, new=GEN_ENGINE_NEW,
+                   n_step=7 * LM_P):
+    """The slot-fed token step at the prompt's batch, at a position past
     the one ``warm_decode_aot`` captured it at (the prompt's length), the
     slot drawn beforehand and no refill thread running: (position, eager
     ms, replayed ms, busy shares, top device ops, kernel ms, launches),
     eager then replayed where there are two; and the gate that a replay
-    is bit-equal to the eager step in logits, caches, report and
-    launches."""
-    from repro_torch.models.attention import KVCache
+    is bit-equal to the eager step in logits, caches, report (``n_step``
+    ops, all checked) and launches. ``new`` is the captured stream's new
+    tokens."""
     S0 = prompt.shape[1]
-    total = S0 + GEN_ENGINE_NEW
-    pos = S0 + GEN_ENGINE_NEW // 2
+    total = S0 + new
+    pos = S0 + new // 2
     cache = ex.decode_cache(prompt.shape[0])
     logits, caches, _ = ex.prefill_session(prompt, key, max_seq=total,
                                            jit=False)
@@ -2316,19 +2453,21 @@ def _step_readings(ex, cfg, prompt, key):
     slot = cache.session_factors(key, pos)
 
     def step(jit):
-        c = KVCache(caches.k.clone(), caches.v.clone())
-        return ex.decode_once(tok, c, pos, key, slot, jit=jit)
+        return ex.decode_once(tok, _clone_caches(caches), pos, key, slot,
+                              jit=jit)
 
     ne, _, a = counted(lambda: step(False))
     nr, _, b = counted(lambda: step(True))
+    same_v = ((a[1].v is None and b[1].v is None)
+              or torch.equal(a[1].v, b[1].v))
     same = (torch.equal(a[0], b[0]) and torch.equal(a[1].k, b[1].k)
-            and torch.equal(a[1].v, b[1].v)
+            and same_v
             and all(torch.equal(getattr(a[2], f), getattr(b[2], f))
                     for f in ("checked", "failed", "corrupted")))
     if not same:
         raise AssertionError("a replayed token step differs from the eager "
                              "decode_once")
-    assert ne == nr and a[2].n_checked == 7 * LM_P and a[2].ok, (ne, nr)
+    assert ne == nr and a[2].n_checked == n_step and a[2].ok, (ne, nr)
     eager_ms, replay_ms = [], []
     for _ in range(10):
         eager_ms.append(_timed(lambda: step(False))[0])
@@ -2471,18 +2610,25 @@ def phase_generate_origami(cfg, params, dev, card):
     """``generate_origami`` on a 2 x 32 prompt with 8 new tokens: one
     count per runtime op, exact launches; its first tiered step within
     0.15 of the open float step (the reference's bound)."""
+    _generate_origami_gates(cfg, params, dev, f"generate_origami on {card}",
+                            LM_P)
+
+
+def _generate_origami_gates(cfg, params, dev, tag, p):
+    """``generate_origami`` of a dense LM at partition ``p`` (7 blinded ops
+    a tier-1 block in a token step): the gates and readings of
+    ``phase_generate_origami``."""
     from repro_torch.core.blinding import BlindingSpec
     from repro_torch.core.slalom import SlalomContext
     from repro_torch.runtime.generate import (generate_origami,
                                               tiered_decode_step)
-    tag = f"generate_origami on {card}"
     prompt = _lm_tokens(cfg, ORIGAMI_SHAPE, SEED + 50)
     launches, ms, res = counted(lambda: generate_origami(
-        params, prompt, cfg, max_new_tokens=ORIGAMI_NEW, partition=LM_P,
+        params, prompt, cfg, max_new_tokens=ORIGAMI_NEW, partition=p,
         device=dev))
-    check_launches(launches, ORIGAMI_PATH, "generate_origami path")
+    check_launches(launches, ORIGAMI_PATH, f"{tag} path")
     steps = ORIGAMI_SHAPE[1] + ORIGAMI_NEW - 1
-    n_ops = 7 * LM_P * steps
+    n_ops = 7 * p * steps
     tele = res.telemetry
     assert tele.calls == tele.device_matmuls == tele.enclave_matmuls \
         == n_ops, tele
@@ -2497,13 +2643,13 @@ def phase_generate_origami(cfg, params, dev, card):
         priv_step, _ = tiered_decode_step(
             params, token, M.init_caches(cfg, ORIGAMI_SHAPE[0], 8,
                                          device=dev),
-            0, cfg, SlalomContext(PRNGKey(7), BlindingSpec()), LM_P)
+            0, cfg, SlalomContext(PRNGKey(7), BlindingSpec()), p)
     rel = _rel(priv_step, open_step)
     assert rel < 0.15, rel
     print(f"{tag}: {ORIGAMI_SHAPE[0]}x{ORIGAMI_SHAPE[1]} prompt, "
-          f"{ORIGAMI_NEW} new, tier-1 = blocks 1-{LM_P}: {steps} tiered "
+          f"{ORIGAMI_NEW} new, tier-1 = blocks 1-{p}: {steps} tiered "
           f"steps in {ms:.1f} ms ({ms / steps:.2f} ms a step); telemetry "
-          f"calls {tele.calls} == 7 x {LM_P} x {steps}; rel err of the "
+          f"calls {tele.calls} == 7 x {p} x {steps}; rel err of the "
           f"first tiered step vs the open float step {rel:.5f} (bound "
           f"0.15); launches {launches}")
 
@@ -2519,8 +2665,11 @@ ADV_PARITY = dict(layer=1, steps=60, batch=8, n_eval=32, seed=SEED)
 ADV_TOL = {"ssim": 0.05, "g_loss": 1.5, "d_loss": 0.6}
 SEARCH = dict(threshold=0.35, verify_depth=2)
 SEARCH_TRAIN = dict(batch=16, n_eval=64, seed=SEED)
-SEARCH_MIN_STEPS = 60
-WALK_BUDGET_S = 80.0                 # the walk's share of the phase's ~90 s
+# the walk's depth: a floor of steps a layer and a budget for the longest
+# walk (cut from 60 steps and 80 s to keep the whole script near its time
+# once phases 26-29 were added; the 18-layer walk took 104.7 s at 60)
+SEARCH_MIN_STEPS = 30
+WALK_BUDGET_S = 40.0
 CALIBRATION_STEPS = 8
 # the reference's defaults of token_recovery_probe
 PROBE = dict(steps=100, batch=8, seq=32, lr=1e-2)
@@ -3095,15 +3244,187 @@ def phase_moe_generate_origami(cfg, params, dev, card):
           f"{launches}")
 
 
+# -- dense LMs at head width 128 and MiniCPM3's MLA at full width -----------
+
+# new tokens of the bit_flip drills of phases 26 and 28: the prompt pass
+# and one token step, both kinds of op (a 16-token drill took ~10 s)
+DRILL_NEW = 2
+
+
+def _load_model(arch, dev):
+    """The published config at every width and depth and its random bf16
+    weights (seed SEED, norms float32) on ``dev``; the set-up printed."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers at full width, "
+          f"{sum(t.numel() for t in _leaves(params))} params (bf16, norms "
+          f"float32, seed {SEED}) in "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def _replayed_step(cfg, ex, prompt, tag, step_ops):
+    """``warm_decode_aot`` through a ``CompileCache`` (the trusted prompt
+    pass and the slot-fed and trusted token steps: 3 captures), then the
+    slot-fed token step's replay held bit-equal to the eager
+    ``decode_once`` in logits, caches, report and launches; eager and
+    replayed times and busy shares printed."""
+    from repro_torch.runtime.aot import CompileCache
+    cache = CompileCache()
+    ex.attach_aot(cache)
+    total = PROMPT_LEN + NEW_TOKENS
+    warm_ms, n = _timed(lambda: ex.warm_decode_aot(GEN_BATCH, PROMPT_LEN,
+                                                   total))
+    assert n == 3 and cache.stats()["compiles"] == 3, cache.stats()
+    pos, eager_ms, replay_ms, busy, tops, kernel_ms, launches = \
+        _step_readings(ex, cfg, prompt, PRNGKey(SEED + 33), new=NEW_TOKENS,
+                       n_step=step_ops * cfg.origami.tier1_layers)
+    st = cache.stats()
+    assert st["compiles"] == 3 and st["exec_fallbacks"] == 0, st
+    fmt = ["not measured" if b is None else f"{b:.4f}" for b in busy]
+    print(f"{tag}: warm_decode_aot {warm_ms:.1f} ms (3 CUDA-graph "
+          f"captures); slot-fed token step (batch {GEN_BATCH}, position "
+          f"{pos}, captured at {PROMPT_LEN}; no refill running): eager "
+          f"{_spread(eager_ms)}, replayed {_spread(replay_ms)}; replay "
+          f"bit-equal to eager in logits, caches and report, launches "
+          f"{launches}; device-busy share eager {fmt[0]}, replayed "
+          f"{fmt[1]}; kernel time a step (profiler) eager "
+          f"{fmt_ms(kernel_ms[0])}, replayed {fmt_ms(kernel_ms[1])}")
+    for kind, ops_ in zip(("eager", "replayed"), tops):
+        print(f"  top device ops, {kind} token step: "
+              + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in ops_))
+    return eager_ms, replay_ms, kernel_ms
+
+
+def phase_yi_generate(cfg, params, dev, card):
+    """Yi-9B at every width and depth through ``private_generate`` (4 x
+    1024 prompts, 16 new, p = 4, full(k=2)): the SmolLM generate phase's
+    gates (28 ops a pass, 48 flash launches a prompt pass), the breakdown,
+    and a replayed slot-fed token step bit-equal to the eager one."""
+    tag = f"yi generate on {card}"
+    ex, prompt, _, open_ms = _generate_gates(cfg, params, dev, tag, 7, 7,
+                                             drill_new=DRILL_NEW)
+    phase_generate_breakdown(cfg, ex, params, prompt, open_ms,
+                             tag=f"{tag}: breakdown")
+    _replayed_step(cfg, ex, prompt, tag, 7)
+    del ex
+    _free()
+
+
+def phase_qwen25_infer(cfg, params, dev, card):
+    """Qwen2.5-14B at every width and depth, its QKV biases drawn
+    non-zero from the seed (the reference's init zeroes them), through
+    ``OrigamiExecutor.infer`` on 4 x 256 tokens at p = 4: the lm infer
+    phase's gates (28 ops checked, 48 flash launches)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 70)
+    attn = params["blocks"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        b = attn[name]["b"]
+        b.copy_(0.5 * torch.randn(b.shape, generator=gen, device=dev))
+    print(f"qwen2.5 infer: QKV biases drawn from N(0, 0.25): max |b| "
+          + ", ".join(f"{n} {attn[n]['b'].abs().max().item():.4f}"
+                      for n in ("wq", "wk", "wv")))
+    _lm_infer_gates(cfg, params, dev, f"qwen2.5 infer on {card}",
+                    cfg.origami.tier1_layers, 7, LM_INFER_SHAPE, SEED + 72)
+    _free()
+
+
+def phase_mla_generate(cfg, params, dev, card):
+    """MiniCPM3-4B at every width and depth through ``private_generate``
+    (4 x 1024 prompts, 16 new, p = 4, absorbed decode): the SmolLM
+    generate phase's gates with 32 ops in the prompt pass and 28 a token
+    step, 62 flash launches a prompt pass and none in a token step; the
+    latent cache (62, 4, 1040, 288) with no v; a replayed slot-fed token
+    step bit-equal to the eager one; the absorbed decode's float32
+    einsums' share of a token step."""
+    from repro_torch.models import attention as A
+    tag = f"mla generate on {card}"
+    m = cfg.mla
+    ex, prompt, _, open_ms = _generate_gates(cfg, params, dev, tag, 8, 7,
+                                             drill_new=DRILL_NEW)
+    phase_generate_breakdown(cfg, ex, params, prompt, open_ms,
+                             tag=f"{tag}: breakdown")
+    eager_ms, replay_ms, kernel_ms = _replayed_step(cfg, ex, prompt, tag, 7)
+
+    # the latent cache of a prompt pass (the captured trusted one), and one
+    # eager slot-fed token step with the absorbed attention's calls kept
+    total = PROMPT_LEN + NEW_TOKENS
+    key = PRNGKey(SEED + 34)
+    logits, caches, _ = ex.prefill_session(prompt, key, max_seq=total,
+                                           trusted=True)
+    width = m.kv_lora_rank + m.qk_rope_head_dim
+    assert caches.v is None, "an MLA cache holds no v"
+    assert tuple(caches.k.shape) == (cfg.num_layers, GEN_BATCH, total,
+                                     width), caches.k.shape
+    latent_bytes = caches.k.numel() * caches.k.element_size()
+    gqa_bytes = (2 * cfg.num_layers * GEN_BATCH * total * cfg.num_heads
+                 * cfg.resolved_head_dim * caches.k.element_size())
+    tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+    slot = ex.decode_cache(GEN_BATCH).session_factors(key, PROMPT_LEN)
+    inner, calls = A.mla_absorbed_attend, []
+
+    def keep(*args):
+        calls.append(args)
+        return inner(*args)
+
+    A.mla_absorbed_attend = keep
+    try:
+        step_ms, _ = _timed(lambda: ex.decode_once(
+            tok, caches, PROMPT_LEN, key, slot, jit=False))
+    finally:
+        A.mla_absorbed_attend = inner
+    assert len(calls) == cfg.num_layers, len(calls)
+    att_ms = cuda_ms(lambda: [inner(*a) for a in calls])
+    att_dev = device_ms(lambda: [inner(*a) for a in calls])
+    share = ("not measured" if att_dev is None or kernel_ms[1] is None
+             else f"{att_dev / kernel_ms[1]:.4f}")
+    print(f"{tag}: latent cache {tuple(caches.k.shape)} bf16, v None: "
+          f"{latent_bytes} bytes against {gqa_bytes} for k and v of "
+          f"{cfg.num_heads} heads of {cfg.resolved_head_dim} "
+          f"({gqa_bytes / latent_bytes:.2f}x); the absorbed attention's "
+          f"float32 einsums over the latent cache, {cfg.num_layers} calls a "
+          f"token step: {att_ms:.3f} ms back to back (events; device "
+          f"{fmt_ms(att_dev)}) against an eager slot-fed step of "
+          f"{step_ms:.1f} ms and a replayed one's kernels "
+          f"{fmt_ms(kernel_ms[1])}: {share} of the replayed step's device "
+          f"time")
+    del ex, caches, calls, slot
+    _free()
+
+
+def phase_mla_infer(cfg, params, dev, card):
+    """MiniCPM3-4B: ``OrigamiExecutor.infer`` on 4 x 256 tokens at p = 4
+    (32 ops checked, 62 flash launches) and ``generate_origami`` on a 2 x
+    32 prompt with 8 new tokens (7 x 4 x 39 counts and launches)."""
+    p = cfg.origami.tier1_layers
+    _lm_infer_gates(cfg, params, dev, f"mla infer on {card}", p, 8,
+                    LM_INFER_SHAPE, SEED + 80)
+    _free()
+    _generate_origami_gates(cfg, params, dev,
+                            f"mla generate_origami on {card}", p)
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
+
+    def mark(what):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     dev = torch.device("cuda")
     card = phase_card_and_build()
+    mark("build")
     cfg = get_config("vgg16")
     acc = phase_kernels(cfg, dev)
+    mark("kernels")
     flash = phase_flash(dev)
+    mark("flash")
     server, batch, fused_launches, sealed = phase_serving(cfg, dev)
     phase_breakdown(server, batch)
     params = server.executor.params
@@ -3113,17 +3434,22 @@ def main():
     phase_plane(cfg, params, batch, server.executor, dev)
     del server
     torch.cuda.empty_cache()
+    mark("serving, unfused serving, fault drills, recovery, plane")
     phase_planned_serving(cfg, params, dev, card)
     _free()
+    mark("planned serving")
     phase_adversary_parity(dev, card)
     phase_partition_search(cfg, params, dev, card)
     del params
     torch.cuda.empty_cache()
+    mark("adversary parity, algorithm 1")
     vgg16 = phase_engine_serving(dev, card)
     phase_chaos_drill(vgg16, dev, card)
     del vgg16
     torch.cuda.empty_cache()
+    mark("engine serving, chaos drill")
     gen_launches = phase_generate(dev)
+    mark("generate")
     lm_cfg = get_config("smollm_135m")
     lm_params = M.init_params(lm_cfg, SEED, device=dev)
     phase_lm_infer(lm_cfg, lm_params, dev, card)
@@ -3134,6 +3460,7 @@ def main():
     phase_token_probe(lm_cfg, lm_params, dev, card)
     del lm_params
     _free()
+    mark("the SmolLM serving phases and the token probe")
     phase_moe_layer(dev, card)
     _free()
     moe_cfg = _moe_config()
@@ -3150,6 +3477,25 @@ def main():
     phase_moe_engine(moe_cfg, moe_params, dev, card)
     phase_moe_generate_origami(moe_cfg, moe_params, dev, card)
     del moe_params
+    _free()
+    mark("the MoE phases")
+    yi_cfg, yi_params = _load_model("yi_9b", dev)
+    phase_yi_generate(yi_cfg, yi_params, dev, card)
+    del yi_params
+    mark("yi generate")
+    qwen_cfg, qwen_params = _load_model("qwen2_5_14b", dev)
+    phase_qwen25_infer(qwen_cfg, qwen_params, dev, card)
+    del qwen_params
+    _free()
+    mark("qwen2.5 infer")
+    mla_cfg, mla_params = _load_model("minicpm3_4b", dev)
+    phase_mla_generate(mla_cfg, mla_params, dev, card)
+    mark("mla generate")
+    phase_mla_infer(mla_cfg, mla_params, dev, card)
+    del mla_params
+    mark("mla infer, mla generate_origami")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it
     launches = {name: (unfused_launches if name in READ_ON_UNFUSED
                        else fused_launches)[name] for name in KB.KERNELS}

@@ -1,5 +1,5 @@
-"""Config registry of the port: the paper's two CNNs, the dense LM and
-the two mixture-of-experts LMs.
+"""Config registry of the port: the paper's two CNNs, the dense LMs (GQA
+and, for MiniCPM3, latent attention) and the two mixture-of-experts LMs.
 
 ``get_config(name)`` returns the published configuration;
 ``get_smoke(name)`` a reduced same-family one for CPU tests.
@@ -8,12 +8,15 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, OrigamiConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      OrigamiConfig)
 
 PAPER_MODELS = ("vgg16", "vgg19")
-ARCHS = ("smollm_135m", "qwen3_moe_235b", "arctic_480b")
+ARCHS = ("qwen2_5_14b", "yi_9b", "minicpm3_4b", "smollm_135m",
+         "qwen3_moe_235b", "arctic_480b")
 ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19",
-           "smollm-135m": "smollm_135m",
+           "qwen2.5-14b": "qwen2_5_14b", "yi-9b": "yi_9b",
+           "minicpm3-4b": "minicpm3_4b", "smollm-135m": "smollm_135m",
            "qwen3-moe-235b-a22b": "qwen3_moe_235b",
            "arctic-480b": "arctic_480b"}
 
@@ -34,5 +37,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "PAPER_MODELS", "ModelConfig", "MoEConfig",
+__all__ = ["ARCHS", "PAPER_MODELS", "MLAConfig", "ModelConfig", "MoEConfig",
            "OrigamiConfig", "get_config", "get_smoke"]

@@ -3,11 +3,12 @@
 same order and with the same defaults, so ``to_json()`` — which the
 enclave measurement hashes — is identical for the same model.
 
-``MoEConfig`` copies the reference's fields, order and defaults: the
-mixture-of-experts family (models/moe.py) reads it, and ``to_json()``
-nests it as the reference does. The latent-attention and state-space
-sub-configs belong to language-model families this port does not carry
-yet; their fields stay (as ``None``) to keep the JSON identical. The
+``MoEConfig`` and ``MLAConfig`` copy the reference's fields, order and
+defaults: the mixture-of-experts family (models/moe.py) and the latent
+attention (models/attention.py) read them, and ``to_json()`` nests them as
+the reference does. The state-space sub-config belongs to a family this
+port does not carry yet; its field stays (as ``None``) to keep the JSON
+identical. The
 properties (``resolved_head_dim``, ``padded_vocab``) are not fields, so
 they do not enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
 (optim/adamw.py) reads it.
@@ -33,6 +34,16 @@ class MoEConfig:
     dispatch: str = "gshard"
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclass(frozen=True)
@@ -81,7 +92,7 @@ class ModelConfig:
     activation: str = "silu"
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[Any] = None
     hybrid_attn_every: int = 0
     encoder_decoder: bool = False

@@ -58,9 +58,9 @@ _SIGNATURES = {
                         ctypes.c_int, _P),
     "repro_blind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     "repro_unblind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
-    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, causal, the (b, s, h)
+    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, Dv, causal, the (b, s, h)
     # element strides of q, k and v, the score scale, the stream
-    "repro_flash_attention": (_P, _P, _P, _P) + (ctypes.c_int,) * 8
+    "repro_flash_attention": (_P, _P, _P, _P) + (ctypes.c_int,) * 9
                              + (ctypes.c_longlong,) * 9
                              + (ctypes.c_float, _P),
 }

@@ -1,9 +1,10 @@
 // flash_attention: causal or non-causal GQA softmax attention, forward.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py:
-// flash_attention_fwd (_kernel). Inputs q (B, Sq, H, D) and k, v (B, Skv, KH,
-// D), float32 or bf16, read through their (b, s, h) element strides with a
-// unit-stride last dim; output (B, Sq, H, D), contiguous, in q's dtype:
+// flash_attention_fwd (_kernel). Inputs q (B, Sq, H, D), k (B, Skv, KH, D)
+// and v (B, Skv, KH, Dv), float32 or bf16, read through their (b, s, h)
+// element strides with a unit-stride last dim; output (B, Sq, H, Dv),
+// contiguous, in q's dtype:
 //
 //   s    = (q . k) * scale                      scale = 1 / sqrt(D)
 //   mask = qpos >= kpos (causal) and kpos < Skv  masked scores are -1e30
@@ -49,17 +50,32 @@
 // 2 x 64 q rows and two K/V stages take 104,448 bytes of shared memory. At
 // Qwen's 16 query heads a KV head a CTA holds 2 heads at either width.
 //
-// float32: the CUDA cores (its tolerance, 2e-5, rules out bf16 and TF32
-// operands; at the prefill shape it takes 0.56 ms against 0.90 ms for
+// The value width may differ from the query width: MLA (MiniCPM3) attends
+// with q and k of 96 (64 + 32 rope) and v of 64, 48 and 32 at its smoke
+// widths. Both kernels are templates on the pair (D, Dv): the Q and K rows
+// are D wide and take D / 16 k-steps of Q.K^T (6 at 96), the V rows and the
+// output Dv wide (Dv / 8 n8 tiles). The built pairs are (32, 32), (64, 64),
+// (128, 128), (96, 64) and (48, 32); any other pair is refused. At (96, 64)
+// a thread holds 24 Q registers, 32 of S and 32 of O, so a CTA holds up to 3
+// heads as at D 64; MiniCPM3's 40 query heads have one KV head each (G 1), so
+// its CTAs hold one head: 128 threads and 58,368 bytes of shared memory
+// (64 Q rows and two stages of 64 K rows of 208 bytes and 64 V rows of 144).
+// Its prefill (B 4, S 1024) is bound by bytes, not operations: 26.9 GFLOP
+// on 105 MB, 0.031 ms at 3.35 TB/s; with G 1 no K/V tile serves two heads,
+// so each CTA streams its head's keys once per q block, mostly from L2.
+//
+// float32 (flash_attention_f32.cu, its own translation unit, which nvcc
+// compiles beside this one): the CUDA cores (its tolerance, 2e-5, rules out
+// bf16 and TF32 operands; at the prefill shape it takes 0.56 ms against 0.90 ms for
 // scaled_dot_product_attention in float32 on an H100 80GB HBM3 at 700 W).
 // One CTA per (q block of 64 rows, group of up to 4 query heads of
-// one KV head, batch); a thread owns one (row, head) pair with its q and f32
-// accumulator in registers; each 64-key K/V tile is staged once in dynamic
-// shared memory for all heads (64 KB at D = 128, past the 48 KB a static
-// array may take); the online softmax advances in chunks of 16 keys. At
-// D = 128 the thread's q and accumulator (256 floats) exceed the 255
-// registers a thread may hold, so they spill to local memory: a sweep-only
-// dtype, its spill bytes printed by the build line.
+// one KV head, batch); a thread owns one (row, head) pair with its q (D
+// floats) and f32 accumulator (Dv floats) in registers; each 64-key K/V tile
+// is staged once in dynamic shared memory for all heads (64 KB at D = 128,
+// past the 48 KB a static array may take); the online softmax advances in
+// chunks of 16 keys. At D = 128 the thread's q and accumulator (256 floats)
+// exceed the 255 registers a thread may hold, so they spill to local memory:
+// a sweep-only dtype, its spill bytes printed by the build line.
 //
 // Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
 // the first tile always holds key 0, which every row sees, so no exp argument
@@ -70,33 +86,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query positions a CTA (both kernels)
-constexpr int BK = 64;         // keys a tile
-constexpr float NEG = -1e30f;
-
-struct Strides {
-  long long b, s, h;
-};
+using flash::BK;
+using flash::BQ;
+using flash::NEG;
+using flash::Strides;
 
 // ---- bf16: tensor cores ----
 
-// query heads a CTA: 3 at D <= 64, 2 at D = 128 (registers, above)
-template <int D>
-constexpr int mma_max_gb() { return D >= 128 ? 2 : 3; }
+// query heads a CTA: 3 up to (96, 64), 2 at D = 128 (registers, above)
+template <int D, int DV>
+constexpr int mma_max_gb() { return D + DV > 192 ? 2 : 3; }
 constexpr int WARPS_PER_HEAD = BQ / 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// Padded rows (an odd number of 16-byte units: ldmatrix reads them without
+// bank conflicts) of q and K (D wide) and of V (DV wide).
+template <int D, int DV>
 struct Smem {
-  static constexpr int ROW = 2 * D + 16;    // padded row, bytes
-  static constexpr int CHUNKS = 2 * D / 16; // 16-byte chunks a row
-  static constexpr int TILE = BK * ROW;
+  static constexpr int ROW = 2 * D + 16;      // q and K row, bytes
+  static constexpr int VROW = 2 * DV + 16;    // V row, bytes
+  static constexpr int CHUNKS = 2 * D / 16;   // 16-byte chunks a q or K row
+  static constexpr int VCHUNKS = 2 * DV / 16; // ... a V row
+  static constexpr int KTILE = BK * ROW;
+  static constexpr int STAGE = KTILE + BK * VROW;   // K then V
   // q rows of GB heads, then K and V of two stages
-  static constexpr int bytes(int GB) { return GB * BQ * ROW + 4 * TILE; }
+  static constexpr int bytes(int GB) { return GB * BQ * ROW + 2 * STAGE; }
 };
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -112,38 +131,42 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsig
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-template <int D>
-__device__ __forceinline__ void load_kv(char* kbuf, char* vbuf, const __nv_bfloat16* kb,
+// K then V of keys [k0, k0 + BK) into one stage (K at 0, V at KTILE)
+template <int D, int DV>
+__device__ __forceinline__ void load_kv(char* stage, const __nv_bfloat16* kb,
                                         const __nv_bfloat16* vb, Strides ks, Strides vs,
                                         int k0, int Skv, int nthreads) {
-  using S = Smem<D>;
-  for (int e = threadIdx.x; e < 2 * BK * S::CHUNKS; e += nthreads) {
-    const bool is_v = e >= BK * S::CHUNKS;
-    const int rem = is_v ? e - BK * S::CHUNKS : e;
-    const int row = rem / S::CHUNKS, c = rem % S::CHUNKS;
+  using S = Smem<D, DV>;
+  constexpr int KN = BK * S::CHUNKS;
+  for (int e = threadIdx.x; e < KN + BK * S::VCHUNKS; e += nthreads) {
+    const bool is_v = e >= KN;
+    const int chunks = is_v ? S::VCHUNKS : S::CHUNKS;
+    const int rem = is_v ? e - KN : e;
+    const int row = rem / chunks, c = rem % chunks;
     const int kp = k0 + row;
     const bool ok = kp < Skv;
     const __nv_bfloat16* src =
         is_v ? vb + (ok ? kp : 0) * vs.s + 8 * c : kb + (ok ? kp : 0) * ks.s + 8 * c;
-    tiles::cp_async16((is_v ? vbuf : kbuf) + row * S::ROW + 16 * c, src, ok);
+    char* dst = is_v ? stage + S::KTILE + row * S::VROW : stage + row * S::ROW;
+    tiles::cp_async16(dst + 16 * c, src, ok);
   }
 }
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
+template <int D, int DV, bool CAUSAL>
+__global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int G,
                               int GB, int n_qblocks, int n_heads_b, Strides qs, Strides ks,
                               Strides vs, float scale) {
-  using S = Smem<D>;
-  constexpr int DT = D / 8;     // n8 tiles of the output
+  using S = Smem<D, DV>;
+  constexpr int DT = DV / 8;    // n8 tiles of the output
   constexpr int DK = D / 16;    // k16 steps of Q.K^T
   constexpr int NT = BK / 8;    // n8 tiles of S
   extern __shared__ __align__(128) char smem[];
   char* qbuf = smem;
-  char* kvbuf = smem + GB * BQ * S::ROW;  // stage s: K at 2s TILE, V at 2s+1
+  char* kvbuf = smem + GB * BQ * S::ROW;  // stage s at s STAGE: K, then V
 
   // heaviest q blocks first: block index -> (q block from the end, batch,
   // KV head, group of GB of its G query heads)
@@ -177,7 +200,7 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
         q + bidx * qs.b + (ok ? qpos : 0) * qs.s + (h0 + row / BQ) * qs.h + 8 * c;
     tiles::cp_async16(qbuf + row * S::ROW + 16 * c, src, ok);
   }
-  if (n_tiles > 0) load_kv<D>(kvbuf, kvbuf + S::TILE, kb, vb, ks, vs, 0, Skv, nthreads);
+  if (n_tiles > 0) load_kv<D, DV>(kvbuf, kb, vb, ks, vs, 0, Skv, nthreads);
   tiles::cp_async_commit();
 
   float o[DT][4];
@@ -193,10 +216,9 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
-    if (tile + 1 < n_tiles) {
-      char* nb = kvbuf + 2 * ((tile + 1) & 1) * S::TILE;
-      load_kv<D>(nb, nb + S::TILE, kb, vb, ks, vs, k0 + BK, Skv, nthreads);
-    }
+    if (tile + 1 < n_tiles)
+      load_kv<D, DV>(kvbuf + ((tile + 1) & 1) * S::STAGE, kb, vb, ks, vs, k0 + BK, Skv,
+                     nthreads);
     tiles::cp_async_commit();
     tiles::cp_async_wait<1>();   // tile `tile` (and q) have landed
     __syncthreads();
@@ -208,8 +230,8 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
     }
     const bool skip = !warp_live || (CAUSAL && k0 > row_lo + 15);
     if (!skip) {
-      const char* kt = kvbuf + 2 * (tile & 1) * S::TILE;
-      const char* vt = kt + S::TILE;
+      const char* kt = kvbuf + (tile & 1) * S::STAGE;
+      const char* vt = kt + S::KTILE;
 
       // S = Q K^T: K rows (keys) as the col-major B operand
       float s[NT][4];
@@ -280,7 +302,7 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
         for (int u = 0; u < DT / 2; ++u) {
           unsigned vf[4];
           tiles::ldmatrix_x4_trans(
-              vf, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::ROW +
+              vf, vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S::VROW +
                       2 * (16 * u + (lane >> 4) * 8));
           tiles::mma_bf16_16816(o[2 * u], hi, &vf[0]);
           tiles::mma_bf16_16816(o[2 * u], lo, &vf[0]);
@@ -304,8 +326,8 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
     const int qpos = row_lo + g + 8 * h;
     if (qpos >= Sq) continue;
     const float inv_l = 1.f / fmaxf(l_row[h], 1e-30f);
-    __nv_bfloat16* op = out + (static_cast<long long>(bidx) * Sq + qpos) * H * D +
-                        static_cast<long long>(h0 + gi) * D + 2 * t;
+    __nv_bfloat16* op = out + (static_cast<long long>(bidx) * Sq + qpos) * H * DV +
+                        static_cast<long long>(h0 + gi) * DV + 2 * t;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
       *reinterpret_cast<unsigned*>(op + 8 * j) =
@@ -313,195 +335,57 @@ __global__ void __launch_bounds__(mma_max_gb<D>() * WARPS_PER_HEAD * 32, 1)
   }
 }
 
-// ---- float32: CUDA cores ----
-
-constexpr int CHUNK = 16;      // keys per online-softmax step
-constexpr int MAX_GB = 4;      // query heads a CTA (BQ * MAX_GB threads)
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(BQ * MAX_GB)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out, int Sq,
-                         int Skv, int H, int G, int GB, Strides qs, Strides ks, Strides vs,
-                         float scale) {
-  constexpr int D4 = D / 4;
-  extern __shared__ float4 kv_tiles[];   // K then V: BK rows of D4 float4
-  float4* k_tile = kv_tiles;
-  float4* v_tile = kv_tiles + BK * D4;
-
-  const int groups = G / GB;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y / groups;
-  const int h = kh * G + (blockIdx.y % groups) * GB + threadIdx.x / BQ;
-  const int q0 = blockIdx.x * BQ;
-  const int qpos = q0 + threadIdx.x % BQ;
-
-  float qv[D];
-  float acc[D];
-  {
-    const float* qp = q + b * qs.b + static_cast<long long>(min(qpos, Sq - 1)) * qs.s +
-                      h * qs.h;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qv[d] = qp[d];
-      acc[d] = 0.f;
-    }
-  }
-  float m = NEG, l = 0.f;
-
-  const int q_last = min(q0 + BQ, Sq) - 1;         // last stored row
-  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
-  const float* kb = k + b * ks.b + kh * ks.h;
-  const float* vb = v + b * vs.b + kh * vs.h;
-  float* k_flat = reinterpret_cast<float*>(k_tile);
-  float* v_flat = reinterpret_cast<float*>(v_tile);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                   // the previous tile is consumed
-    for (int e = threadIdx.x; e < BK * D; e += blockDim.x) {
-      const int j = e / D, d = e % D;
-      const int kp = k0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (kp < Skv) {
-        kx = kb[kp * ks.s + d];
-        vx = vb[kp * vs.s + d];
-      }
-      k_flat[e] = kx;
-      v_flat[e] = vx;
-    }
-    __syncthreads();
-
-    for (int c = 0; c < BK; c += CHUNK) {
-      float p[CHUNK];
-      float mc = NEG;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const int kp = k0 + c + jj;
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < D4; ++d4) {
-          const float4 kk = k_tile[(c + jj) * D4 + d4];
-          dot = fmaf(qv[4 * d4], kk.x, dot);
-          dot = fmaf(qv[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qv[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qv[4 * d4 + 3], kk.w, dot);
-        }
-        const bool seen = kp < Skv && (!CAUSAL || kp <= qpos);
-        p[jj] = seen ? dot * scale : NEG;
-        mc = fmaxf(mc, p[jj]);
-      }
-      const float m_new = fmaxf(m, mc);
-      const float corr = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        p[jj] = expf(p[jj] - m_new);
-        psum += p[jj];
-      }
-      l = l * corr + psum;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-#pragma unroll
-        for (int d4 = 0; d4 < D4; ++d4) {
-          const float4 vv = v_tile[(c + jj) * D4 + d4];
-          acc[4 * d4] = fmaf(p[jj], vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p[jj], vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p[jj], vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p[jj], vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (qpos < Sq) {
-    const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    float* op = out + (static_cast<long long>(b) * Sq + qpos) * H * D +
-                static_cast<long long>(h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] * inv_l;
-  }
-}
-
-// Query heads a CTA holds: the largest divisor of G up to `most`.
-int heads_per_cta(int G, int most) {
-  for (int gb = most; gb > 1; --gb)
-    if (G % gb == 0) return gb;
-  return 1;
-}
-
-template <int D, bool CAUSAL>
+template <int D, int DV, bool CAUSAL>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                 int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
                 cudaStream_t stream) {
   const int G = H / KH;
-  const int GB = heads_per_cta(G, mma_max_gb<D>());
+  const int GB = flash::heads_per_cta(G, mma_max_gb<D, DV>());
   const int n_qblocks = (Sq + BQ - 1) / BQ;
   const int n_heads_b = B * KH * (G / GB);            // (batch, head group) pairs
   const long long blocks = static_cast<long long>(n_qblocks) * n_heads_b;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_bf16_mma_kernel<D, CAUSAL>;
+  auto kernel = flash_fwd_bf16_mma_kernel<D, DV, CAUSAL>;
+  using S = Smem<D, DV>;
   // the limit is per device: set it on the current one at every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::bytes(mma_max_gb<D>()));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::bytes(mma_max_gb<D, DV>()));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, Smem<D>::bytes(GB),
+  kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, S::bytes(GB),
            stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq,
                      Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool CAUSAL>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-               cudaStream_t stream) {
-  const int G = H / KH;
-  const int GB = heads_per_cta(G, MAX_GB);
-  const dim3 grid(static_cast<unsigned>((Sq + BQ - 1) / BQ),
-                  static_cast<unsigned>(KH * (G / GB)), static_cast<unsigned>(B));
-  auto kernel = flash_fwd_f32_kernel<D, CAUSAL>;
-  constexpr int smem = 2 * BK * D * static_cast<int>(sizeof(float));
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid, BQ * GB, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Skv, H, G, GB, qs, ks, vs, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int D>
+template <int D, int DV>
 int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
              int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
              float scale, cudaStream_t st) {
   if (dtype == 0)
-    return causal ? launch_f32<D, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
-                  : launch_f32<D, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
-                                         st);
+    return flash::launch_f32(D, DV, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
+                             st);
   // bf16: 16-byte copies of rows need 16-byte-aligned rows
   const Strides all[3] = {qs, ks, vs};
   for (const Strides& s : all)
     if (s.b % 8 || s.s % 8 || s.h % 8) return static_cast<int>(cudaErrorMisalignedAddress);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return causal ? launch_bf16<D, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
-                : launch_bf16<D, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
-                                        st);
+  return causal
+             ? launch_bf16<D, DV, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
+             : launch_bf16<D, DV, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
+                                         st);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bf16. Strides are in elements.
+// dtype: 0 float32, 1 bf16. D is the width of q and k, Dv of v and the output;
+// (D, Dv) must be a built pair. Strides are in elements.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, int dtype, int B, int Sq, int Skv,
-                                     int H, int KH, int D, int causal, long long qsb,
+                                     int H, int KH, int D, int Dv, int causal, long long qsb,
                                      long long qss, long long qsh, long long ksb,
                                      long long kss, long long ksh, long long vsb,
                                      long long vss, long long vsh, float scale,
@@ -511,14 +395,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return dispatch<32>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
-    case 64:
-      return dispatch<64>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
-    case 128:
-      return dispatch<128>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH_PAIR(DQ, DVV)                                                           \
+  if (D == DQ && Dv == DVV)                                                               \
+    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, \
+                             scale, st);
+  REPRO_FLASH_PAIRS(REPRO_FLASH_PAIR)
+#undef REPRO_FLASH_PAIR
+  return static_cast<int>(cudaErrorInvalidValue);
 }

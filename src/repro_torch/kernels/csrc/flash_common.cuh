@@ -1,0 +1,36 @@
+// Shared by the two translation units of the flash-attention kernel:
+// flash_attention.cu (the bf16 tensor-core kernel and the C entry point) and
+// flash_attention_f32.cu (the float32 CUDA-core kernel), compiled by separate
+// nvcc processes in parallel.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// The built (q/k width D, v width Dv) pairs: SmolLM's 32 and 64, 128 of the
+// GQA LMs, MiniCPM3's MLA (96, 64) and its smoke widths (48, 32).
+#define REPRO_FLASH_PAIRS(X) X(32, 32) X(64, 64) X(128, 128) X(96, 64) X(48, 32)
+
+namespace flash {
+
+constexpr int BQ = 64;         // query positions a CTA (both kernels)
+constexpr int BK = 64;         // keys a tile
+constexpr float NEG = -1e30f;
+
+struct Strides {
+  long long b, s, h;
+};
+
+// Query heads a CTA holds: the largest divisor of G up to `most`.
+inline int heads_per_cta(int G, int most) {
+  for (int gb = most; gb > 1; --gb)
+    if (G % gb == 0) return gb;
+  return 1;
+}
+
+// The float32 kernel's launch for the pair (D, Dv) (flash_attention_f32.cu);
+// cudaErrorInvalidValue for a pair it was not built for.
+int launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
+               void* out, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
+               Strides vs, float scale, cudaStream_t stream);
+
+}  // namespace flash

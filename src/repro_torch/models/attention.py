@@ -1,26 +1,31 @@
-"""Attention of the dense and MoE LMs: GQA with RoPE, prefill and decode
-paths.
+"""Attention of the dense and MoE LMs: GQA with RoPE and Multi-head
+Latent Attention (MLA), prefill and decode paths.
 
-Port of the GQA part of ``repro/models/attention.py``. Projections work on
-the flat ``(..., n_heads * head_dim)`` layout and go through
-``layers.dense``, so the Origami executor's hook routes them into the
-Slalom protocol in tier-1. Layouts are the reference's: q (B, S, H, D),
-k and v (B, S, KH, D), a layer's ``KVCache`` (B, max_seq, KH, D).
+Port of the GQA and MLA parts of ``repro/models/attention.py``.
+Projections work on the flat ``(..., n_heads * head_dim)`` layout and go
+through ``layers.dense``, so the Origami executor's hook routes them into
+the Slalom protocol in tier-1. Layouts are the reference's: q (B, S, H, D),
+k and v (B, S, KH, D), a GQA layer's ``KVCache`` (B, max_seq, KH, D); an
+MLA layer's cache is the latent and the shared rope key, (B, max_seq,
+kv_lora_rank + qk_rope_head_dim), with no ``v``.
 
 ``sdpa`` is the prompt-side attention. The reference serves it with a
 plain or a chunked online-softmax core in jnp; both compute the function
 of the flash-attention kernel, so here every call goes to
 ``flash_attention_fwd``: on a CUDA tensor the hand-written kernel (head
-widths 32 and 64 of SmolLM, 128 of Qwen3-MoE and Arctic), on a CPU
+widths 32 and 64 of SmolLM, 128 of Yi, Qwen2.5, Qwen3-MoE and Arctic, and
+MLA's q/k 96 against v 64, 48 against 32 at the smoke widths), on a CPU
 tensor its plain version. The reference pads an irregular key length
 to a tile multiple and masks the padded keys; the kernel masks a ragged
 length itself, so such calls go to it unpadded. Sliding windows and query
 offsets are not ported. ``decode_sdpa`` (one query
 against the cache) has no kernel in the reference and stays plain
-PyTorch.
+PyTorch, as do MLA's absorbed decode einsums, which read ``wkv_b``'s
+weight directly (not through ``layers.dense``): in tier-1 they run in
+float32 in the enclave, as in the reference.
 
-MLA, cross-attention and windowed attention are not ported yet (ROADMAP
-Queue 1 item 11).
+Cross-attention and windowed attention are not ported yet (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -34,11 +39,14 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_fwd)
 from repro_torch.models import layers as L
 
-_ROADMAP = "ROADMAP Queue 1 item 11"
+_ROADMAP = "ROADMAP Queue 1"
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor          # (B, max_seq, KH, D); stacked: (L, B, ...)
+    """A layer's cache: k and v (B, max_seq, KH, D), or for MLA k the
+    latent and rope key (B, max_seq, latent + rope) and v None; a stacked
+    cache leads with a layer dim."""
+    k: torch.Tensor
     v: Optional[torch.Tensor]
 
 
@@ -55,9 +63,27 @@ def gqa_defs(cfg: ModelConfig) -> Dict[str, object]:
     }
 
 
+def mla_defs(cfg: ModelConfig) -> Dict[str, object]:
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": L.dense_def(d, m.q_lora_rank, ("embed", "lora")),
+        "q_norm": L.norm_def(m.q_lora_rank, "rmsnorm"),
+        "wq_b": L.dense_def(m.q_lora_rank, h * qk, ("lora", "heads_flat")),
+        "wkv_a": L.dense_def(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                             ("embed", "lora")),
+        "kv_norm": L.norm_def(m.kv_lora_rank, "rmsnorm"),
+        "wkv_b": L.dense_def(m.kv_lora_rank,
+                             h * (m.qk_nope_head_dim + m.v_head_dim),
+                             ("lora", "heads_flat")),
+        "wo": L.dense_def(h * m.v_head_dim, d, ("heads_flat", "embed")),
+    }
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
          q_offset=0, window=0) -> torch.Tensor:
-    """q: (B,Sq,H,D); k,v: (B,Skv,KH,D) -> (B,Sq,H,D) in q's dtype.
+    """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
+    q's dtype, the scores scaled by 1/sqrt(D).
 
     A sliding window or a query offset has no kernel and no caller in the
     port and raises."""
@@ -80,9 +106,9 @@ def position(pos, device) -> torch.Tensor:
 
 def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                 pos, *, window=0) -> torch.Tensor:
-    """One-step decode. q: (B,1,H,D); cache: (B,S,KH,D); keys at positions
-    <= ``pos`` (an int or a 0-dim tensor; and inside the window) are
-    seen."""
+    """One-step decode. q: (B,1,H,D); cache_k: (B,S,KH,D); cache_v:
+    (B,S,KH,Dv) -> (B,1,H,Dv); keys at positions <= ``pos`` (an int or a
+    0-dim tensor; and inside the window) are seen."""
     B, _, H, D = q.shape
     S, KH = cache_k.shape[1], cache_k.shape[2]
     qr = q.reshape(B, KH, H // KH, D)
@@ -145,3 +171,122 @@ def gqa_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig):
     cache.v.index_copy_(1, at, v.to(cache.v.dtype))
     out = decode_sdpa(q, cache.k, cache.v, pos)
     return L.dense(p["wo"], out.reshape(B, 1, -1)), cache
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """-> q_nope (B,S,H,nope), q_rope (B,S,H,rope), the normed latent
+    (B,S,rank) and the rope key shared by every head (B,S,rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q = L.dense(p["wq_b"], L.apply_norm(p["q_norm"], L.dense(p["wq_a"], x),
+                                        "rmsnorm"))
+    q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = L.dense(p["wkv_a"], x)
+    latent, k_rope = torch.split(
+        kv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    latent = L.apply_norm(p["kv_norm"], latent, "rmsnorm")
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, latent, k_rope[:, :, 0, :]
+
+
+def _mla_expand_kv(p, latent: torch.Tensor, k_rope: torch.Tensor,
+                   cfg: ModelConfig):
+    """The latent through ``wkv_b`` -> k (B,S,H,nope+rope), the rope key
+    broadcast to every head, and v (B,S,H,v): a view of the projection."""
+    m = cfg.mla
+    B, S = latent.shape[:2]
+    H = cfg.num_heads
+    kv = L.dense(p["wkv_b"], latent).reshape(
+        B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def _mla_attend(p, x: torch.Tensor, cfg: ModelConfig, positions):
+    """(the attention's output projected by ``wo``, latent, rope key)."""
+    B, S, _ = x.shape
+    q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions)
+    k, v = _mla_expand_kv(p, latent, k_rope, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = sdpa(q, k, v, causal=True)
+    return L.dense(p["wo"], out.reshape(B, S, -1)), latent, k_rope
+
+
+def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
+                positions=None) -> torch.Tensor:
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    return _mla_attend(p, x, cfg, positions)[0]
+
+
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+    """Forward + this layer's cache content: the latent and the rope key,
+    (B, S, kv_lora_rank + qk_rope_head_dim), and no ``v``."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    y, latent, k_rope = _mla_attend(p, x, cfg, positions)
+    return y, KVCache(torch.cat([latent, k_rope], dim=-1), None)
+
+
+def mla_absorbed_attend(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                        latents: torch.Tensor, k_ropes: torch.Tensor,
+                        w_kv_b: torch.Tensor, pos: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """One token's attention in latent space, all in float32: ``w_kv_b``
+    (rank, H * (nope + v)) folds q_nope into latent-space queries and the
+    latent context into each head's values. q: (B,1,H,*); latents
+    (B,S,rank) and k_ropes (B,S,rope), keys at positions <= ``pos`` seen
+    -> (B, 1, H * v) float32."""
+    m = cfg.mla
+    B, H = q_nope.shape[0], cfg.num_heads
+    S = latents.shape[1]
+    mask = (torch.arange(S, device=latents.device) <= pos)[None, None, :]
+    wkv_b = w_kv_b.reshape(m.kv_lora_rank, H,
+                           m.qk_nope_head_dim + m.v_head_dim)
+    w_uk, w_uv = torch.split(wkv_b, [m.qk_nope_head_dim, m.v_head_dim],
+                             dim=-1)
+    f32 = torch.float32
+    # fold q_nope through w_uk -> latent-space queries (B, H, rank)
+    q_lat = torch.einsum("bqhn,rhn->bhr", q_nope.to(f32), w_uk.to(f32))
+    s = torch.einsum("bhr,bsr->bhs", q_lat, latents.to(f32))
+    s = s + torch.einsum("bqhr,bsr->bhs", q_rope.to(f32), k_ropes.to(f32))
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = s.masked_fill(~mask, float("-inf"))
+    pattn = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pattn, latents.to(f32))
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv.to(f32))
+    return out.reshape(B, 1, H * m.v_head_dim)
+
+
+def mla_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig,
+               absorbed: bool = True):
+    """Decode against the latent cache; writes this token's latent and
+    rope key into ``cache.k`` at ``pos`` in place (as ``gqa_decode``) and
+    returns the same cache.
+
+    ``absorbed=True`` (the reference's default) folds ``wkv_b`` into the
+    query and the output: scores in latent space, float32 einsums over
+    ``wkv_b``'s weight read directly, O(S * rank) a step. ``absorbed=False``
+    expands the whole cache through ``wkv_b`` (a ``layers.dense`` call of
+    B * S rows) and attends with ``decode_sdpa``."""
+    m = cfg.mla
+    B = x.shape[0]
+    pos = position(pos, x.device)
+    q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(
+        p, x, cfg, pos.reshape(1, 1).expand(B, 1))
+    new_entry = torch.cat([latent_new, k_rope_new], dim=-1)
+    cache.k.index_copy_(1, pos.reshape(1), new_entry.to(cache.k.dtype))
+    latents, k_ropes = torch.split(
+        cache.k, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    if absorbed:
+        y = mla_absorbed_attend(q_nope, q_rope, latents, k_ropes,
+                                p["wkv_b"]["w"], pos, cfg).to(x.dtype)
+    else:
+        k, v = _mla_expand_kv(p, latents, k_ropes, cfg)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        y = decode_sdpa(q, k, v, pos).reshape(B, 1, -1)
+    return L.dense(p["wo"], y), cache

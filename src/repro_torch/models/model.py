@@ -5,7 +5,10 @@ Port of the dense and MoE part of ``repro/models/model.py``. Parameters
 are a nested dict of tensors with the reference's tree and layouts: block
 leaves are stacked (a leading layer dim; a MoE expert bank is
 (L, E, d, f), its router float32), the KV cache is ``KVCache`` of
-(L, B, max_seq, KH, D) tensors, activations are (B, S, d). The
+(L, B, max_seq, KH, D) tensors (an MLA model's: k the latent and rope key,
+(L, B, max_seq, kv_lora_rank + qk_rope_head_dim), and v ``None``, which
+every cache function passes through as the reference treats ``None`` as
+an empty subtree), activations are (B, S, d). The
 reference's ``lax.scan`` over blocks is a Python loop here, so the
 ``*_unrolled`` walks (which the reference keeps for per-op addressable
 tier-1 traces) are the same functions as their scanned names.
@@ -147,6 +150,11 @@ def forward(params, batch, cfg: ModelConfig) -> T.LMOutputs:
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device="cuda") -> A.KVCache:
+    if cfg.attention == "mla":
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        return A.KVCache(k=torch.zeros((cfg.num_layers, batch, max_seq,
+                                        width), dtype=dtype, device=device),
+                         v=None)
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return A.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -163,7 +171,9 @@ def prefill_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
             T.layer_params(params["blocks"], i), x, cfg)
         ks.append(cache.k)
         vs.append(cache.v)
-    return x, A.KVCache(torch.stack(ks), torch.stack(vs))
+    # an MLA cache has no v
+    return x, A.KVCache(torch.stack(ks),
+                        None if vs[0] is None else torch.stack(vs))
 
 
 # one loop serves both: every linear op is its own call in eager PyTorch
@@ -176,10 +186,12 @@ def concat_layer_caches(parts, max_seq: int,
     stack, padded along the sequence axis to ``max_seq``, in the decode
     cache dtype."""
     def cat(leaves):
+        if leaves[0] is None:
+            return None
         c = torch.cat(leaves, dim=0)
         pad = max_seq - c.shape[2]
-        if pad:
-            c = F.pad(c, (0, 0, 0, 0, 0, pad))
+        if pad:      # dim 2 (sequence) of (L, B, S, ...)
+            c = F.pad(c, (0, 0) * (c.dim() - 3) + (0, pad))
         return c.to(dtype)
 
     return A.KVCache(cat([p.k for p in parts]), cat([p.v for p in parts]))
@@ -204,7 +216,8 @@ def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos,
     for i in range(lo, hi):
         x, _ = T.decoder_block_decode(
             T.layer_params(params["blocks"], i), x,
-            A.KVCache(caches.k[i], caches.v[i]), pos, cfg)
+            A.KVCache(caches.k[i], None if caches.v is None
+                      else caches.v[i]), pos, cfg)
     return x, caches
 
 

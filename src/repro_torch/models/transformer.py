@@ -1,13 +1,13 @@
 """Decoder stack of the dense and mixture-of-experts LM families.
 
 Port of the dense and MoE part of ``repro/models/transformer.py``: the
-gated MLP, the pre-norm decoder block's forward / prefill / decode (a MoE
-block runs ``models/moe.py`` in the MLP's place and returns its aux
-loss), stacked parameter definitions and ``lm_defs``. The reference scans
-blocks with ``lax.scan`` over stacked parameters; the port keeps the
-stacked layout (a leading layer dim on every block leaf) and walks it
-with a Python loop (models/model.py). Latent attention and the other
-families wait (ROADMAP Queue 1 items 11-12).
+gated MLP, the pre-norm decoder block's forward / prefill / decode with
+GQA or, for ``attention == "mla"``, latent attention (a MoE block runs
+``models/moe.py`` in the MLP's place and returns its aux loss), stacked
+parameter definitions and ``lm_defs``. The reference scans blocks with
+``lax.scan`` over stacked parameters; the port keeps the stacked layout (a
+leading layer dim on every block leaf) and walks it with a Python loop
+(models/model.py). The other families wait (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -23,10 +23,12 @@ from repro_torch.models import moe as MOE
 
 
 def _supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa":
+    ok = (cfg.family in ("dense", "moe") and cfg.attention == "gqa") or (
+        cfg.family == "dense" and cfg.attention == "mla")
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE GQA families, not "
-            f"{cfg.family}/{cfg.attention} (ROADMAP Queue 1 items 11-12)")
+            f"{cfg.name}: the port runs the dense and MoE GQA families and "
+            f"dense MLA, not {cfg.family}/{cfg.attention} (ROADMAP Queue 1)")
 
 
 def _gated(cfg: ModelConfig) -> bool:
@@ -55,13 +57,33 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def decoder_block_defs(cfg: ModelConfig):
     _supported(cfg)
-    d = {"ln1": L.norm_def(cfg.d_model, cfg.norm), "attn": A.gqa_defs(cfg),
+    attn = A.mla_defs(cfg) if cfg.attention == "mla" else A.gqa_defs(cfg)
+    d = {"ln1": L.norm_def(cfg.d_model, cfg.norm), "attn": attn,
          "ln2": L.norm_def(cfg.d_model, cfg.norm)}
     if cfg.moe is not None:
         d["moe"] = MOE.moe_defs(cfg)
     else:
         d["mlp"] = mlp_defs(cfg)
     return d
+
+
+def _attn_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+    if cfg.attention == "mla":
+        return A.mla_forward(p, x, cfg)
+    return A.gqa_forward(p, x, cfg)
+
+
+def _attn_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+    if cfg.attention == "mla":
+        return A.mla_prefill(p, x, cfg)
+    return A.gqa_prefill(p, x, cfg)
+
+
+def _attn_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
+                 cfg: ModelConfig):
+    if cfg.attention == "mla":
+        return A.mla_decode(p, x, cache, pos, cfg)
+    return A.gqa_decode(p, x, cache, pos, cfg)
 
 
 def _ffn(p, x: torch.Tensor, cfg: ModelConfig):
@@ -72,13 +94,13 @@ def _ffn(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
-    h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
+    h = x + _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
     y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
     return h + y, aux
 
 
 def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
-    a, cache = A.gqa_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+    a, cache = _attn_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                              cfg)
     h = x + a
     y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
@@ -87,7 +109,7 @@ def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
 
 def decoder_block_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
                          cfg: ModelConfig):
-    a, cache = A.gqa_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+    a, cache = _attn_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                             cache, pos, cfg)
     h = x + a
     y, _ = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)

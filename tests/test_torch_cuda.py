@@ -236,9 +236,10 @@ def test_tensor_core_kernels_in_sass(dev):
             if any(k in n for k in ("limb_matmul_mma_kernel",
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
-    # flash: head widths 32, 64 and 128, causal and not; the fold has two
-    # tilings, one kernel each
-    assert len(flash) == 6 and len(limb) == 4, sorted(bodies)
+    # flash: the (q/k, v) width pairs (32, 32), (64, 64), (128, 128),
+    # (96, 64) and (48, 32), causal and not; the fold has two tilings, one
+    # kernel each
+    assert len(flash) == 10 and len(limb) == 4, sorted(bodies)
     for body in flash:
         assert re.search(r"\bHG?MMA\b", body)
         assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
@@ -432,6 +433,10 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     (2, 130, 130, 14, 2, 128, False),     # D 128, G = 7, ragged
     (1, 200, 70, 16, 1, 128, True),       # D 128, causal, Sq > Skv
     (2, 1, 50, 16, 2, 128, True),         # D 128, Sq = 1
+    (4, 1024, 1024, 32, 4, 128, True),    # the Yi-9B prefill shape, G = 8
+    (4, 1024, 1024, 40, 8, 128, True),    # the Qwen2.5-14B prefill, G = 5
+    (2, 1000, 1000, 40, 8, 128, False),   # G = 5 (one head a CTA), ragged
+    (1, 200, 70, 5, 1, 128, True),        # G = 5, causal, Sq > Skv
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                        D, causal):
@@ -454,6 +459,91 @@ def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     # deterministic: a second launch is bit-equal
     assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D,Dv", [(96, 64), (48, 32)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,causal", [
+    (4, 1024, 1024, 40, 40, True),        # the MiniCPM3 prefill shape
+    (2, 32, 32, 40, 40, True),            # its generate_origami prompt
+    (2, 256, 256, 40, 40, False),         # non-causal
+    (1, 1000, 1000, 8, 8, True),          # ragged
+    (2, 130, 70, 6, 2, True),             # GQA, causal, Sq > Skv
+    (2, 1, 50, 4, 4, True),               # Sq = 1
+])
+def test_flash_attention_value_width_matches_plain(dev, dtype, tol, D, Dv, B,
+                                                   Sq, Skv, H, KH, causal):
+    """MLA's value width apart from the query width: the output takes v's
+    width, the scores 1/sqrt(D); the kernel against its plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq * 7 + H + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dev, dtype) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                         (B, Skv, KH, Dv)))
+    before = KB.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nope,rope,dv", [(64, 32, 64), (32, 16, 32)])
+def test_flash_attention_mla_split_kv_views(dev, dtype, tol, nope, rope, dv):
+    """MLA's v is a view of the wkv_b projection (nope + v wide a head):
+    it goes into the kernel as it is, strided, with k and q built by
+    concatenation as ``models/attention.py`` builds them."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H = 2, 130, 8
+    rng = np.random.default_rng(nope + dv)
+    kv = torch.from_numpy(rng.normal(size=(B, S, H, nope + dv)).astype(
+        np.float32)).to(dev, dtype)
+    k_nope, v = torch.split(kv, [nope, dv], dim=-1)
+    k_rope = torch.from_numpy(rng.normal(size=(B, S, 1, rope)).astype(
+        np.float32)).to(dev, dtype).expand(B, S, H, rope)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, nope + rope)).astype(
+        np.float32)).to(dev, dtype)
+    assert not v.is_contiguous() and v.stride(2) == nope + dv
+    before = KB.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               flash_attention_plain(q, k, v).float().cpu()
+                               .numpy(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention_fwd(q, k, v.contiguous()))
+
+
+def test_flash_attention_rejects_unbuilt_width_pairs(dev):
+    """A (q/k, v) width pair the kernel was not built for raises; nothing
+    falls back to the plain version."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        HEAD_DIMS, flash_attention_fwd)
+    rng = np.random.default_rng(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    before = KB.LAUNCHES["flash_attention"]
+    for D, Dv in ((96, 96), (64, 32), (96, 32), (128, 64), (48, 64)):
+        assert (D, Dv) not in HEAD_DIMS
+        with pytest.raises(ValueError, match="built"):
+            flash_attention_fwd(t(1, 8, 4, D), t(1, 8, 4, D), t(1, 8, 4, Dv))
+    with pytest.raises(ValueError):                  # v's keys differ
+        flash_attention_fwd(t(1, 8, 4, 96), t(1, 8, 4, 96), t(1, 9, 4, 64))
+    assert KB.LAUNCHES["flash_attention"] == before
 
 
 def test_flash_attention_strided_views_and_rejects(dev):
@@ -500,17 +590,18 @@ def test_flash_attention_misaligned_views(dev, dtype, tol):
                                .numpy(), rtol=tol, atol=tol)
 
 
-def test_private_generate_on_card(dev):
-    """Smoke smollm private decode on the card: private and trusted
-    bit-equal, every op checked, the prefill attention through the kernel,
-    logits within the bf16 tolerance (3e-2 of the largest) of the same run
-    on the CPU."""
+@pytest.mark.parametrize("arch", ["smollm_135m", "yi_9b", "minicpm3_4b"])
+def test_private_generate_on_card(dev, arch):
+    """Smoke private decode on the card: private and trusted bit-equal,
+    every op checked, the prefill attention through the kernel (MiniCPM3:
+    q/k 48 against v 32), logits within the bf16 tolerance (3e-2 of the
+    largest) of the same run on the CPU."""
     from repro_torch.configs import get_smoke
     from repro_torch.core.integrity import IntegrityPolicy
     from repro_torch.core.prng import PRNGKey
     from repro_torch.models import model as M
     from repro_torch.runtime.generate import private_generate
-    cfg = get_smoke("smollm_135m")
+    cfg = get_smoke(arch)
     params = M.init_params(cfg, 0, device="cpu")
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6))
     kw = dict(max_new_tokens=4, integrity=IntegrityPolicy.full(k=2),
@@ -776,12 +867,12 @@ def test_capture_records_no_kernel_span_and_counts_on_replay(dev):
     assert torch.equal(out, want)
 
 
-def _smoke_lm(dev):
+def _smoke_lm(dev, arch="smollm_135m"):
     from repro_torch.configs import get_smoke
     from repro_torch.core.integrity import IntegrityPolicy
     from repro_torch.core.origami import OrigamiExecutor
     from repro_torch.models import model as M
-    cfg = get_smoke("smollm_135m")
+    cfg = get_smoke(arch)
     params = M.init_params(cfg, 0, device="cpu")
     ex = OrigamiExecutor(cfg, params, "origami", 2,
                          integrity=IntegrityPolicy.full(k=2), device=dev)
@@ -810,15 +901,22 @@ def test_lm_infer_on_card(dev):
                                rtol=0, atol=3e-2 * np.abs(want).max())
 
 
-def test_decode_graphs_replay_bit_equal(dev):
+def _clone_caches(caches):
+    from repro_torch.models.attention import KVCache
+    return KVCache(caches.k.clone(),
+                   None if caches.v is None else caches.v.clone())
+
+
+@pytest.mark.parametrize("arch", ["smollm_135m", "minicpm3_4b"])
+def test_decode_graphs_replay_bit_equal(dev, arch):
     """warm_decode_aot captures the trusted prompt pass and the slot-fed
     and trusted token steps; each replay is bit-equal to the eager step
     in logits, caches and report, credits the same launches, and serves
-    another position than the one it was captured at."""
+    another position than the one it was captured at (MiniCPM3: over the
+    latent cache, whose v is None)."""
     from repro_torch.core.prng import PRNGKey
-    from repro_torch.models.attention import KVCache
     from repro_torch.runtime.aot import CompileCache, GraphStep
-    cfg, params, ex, tokens = _smoke_lm(dev)
+    cfg, params, ex, tokens = _smoke_lm(dev, arch)
     ex.attach_decode_plan(max_steps=4)
     cache = CompileCache()
     ex.attach_aot(cache)
@@ -838,15 +936,16 @@ def test_decode_graphs_replay_bit_equal(dev):
             tok = torch.from_numpy(tokens[:, pos:pos + 1]).to(dev)
             slot = (None if trusted
                     else ex.decode_cache(2).session_factors(key, pos))
-            c0 = KVCache(caches.k.clone(), caches.v.clone())
+            c0 = _clone_caches(caches)
             ne, a = _counted(lambda: ex.decode_once(
                 tok, c0, pos, key, slot, trusted=trusted, jit=False))
-            c1 = KVCache(caches.k.clone(), caches.v.clone())
+            c1 = _clone_caches(caches)
             nr, b = _counted(lambda: ex.decode_once(
                 tok, c1, pos, key, slot, trusted=trusted))
             assert torch.equal(a[0], b[0])
             assert torch.equal(a[1].k, b[1].k)
-            assert torch.equal(a[1].v, b[1].v)
+            assert (a[1].v is None and b[1].v is None) or torch.equal(
+                a[1].v, b[1].v)
             for f in ("checked", "failed", "corrupted"):
                 assert torch.equal(getattr(a[2], f), getattr(b[2], f))
             assert ne == nr

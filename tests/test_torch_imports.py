@@ -58,11 +58,12 @@ def test_port_files_exist():
                    "optim/adamw.py", "privacy/cgan.py",
                    "privacy/reconstruct.py", "core/tree.py",
                    "models/moe.py", "configs/qwen3_moe_235b.py",
-                   "configs/arctic_480b.py"):
+                   "configs/arctic_480b.py", "configs/yi_9b.py",
+                   "configs/qwen2_5_14b.py", "configs/minicpm3_4b.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
-                "blind.cu", "flash_attention.cu"):
+                "blind.cu", "flash_attention.cu", "flash_attention_f32.cu"):
         assert (csrc / src).is_file(), src
 
 

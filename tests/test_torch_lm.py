@@ -1,5 +1,6 @@
-"""The port's dense LM (smollm_135m smoke config, bf16) against the JAX
-reference on the CPU, on the same parameters and token ids.
+"""The port's dense GQA LMs (the smollm_135m, yi_9b and qwen2_5_14b smoke
+configs, bf16) against the JAX reference on the CPU, on the same
+parameters and token ids.
 
 Both sides run bf16 activations with float32 norms, rope and attention
 statistics, but round in other places (XLA fuses elementwise chains,
@@ -25,7 +26,7 @@ from repro.configs import get_smoke as jget_smoke  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.runtime import generate as JG  # noqa: E402
-from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.configs import ALIASES, get_config, get_smoke  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -47,9 +48,16 @@ def _f32(t):
     return t.to(torch.float32).numpy()
 
 
-@pytest.fixture(scope="module")
-def lm():
-    cfg, jcfg = get_smoke("smollm_135m"), jget_smoke("smollm_135m")
+# the dense GQA configs and their parameter trees' leaf counts: embed,
+# final norm, 9 block leaves, lm_head unless the embeddings are tied, and
+# Qwen2.5's three QKV biases
+LMS = {"smollm_135m": 11, "yi_9b": 12, "qwen2_5_14b": 15}
+
+
+@pytest.fixture(scope="module", params=list(LMS))
+def lm(request):
+    arch = request.param
+    cfg, jcfg = get_smoke(arch), jget_smoke(arch)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     npp = jax.tree.map(np.asarray, jp)
     params = M.params_from_numpy(npp, cfg, "cpu")
@@ -71,7 +79,7 @@ def test_params_round_trip_and_tree(lm):
     cfg, _, jp, params, _ = lm
     again = M.params_from_numpy(M.params_to_numpy(params), cfg, "cpu")
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
-    assert len(flat) == 11        # embed, final norm, 9 block leaves
+    assert len(flat) == LMS[ALIASES[cfg.name]]
     for path, leaf in flat:
         keys = [p.key for p in path]
         got, back = params, again
