@@ -4,10 +4,12 @@ and Algorithm 1 with the partition they choose, SmolLM-135M: private
 token generation, the LM forward, engine-served LM requests and token
 streams, sampling, ``generate_origami`` and the token-recovery probe,
 Qwen3-MoE-235B-A22B at full width: its MoE layer, the LM forward,
-engine-served requests and ``generate_origami``, and at full width and
+engine-served requests and ``generate_origami``, at full width and
 depth Yi-9B and MiniCPM3-4B (Multi-head Latent Attention) through private
-token generation and Qwen2.5-14B (QKV biases) through the LM forward —
-and hold every kernel of them against its plain PyTorch version.
+token generation and Qwen2.5-14B (QKV biases) through the LM forward, and
+the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
+generation and (Zamba2) the engine — and hold every kernel of them
+against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -268,15 +270,46 @@ Phases (any failure is fatal and exits non-zero):
    boundary within 0.25 of the split plan's, a bit_flip drill) and
    ``generate_origami`` on a 2 x 32 prompt with 8 new tokens (7 x 4 x
    39 counts and exactly that many blind_encode, fused and limb_matmul
-   launches; one tiered step within 0.15 of the open float step).
+   launches; one tiered step within 0.15 of the open float step);
+30. zamba2 (after phase 29, each of 30-31 making its model's
+   random bf16 weights from seed 0 at every published width and depth
+   and freeing them after) — Zamba2-1.2B (38 Mamba2 blocks of d 2048,
+   64 heads of state 64, one shared attention block of 32/32 heads of 64
+   after each complete group of 6; 1.15 B parameters):
+   ``OrigamiExecutor.infer`` on 4 x 1024 tokens at p = 3 under full(k=2)
+   (blinded == trusted in logits and boundary, 6/6 ops checked: the
+   blocks' ``in_proj`` and ``out_proj``; exactly 6 blind_encode, fused
+   and fold, 12 limb_matmul and 6 flash launches, all flash in tier-2; a
+   bit_flip drill); open ``generate`` on a 4 x 256 prompt with 8 new
+   tokens: the prompt pass replayed as one captured decode step
+   (``RecurrentStep``) bit-equal to the eager pass over its first 64
+   positions in logits and state, its last logits within 0.06 + 0.06 x
+   |forward| of the teacher-forced forward's with float32 weights (the
+   bound of the reference's tests/test_ssm.py; the bf16 gap printed), the
+   first new token the prompt pass's greedy pick; the engine's sealed
+   requests of 32, 32 and 128 tokens, each bit-equal to an eager infer.
+   Printed: blinded, trusted and open ms (medians of 3), busy shares, the
+   tier-1 boundary's distance from the float one (not gated: 8-bit
+   activations of heavy-tailed Mamba2 outputs), peak memory, the prompt
+   pass's ms a token eager and replayed;
+31. xlstm — xLSTM-1.3B (6 groups of 7 mLSTM blocks, 4 heads of 1024, and
+   one sLSTM block; 1.99 B parameters): ``infer`` as in 30 with 12/12
+   ops checked (the mLSTM blocks' ``w_up``, gates and ``w_down``) and no
+   flash launch; the sLSTM blocks' share of an open forward (CUDA events
+   around each block); open ``generate`` as in 30.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
-at the rows phases 23-25 give them (2, 64, 128, 4096), and at the tier-1
+at the rows phases 23-25 give them (2, 64, 128, 4096), at the tier-1
 projections of Yi-9B, Qwen2.5-14B (K up to 13,824) and MiniCPM3-4B (N
-down to 288) at 4, 64, 1024 and 4096 rows (MiniCPM3 also 2).
+down to 288) at 4, 64, 1024 and 4096 rows (MiniCPM3 also 2), and at
+Zamba2's (``in_proj`` N 8384, ``out_proj``; 64, 128 and 4096 rows) and
+xLSTM's (``w_up``, the gates at N 4, ``w_down``; 4096 rows); the three
+field-product kernels at N 4 and N 8384 are also timed on lines of their
+own beside their plain versions, the bound and ``_int_mm``. Flash runs at
+Zamba2's shapes (G 1 at D 64: 4 x 1024, 2 x 32, 1 x 128, float32).
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-29 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-31 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
 kernels and no other (22 launches none).
 
@@ -721,6 +754,21 @@ MLA_PROJECTIONS = (("wq_a", 2560, 768), ("wq_b", 768, 3840),
                    ("down", 6400, 2560))
 DENSE_PATH_ROWS = (4, 64, 1024, 4096)
 MLA_PATH_ROWS = (2,) + DENSE_PATH_ROWS
+# the tier-1 projections of Zamba2-1.2B (a Mamba2 block's in_proj, N 8384,
+# and out_proj) at 64 and 128 rows (zamba2 engine's 2 x 32 and 1 x 128
+# buckets) and 4096 (zamba2 infer's 4 x 1024); of xLSTM-1.3B (an mLSTM
+# block's w_up, its input and forget gates, N 4 with a bias, and w_down)
+# at 4096 (xlstm infer)
+ZAMBA2_PROJECTIONS = (("in_proj", 2048, 8384), ("out_proj", 4096, 2048))
+ZAMBA2_PATH_ROWS = (64, 128, 4096)
+XLSTM_PROJECTIONS = (("w_up", 2048, 8192), ("gates", 4096, 4),
+                     ("w_down", 4096, 2048))
+XLSTM_PATH_ROWS = (4096,)
+# (label, M, K, N) of the new field shapes timed on lines of their own:
+# the narrowest N any path gives the kernels (xLSTM's gates) and the
+# widest (Zamba2's in_proj), at 4 x 1024 rows
+SSM_FIELD_SHAPES = (("xlstm gate", 4096, 4096, 4),
+                    ("zamba2 in_proj", 4096, 2048, 8384))
 
 
 def _bound_ms(nbytes, nops):
@@ -799,6 +847,85 @@ def phase_lm_limb_shapes(gen, dev):
     phase_path_shapes(gen, dev, "qwen2.5", QWEN25_PROJECTIONS,
                       DENSE_PATH_ROWS)
     phase_path_shapes(gen, dev, "mla", MLA_PROJECTIONS, MLA_PATH_ROWS)
+    phase_path_shapes(gen, dev, "zamba2", ZAMBA2_PROJECTIONS,
+                      ZAMBA2_PATH_ROWS)
+    phase_path_shapes(gen, dev, "xlstm", XLSTM_PROJECTIONS, XLSTM_PATH_ROWS)
+    phase_ssm_field_shapes(gen, dev)
+
+
+def _int_mm_ms(a8, b8):
+    """(event ms, device ms) of nine ``torch._int_mm`` calls of one limb
+    pair, B column-major; (None, None) where ``_int_mm`` does not take the
+    shape (it needs N a multiple of 8)."""
+    b8_col = b8.t().contiguous().t()
+    try:
+        torch._int_mm(a8, b8_col)
+    except RuntimeError:
+        return None, None
+    return timed(lambda: [torch._int_mm(a8, b8_col) for _ in range(9)])
+
+
+def phase_ssm_field_shapes(gen, dev):
+    """The three field-product kernels at the SSM slice's new shapes
+    (``SSM_FIELD_SHAPES``: N 4 and N 8384), bit-for-bit against their
+    plain versions, timed beside the plain versions, the bound and the
+    ``_int_mm`` yardstick."""
+    def field(rows, cols):
+        return torch.randint(0, ref.P, (rows, cols), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def check(name, label, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: kernel differs from its "
+                                 f"plain version")
+
+    def line(name, label, ms, dms, pms, bound, lib):
+        lib_ms, lib_dms = lib
+        lib_s = ("no _int_mm call takes N % 8 != 0" if lib_ms is None
+                 else f"9x _int_mm {lib_ms:.4f} ms (device "
+                      f"{fmt_ms(lib_dms)})")
+        print(f"{name} {label}: {ms:.4f} ms (device {fmt_ms(dms)}), plain "
+              f"{pms:.4f} ms, {lib_s}, bound {bound:.4g} ms; bit-equal")
+
+    scale = torch.tensor(3.1e-6, device=dev)
+    for label, M_, K, N in SSM_FIELD_SHAPES:
+        x, w, u = field(M_, K), field(K, N), field(M_, N)
+        Kp = ops.block_plan(M_, K, N)[4]
+        xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+        lib = _int_mm_ms(xl[0], wl[0])
+        shape = f"{label} ({M_}x{Kp}x{N})"
+        check("limb_matmul", shape, limb_matmul_planes(xl, wl),
+              limb_matmul_planes_plain(xl, wl))
+        ms, dms = timed(lambda: limb_matmul_planes(xl, wl),
+                        "limb_matmul_mma_kernel")
+        pms = cuda_ms(lambda: limb_matmul_planes_plain(xl, wl), reps=5)
+        line("limb_matmul", shape, ms, dms, pms,
+             _bound_ms(3 * M_ * Kp + 3 * Kp * N + 4 * M_ * N,
+                       18 * M_ * Kp * N), lib)
+        check("limb_matmul_fused", shape,
+              limb_matmul_planes_fused(xl, wl, u, scale),
+              limb_matmul_planes_fused_plain(xl, wl, u, scale))
+        ms, dms = timed(lambda: limb_matmul_planes_fused(xl, wl, u, scale),
+                        "limb_matmul_fused_mma_kernel")
+        pms = cuda_ms(lambda: limb_matmul_planes_fused_plain(xl, wl, u,
+                                                             scale), reps=5)
+        line("limb_matmul_fused", shape, ms, dms, pms,
+             _bound_ms(3 * M_ * Kp + 3 * Kp * N + 8 * M_ * N + 4,
+                       18 * M_ * Kp * N), lib)
+        # the op's check: [y | x] of N + K digits folded against k = 2
+        Kf = N + K
+        sl = ops.encode_weight_planes(field(Kf, 2))
+        fl = ops.field_planes(field(M_, Kf), sl.shape[1])
+        fshape = f"{label} check ({M_}x{fl.shape[-1]}x2)"
+        check("limb_fold", fshape, limb_fold_planes(fl, sl),
+              limb_fold_planes_plain(fl, sl))
+        ms, dms = timed(lambda: limb_fold_planes(fl, sl),
+                        "limb_fold_mma_kernel")
+        pms = cuda_ms(lambda: limb_fold_planes_plain(fl, sl), reps=5)
+        Kfp = fl.shape[-1]
+        line("limb_fold", fshape, ms, dms, pms,
+             _bound_ms(3 * M_ * Kfp + 3 * Kfp * 2 + 4 * M_ * 2,
+                       18 * M_ * Kfp * 2), (None, None))
 
 
 def phase_path_shapes(gen, dev, tag, projections, path_rows):
@@ -1955,6 +2082,15 @@ FLASH_CASES = (
      2e-2),
     ("smoke MLA (48, 32)", 2, 128, 4, 4, 48, 32, torch.bfloat16, True, 2e-2),
     ("float32 (48, 32)", 2, 130, 4, 4, 48, 32, torch.float32, False, 2e-5),
+    # Zamba2's shared attention block, 32 query heads over 32 KV heads of
+    # 64 (G 1 at D 64): zamba2 infer's 4 x 1024, its engine's buckets (2 x
+    # 32 and 1 x 128), and float32
+    ("zamba2 prefill", 4, 1024, 32, 32, 64, 64, torch.bfloat16, True, 2e-2),
+    ("zamba2 engine bucket 2", 2, 32, 32, 32, 64, 64, torch.bfloat16, True,
+     2e-2),
+    ("zamba2 engine bucket 1", 1, 128, 32, 32, 64, 64, torch.bfloat16, True,
+     2e-2),
+    ("float32 G 1 D 64", 2, 256, 32, 32, 64, 64, torch.float32, True, 2e-5),
 )
 
 
@@ -2276,22 +2412,31 @@ def phase_lm_infer(cfg, params, dev, card):
                            7, LM_INFER_SHAPE, SEED + 40)
 
 
-def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed):
-    """``OrigamiExecutor.infer`` of a dense LM on ``shape`` tokens at
+def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed,
+                    flash=None, reps=10, boundary_bound=PREFILL_REL_BOUND,
+                    busy=True):
+    """``OrigamiExecutor.infer`` of an LM on ``shape`` tokens at
     partition ``p`` under full(k=2), ``block_ops`` blinded ops a tier-1
-    block: the gates and readings of ``phase_lm_infer``; returns the
-    blinded run's launches."""
+    block and ``flash`` flash launches a forward (every block's, when
+    None): the gates and readings of ``phase_lm_infer``, the times medians
+    of ``reps``; the tier-1 boundary's distance from the float one gated
+    at ``boundary_bound``, or printed only when it is None; the busy
+    shares read from ``torch.profiler`` unless ``busy`` is false. Returns
+    the blinded run's launches."""
     policy = IntegrityPolicy.full(k=2)
     ex = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
                          device=dev)
     batch = {"tokens": _lm_tokens(cfg, shape, seed)}
     key = PRNGKey(seed + 1)
     n_ops = block_ops * p
+    flash = cfg.num_layers if flash is None else flash
+    path = GENERATE_PATH if flash else FUSED_PATH
+    t_path = TRUSTED_GENERATE_PATH if flash else ("limb_matmul",)
     launches, _, res = counted(lambda: ex.infer(batch, key))
-    check_launches(launches, GENERATE_PATH, f"{tag} path")
+    check_launches(launches, path, f"{tag} path")
     want = {"blind_encode": n_ops, "limb_matmul_fused": n_ops,
             "limb_fold": n_ops, "limb_matmul": 2 * n_ops,
-            "flash_attention": cfg.num_layers}
+            "flash_attention": flash}
     for name, n in want.items():
         assert launches[name] == n, (name, launches[name], n)
     rep, tele = res.integrity, res.telemetry
@@ -2301,16 +2446,23 @@ def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed):
     assert torch.isfinite(res.logits.float()).all()
     t_launches, _, trusted = counted(lambda: ex.infer(batch, key,
                                                       trusted=True))
-    check_launches(t_launches, TRUSTED_GENERATE_PATH, f"trusted {tag}")
+    check_launches(t_launches, t_path, f"trusted {tag}")
     assert t_launches["limb_matmul"] == n_ops, t_launches
     if not torch.equal(res.logits, trusted.logits):
         raise AssertionError(f"{tag}: blinded logits differ from the "
                              f"trusted recompute")
+    if not torch.equal(res.boundary, trusted.boundary):
+        raise AssertionError(f"{tag}: blinded tier-1 boundary differs from "
+                             f"the trusted recompute's")
     del trusted
     split = OrigamiExecutor(cfg, params, "split", p, device=dev)
-    boundary_rel = _rel(res.boundary, split.infer(batch).boundary)
-    del split
-    assert boundary_rel < PREFILL_REL_BOUND, boundary_rel
+    float_boundary = split.infer(batch).boundary.float()
+    boundary_rel = _rel(res.boundary, float_boundary)
+    boundary_fro = ((res.boundary.float() - float_boundary).norm()
+                    / float_boundary.norm()).item()
+    del split, float_boundary
+    if boundary_bound is not None:
+        assert boundary_rel < boundary_bound, boundary_rel
     bad = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
                           fault=DishonestDevice(FaultSpec("bit_flip")),
                           device=dev)
@@ -2319,23 +2471,26 @@ def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed):
         raise AssertionError(f"{tag} bit_flip: failed != corrupted")
     assert drep.n_corrupted == drep.n_failed == n_ops, drep
     del bad
-    blinded_ms = cuda_ms(lambda: ex.infer(batch, key), reps=10, warmup=1)
+    blinded_ms = cuda_ms(lambda: ex.infer(batch, key), reps=reps, warmup=1)
     trusted_ms = cuda_ms(lambda: ex.infer(batch, key, trusted=True),
-                         reps=10, warmup=1)
-    open_ms = cuda_ms(lambda: ex.reference(batch), reps=10, warmup=1)
-    share, tops = _busy_share(lambda: ex.infer(batch, key))
-    open_share, open_tops = _busy_share(lambda: ex.reference(batch))
+                         reps=reps, warmup=1)
+    open_ms = cuda_ms(lambda: ex.reference(batch), reps=reps, warmup=1)
+    share, tops = open_share, open_tops = None, []
+    if busy:
+        share, tops = _busy_share(lambda: ex.infer(batch, key))
+        open_share, open_tops = _busy_share(lambda: ex.reference(batch))
     print(f"{tag}: {cfg.name} {shape[0]}x{shape[1]} "
           f"tokens, tier-1 = blocks 1-{p}, full(k=2): blinded == trusted "
-          f"(logits {tuple(res.logits.shape)} bit-equal); checks "
-          f"{rep.n_checked}/{rep.n_ops}; tier-1 boundary rel err vs the "
-          f"split plan's float boundary {boundary_rel:.5f} (bound "
-          f"{PREFILL_REL_BOUND}); bit_flip caught {drep.n_failed}/"
+          f"(logits {tuple(res.logits.shape)} and boundary bit-equal); "
+          f"checks {rep.n_checked}/{rep.n_ops}; tier-1 boundary rel err vs "
+          f"the split plan's float boundary {boundary_rel:.5f} (bound "
+          f"{boundary_bound or 'none, printed'}; relative Frobenius "
+          f"{boundary_fro:.5f}); bit_flip caught {drep.n_failed}/"
           f"{drep.n_ops} op by op; launches {launches}; trusted "
           f"{t_launches}")
     print(f"{tag}: blinded infer {blinded_ms:.2f} ms, trusted "
           f"{trusted_ms:.2f} ms, open float forward {open_ms:.2f} ms "
-          f"(median of 10); device-busy share of one blinded infer "
+          f"(median of {reps}); device-busy share of one blinded infer "
           f"{'not measured' if share is None else f'{share:.4f}'}; top "
           f"device ops: "
           + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in tops))
@@ -3408,6 +3563,224 @@ def phase_mla_infer(cfg, params, dev, card):
                             f"mla generate_origami on {card}", p)
 
 
+# -- the SSM and hybrid families: Zamba2-1.2B and xLSTM-1.3B ----------------
+
+SSM_INFER_SHAPE = (4, 1024)                 # (batch, tokens): 4 chunks of 256
+SSM_GEN_SHAPE, SSM_GEN_NEW = (4, 256), 8    # the open generate prompt
+SSM_ENGINE_SEQS = (32, 32, 128)             # two buckets of max_batch 2
+SSM_REPS = 3                                # medians of the infer times
+# the prompt positions over which the replayed prompt pass is held bit for
+# bit to the eager one (each eager step is ~70-95 ms of host time)
+SSM_EAGER_PREFIX = 64
+# the bound of tests/test_ssm.py: the decode logits within 0.06 + 0.06 x
+# |forward| of the teacher-forced forward's
+DECODE_BOUND = 0.06
+# blinded ops a tier-1 block: Zamba2's in_proj and out_proj; xLSTM's mLSTM
+# w_up, w_igate, w_fgate and w_down
+ZAMBA2_OPS, XLSTM_OPS = 2, 4
+
+
+def _peak(tag):
+    print(f"{tag}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _prompt_pass(cfg, params, prompt, dev, graphed):
+    """(ms, the last position's logits (B, V) float32, the state) of
+    ``prefill_recurrent`` on ``prompt``: eager, or through a
+    ``RecurrentStep`` (one CUDA graph; its capture is not timed)."""
+    from repro_torch.runtime.generate import RecurrentStep, prefill_recurrent
+    B, S0 = prompt.shape
+    with torch.no_grad():
+        caches = M.init_caches(cfg, B, S0 + SSM_GEN_NEW, device=dev)
+        step = (RecurrentStep(params, caches, cfg, B, dev) if graphed
+                else None)
+        ms, (logits, caches) = _timed(
+            lambda: prefill_recurrent(params, prompt, caches, cfg, step))
+    return ms, logits[:, 0].float(), caches
+
+
+def _forward_gap(cfg, params, prompt, got):
+    """(the teacher-forced forward's ms, the largest |got - forward| at the
+    last position, its margin to ``DECODE_BOUND`` (+ ``DECODE_BOUND`` x
+    |forward|))."""
+    with torch.no_grad():
+        fwd_ms, full = _timed(
+            lambda: M.forward(params, {"tokens": prompt}, cfg).logits)
+    want = full[:, -1].float()
+    err = (got - want).abs()
+    margin = -(err - DECODE_BOUND * (1 + want.abs())).max().item()
+    return fwd_ms, err.max().item(), margin
+
+
+def _state_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _state_leaves(tree[k])]
+    return [t for v in tree for t in _state_leaves(v)]
+
+
+def _open_generate_gates(cfg, params, dev, tag, seed):
+    """Open ``generate`` of a recurrent model on a 4 x 256 prompt. The
+    prompt pass (``prefill_recurrent``) eager and replayed as one captured
+    step (``RecurrentStep``, what ``generate`` runs) over the first
+    ``SSM_EAGER_PREFIX`` positions: bit-equal in the last logits and in
+    every state leaf. The replayed pass over the whole prompt against the
+    teacher-forced ``forward`` at the last position, gated within
+    ``DECODE_BOUND`` on a float32 copy of the weights (the recurrent and
+    the chunked forms of one function) and printed for the bf16 model,
+    whose rounding points differ between the two forms (a token's
+    projections are one-row matmuls in the prompt pass) and whose
+    heavy-tailed Mamba2 and mLSTM outputs turn one bf16 ulp into a step
+    of up to 0.25. Then ``generate`` in bf16 with 8 new tokens: the
+    prompt kept and the first new token the greedy pick of the prompt
+    pass. The times printed."""
+    prompt = _lm_tokens(cfg, SSM_GEN_SHAPE, seed)
+    B, S0 = prompt.shape
+    torch.cuda.reset_peak_memory_stats()
+    head = prompt[:, :SSM_EAGER_PREFIX]
+    eager_ms, eager, eager_state = _prompt_pass(cfg, params, head, dev,
+                                                False)
+    _, replayed, state = _prompt_pass(cfg, params, head, dev, True)
+    if not torch.equal(replayed, eager):
+        raise AssertionError(f"{tag}: the replayed prompt pass's logits "
+                             f"differ from the eager pass's")
+    for a, b in zip(_state_leaves(state), _state_leaves(eager_state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: the replayed prompt pass's state "
+                                 f"differs from the eager pass's")
+    n_state = sum(t.numel() * t.element_size()
+                  for t in _state_leaves(state))
+    del eager_state, state, replayed, eager
+    replay_ms, got, _ = _prompt_pass(cfg, params, prompt, dev, True)
+    fwd_ms, err, margin = _forward_gap(cfg, params, prompt, got)
+    gen_ms, out = _timed(lambda: generate(params, prompt, cfg,
+                                          max_new_tokens=SSM_GEN_NEW,
+                                          device=dev))
+    toks = out.tokens
+    assert tuple(toks.shape) == (B, S0 + SSM_GEN_NEW), toks.shape
+    assert torch.equal(toks[:, :S0], prompt)
+    first = torch.argmax(got[:, :cfg.vocab_size], dim=-1)
+    assert torch.equal(toks[:, S0], first), "first new token"
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+    del out
+    _peak(tag)
+    f32 = cfg.replace(dtype="float32")
+    p32 = _float32_tree(params)
+    _, got32, _ = _prompt_pass(f32, p32, prompt, dev, True)
+    _, err32, margin32 = _forward_gap(f32, p32, prompt, got32)
+    del p32
+    if margin32 < 0:
+        raise AssertionError(f"{tag}: float32 prompt pass's last logits "
+                             f"exceed the bound {DECODE_BOUND} + "
+                             f"{DECODE_BOUND} x |forward| by {-margin32} "
+                             f"(max abs err {err32})")
+    step_ms = (gen_ms - replay_ms) / SSM_GEN_NEW
+    print(f"{tag}: {cfg.name} {B}x{S0} prompt, {SSM_GEN_NEW} new tokens: "
+          f"the prompt pass replayed as one captured step bit-equal to the "
+          f"eager pass over its first {SSM_EAGER_PREFIX} positions (logits "
+          f"and {n_state} bytes of state); its last logits against the "
+          f"teacher-forced forward's, float32 weights: max abs err "
+          f"{err32:.5f}, within {DECODE_BOUND} + {DECODE_BOUND} x |forward| "
+          f"(margin {margin32:.5f}); bf16 (printed): max abs err {err:.5f}, "
+          f"margin {margin:.5f}; prompt pass eager {eager_ms:.1f} ms for "
+          f"{SSM_EAGER_PREFIX} positions ({eager_ms / SSM_EAGER_PREFIX:.2f} "
+          f"ms a token), replayed {replay_ms:.1f} ms for {S0} "
+          f"({replay_ms / S0:.2f} ms a token); "
+          f"teacher-forced forward {fwd_ms:.1f} ms; generate {gen_ms:.1f} "
+          f"ms (capture, replayed prompt pass and {SSM_GEN_NEW} new tokens; "
+          f"~{step_ms:.2f} ms a new token past the replayed pass)")
+    _free()
+
+
+def _float32_tree(tree):
+    """A float32 copy of a parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _float32_tree(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def phase_zamba2(dev, card):
+    """Zamba2-1.2B at every width and depth: ``infer`` on 4 x 1024 tokens at
+    p = 3 (6 ops checked, 6 flash launches: the shared block after each
+    complete group, all in tier-2), open ``generate`` (4 x 256 + 8) and
+    the engine's sealed requests of 32, 32 and 128 tokens. The tier-1
+    boundary's distance from the float one is printed, not gated: the
+    8-bit activations of ``out_proj`` (out_norm(y) x silu(z), its absmax
+    ~50 times its standard deviation) put ~6% into each block's output,
+    the protocol's arithmetic, the same in the reference."""
+    cfg, params = _load_model("zamba2_1_2b", dev)
+    p = cfg.origami.tier1_layers
+    torch.cuda.reset_peak_memory_stats()
+    tag = f"zamba2 infer on {card}"
+    _lm_infer_gates(cfg, params, dev, tag, p, ZAMBA2_OPS, SSM_INFER_SHAPE,
+                    SEED + 90, flash=cfg.num_layers // cfg.hybrid_attn_every,
+                    reps=SSM_REPS, boundary_bound=None)
+    _peak(tag)
+    _free()
+    _open_generate_gates(cfg, params, dev, f"zamba2 generate on {card}",
+                         SEED + 92)
+    _free()
+    _serve_lm_engine("zamba2", cfg, params, p, SSM_ENGINE_SEQS, SEED + 94,
+                     dev, card)
+    del params
+    _free()
+
+
+def _slstm_share(cfg, params, tag, seed):
+    """The sLSTM blocks' CUDA-event time within one open forward on 4 x
+    1024 tokens (each block a Python loop over the tokens)."""
+    from repro_torch.models import ssm as S
+    batch = {"tokens": _lm_tokens(cfg, SSM_INFER_SHAPE, seed)}
+    inner, spans = S.slstm_forward, []
+
+    def timed_slstm(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    S.slstm_forward = timed_slstm
+    try:
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: M.forward(params, batch, cfg), reps=1,
+                             warmup=0)
+    finally:
+        S.slstm_forward = inner
+    n_slstm = cfg.num_layers // cfg.ssm.slstm_every
+    assert len(spans) == n_slstm, len(spans)
+    sl_ms = sum(a.elapsed_time(b) for a, b in spans)
+    print(f"{tag}: the {n_slstm} sLSTM blocks ({SSM_INFER_SHAPE[1]} "
+          f"recurrent steps each) take {sl_ms:.1f} ms of an open forward's "
+          f"{fwd_ms:.1f} ms ({sl_ms / fwd_ms:.4f})")
+
+
+def phase_xlstm(dev, card):
+    """xLSTM-1.3B at every width and depth: ``infer`` on 4 x 1024 tokens at
+    p = 3 (12 ops checked, no flash launch), the sLSTM blocks' share of
+    the open forward, and open ``generate`` (4 x 256 + 8). No busy share:
+    a forward launches ~150k kernels (the six sLSTM blocks' token loops),
+    and a profiler trace of one took minutes to read."""
+    cfg, params = _load_model("xlstm_1_3b", dev)
+    torch.cuda.reset_peak_memory_stats()
+    tag = f"xlstm infer on {card}"
+    _lm_infer_gates(cfg, params, dev, tag, cfg.origami.tier1_layers,
+                    XLSTM_OPS, SSM_INFER_SHAPE, SEED + 96, flash=0,
+                    reps=SSM_REPS, boundary_bound=None, busy=False)
+    _peak(tag)
+    _free()
+    _slstm_share(cfg, params, tag, SEED + 96)
+    _open_generate_gates(cfg, params, dev, f"xlstm generate on {card}",
+                         SEED + 98)
+    del params
+    _free()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3493,7 +3866,12 @@ def main():
     mark("mla generate")
     phase_mla_infer(mla_cfg, mla_params, dev, card)
     del mla_params
+    _free()
     mark("mla infer, mla generate_origami")
+    phase_zamba2(dev, card)
+    mark("zamba2 infer, zamba2 generate, zamba2 engine")
+    phase_xlstm(dev, card)
+    mark("xlstm infer, xlstm generate")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

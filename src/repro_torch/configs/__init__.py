@@ -1,5 +1,7 @@
 """Config registry of the port: the paper's two CNNs, the dense LMs (GQA
-and, for MiniCPM3, latent attention) and the two mixture-of-experts LMs.
+and, for MiniCPM3, latent attention), the two mixture-of-experts LMs, the
+hybrid Zamba2 (Mamba2 with a shared attention block) and the recurrent
+xLSTM.
 
 ``get_config(name)`` returns the published configuration;
 ``get_smoke(name)`` a reduced same-family one for CPU tests.
@@ -9,16 +11,17 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      OrigamiConfig)
+                                      OrigamiConfig, SSMConfig)
 
 PAPER_MODELS = ("vgg16", "vgg19")
 ARCHS = ("qwen2_5_14b", "yi_9b", "minicpm3_4b", "smollm_135m",
-         "qwen3_moe_235b", "arctic_480b")
+         "qwen3_moe_235b", "arctic_480b", "zamba2_1_2b", "xlstm_1_3b")
 ALIASES = {"vgg-16": "vgg16", "vgg-19": "vgg19",
            "qwen2.5-14b": "qwen2_5_14b", "yi-9b": "yi_9b",
            "minicpm3-4b": "minicpm3_4b", "smollm-135m": "smollm_135m",
            "qwen3-moe-235b-a22b": "qwen3_moe_235b",
-           "arctic-480b": "arctic_480b"}
+           "arctic-480b": "arctic_480b", "zamba2-1.2b": "zamba2_1_2b",
+           "xlstm-1.3b": "xlstm_1_3b"}
 
 
 def _module(name: str):
@@ -38,4 +41,4 @@ def get_smoke(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCHS", "PAPER_MODELS", "MLAConfig", "ModelConfig", "MoEConfig",
-           "OrigamiConfig", "get_config", "get_smoke"]
+           "OrigamiConfig", "SSMConfig", "get_config", "get_smoke"]

@@ -3,12 +3,11 @@
 same order and with the same defaults, so ``to_json()`` — which the
 enclave measurement hashes — is identical for the same model.
 
-``MoEConfig`` and ``MLAConfig`` copy the reference's fields, order and
-defaults: the mixture-of-experts family (models/moe.py) and the latent
-attention (models/attention.py) read them, and ``to_json()`` nests them as
-the reference does. The state-space sub-config belongs to a family this
-port does not carry yet; its field stays (as ``None``) to keep the JSON
-identical. The
+``MoEConfig``, ``MLAConfig`` and ``SSMConfig`` copy the reference's
+fields, order and defaults: the mixture-of-experts family
+(models/moe.py), the latent attention (models/attention.py) and the
+state-space and hybrid families (models/ssm.py) read them, and
+``to_json()`` nests them as the reference does. The
 properties (``resolved_head_dim``, ``padded_vocab``) are not fields, so
 they do not enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
 (optim/adamw.py) reads it.
@@ -18,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -44,6 +43,19 @@ class MLAConfig:
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    variant: str = "mamba2"        # "mamba2" | "xlstm"
+    state_dim: int = 64            # N: SSM state size per head
+    conv_dim: int = 4              # depthwise conv width (mamba2)
+    expand: int = 2                # inner dim = expand * d_model
+    num_ssm_heads: int = 8         # mamba2 heads (d_inner / head_dim)
+    chunk_size: int = 256          # chunked-scan block length
+    # xlstm only: one sLSTM block every `slstm_every` blocks (rest mLSTM).
+    slstm_every: int = 8
+    slstm_proj_factor: float = 1.333
 
 
 @dataclass(frozen=True)
@@ -75,7 +87,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # this port runs "cnn", "dense", "moe"
+    family: str                    # cnn | dense | moe | hybrid | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -93,7 +105,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): a shared full-attention block applied every k SSM blocks
     hybrid_attn_every: int = 0
     encoder_decoder: bool = False
     encoder_seq_len: int = 1500

@@ -28,12 +28,14 @@ derives material from the session key on the host (no precompute cache,
 or a "sampled" Freivalds policy, whose check decisions are host draws).
 Without an attached cache ``infer`` runs eagerly.
 
-For an LM (the dense and the mixture-of-experts families), ``infer`` on
-{"tokens": (B, S)} is the forward over every position. A MoE block's
-experts and router are not ``layers.dense`` calls: they run as plain
-float ops in every segment (in tier-1 on the enclave's side, as in the
-reference), and only its attention projections (and Arctic's
-dense-residual FFN) are blinded. For the dense LM the executor also runs
+For an LM (the dense, mixture-of-experts, hybrid and SSM families),
+``infer`` on {"tokens": (B, S)} is the forward over every position. A MoE
+block's experts and router are not ``layers.dense`` calls: they run as
+plain float ops in every segment (in tier-1 on the enclave's side, as in
+the reference), and only its attention projections (and Arctic's
+dense-residual FFN) are blinded; likewise a Mamba2, mLSTM or sLSTM
+block blinds its projections and runs its convolution and recurrence in
+the enclave. For the dense LM the executor also runs
 private autoregressive decode (runtime/generate.py):
 ``attach_decode_plan`` adopts a DecodePlan,
 ``prefill_session`` walks the prompt through the base plan's segments

@@ -2,12 +2,13 @@
 
 Port of ``repro/models/layers.py``: the dense / conv / pool part the CNN
 path runs and the LM part (RMS/layer norm in float32, embedding, the
-activations, rotary position embedding), the cross-entropy loss,
-``param_count`` and ``init_params_keyed``, the reference's initializer
-driven by a jax-style key. The stacking axes ("layers", and "experts" of
-a MoE bank) stay out of a leaf's fan-in, and a leaf's own dtype (the
-float32 norms and MoE router) survives the model dtype. ``conv2d`` pads
-as XLA's SAME does for any stride and kernel size.
+activations, rotary and sinusoidal position embeddings), the
+cross-entropy loss, ``param_count`` and ``init_params_keyed``, the
+reference's initializer driven by a jax-style key. The stacking axes
+("layers", and "experts" of a MoE bank) stay out of a leaf's fan-in, and
+a leaf's own dtype (the float32 norms, MoE router and Mamba2 ``A_log``,
+``D`` and ``dt_bias``) survives the model dtype. ``conv2d`` pads as XLA's
+SAME does for any stride and kernel size.
 Public layouts are the reference's: NHWC activations, HWIO conv weights,
 (d_in, d_out) dense weights, (..., seq, heads, head_dim) rope inputs.
 ``dense_impl`` / ``conv_impl`` are the override hooks through which the
@@ -236,6 +237,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) float32: sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 def maxpool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:

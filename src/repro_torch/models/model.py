@@ -1,23 +1,35 @@
-"""Top-level LM API of the dense and mixture-of-experts families: config
--> init / forward / prefill / decode.
+"""Top-level LM API of the dense, mixture-of-experts, hybrid and SSM
+families: config -> init / forward / prefill / decode.
 
-Port of the dense and MoE part of ``repro/models/model.py``. Parameters
-are a nested dict of tensors with the reference's tree and layouts: block
-leaves are stacked (a leading layer dim; a MoE expert bank is
-(L, E, d, f), its router float32), the KV cache is ``KVCache`` of
-(L, B, max_seq, KH, D) tensors (an MLA model's: k the latent and rope key,
-(L, B, max_seq, kv_lora_rank + qk_rope_head_dim), and v ``None``, which
-every cache function passes through as the reference treats ``None`` as
-an empty subtree), activations are (B, S, d). The
-reference's ``lax.scan`` over blocks is a Python loop here, so the
-``*_unrolled`` walks (which the reference keeps for per-op addressable
-tier-1 traces) are the same functions as their scanned names.
+Port of the dense, MoE, hybrid and SSM part of ``repro/models/model.py``.
+Parameters are a nested dict of tensors with the reference's tree and
+layouts: block leaves are stacked (a leading layer dim; a MoE expert bank
+is (L, E, d, f), its router float32; Zamba2's Mamba2 blocks (groups,
+every, ...) and xLSTM's mLSTM blocks (groups, every - 1, ...)), the KV
+cache is ``KVCache`` of (L, B, max_seq, KH, D) tensors (an MLA model's: k
+the latent and rope key, (L, B, max_seq, kv_lora_rank +
+qk_rope_head_dim), and v ``None``, which every cache function passes
+through as the reference treats ``None`` as an empty subtree),
+activations are (B, S, d). The reference's ``lax.scan`` over blocks is a
+Python loop here, so the ``*_unrolled`` walks (which the reference keeps
+for per-op addressable tier-1 traces) are the same functions as their
+scanned names.
 
 ``apply_range``/``prefill_range``/``decode_range`` run blocks [lo, hi)
 (``apply_range`` sums the blocks' aux losses) so the Origami executor
 can place tier-1 under the Slalom hook and run tier-2 in the clear
 (core/origami.py). Decode writes each token's K/V into
 the caches in place and returns them.
+
+The recurrent families (hybrid Zamba2: Mamba2 blocks with a shared
+attention block after each complete group; SSM xLSTM: groups of mLSTM
+blocks closed by an sLSTM block) carry a state instead of a KV cache
+(``init_caches``: the per-block Mamba2, mLSTM and sLSTM states, stacked
+as their parameters, and the shared block's KV cache, one a group).
+``decode_step`` writes each block's new state into those stacks in place
+(the reference returns new stacks) and returns the same dict. They have
+no ``prefill``, as in the reference: open generation builds the state by
+stepping ``decode_step`` through the prompt (runtime/generate.py).
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import lm_defs  # noqa: F401 re-export
 
@@ -99,14 +112,36 @@ def params_to_numpy(params):
                       params)
 
 
+def _sinusoidal_positions(cfg: ModelConfig) -> bool:
+    """A model without attention and without RoPE adds sinusoidal
+    positions to its embeddings (the reference's condition; no config the
+    port carries meets it: xLSTM keeps ``rope_theta`` 10000)."""
+    return cfg.attention == "none" and cfg.rope_theta == 0.0
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
-    return L.embed_lookup(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    x = L.embed_lookup(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    if _sinusoidal_positions(cfg):
+        pe = L.sinusoidal_positions(tokens.shape[-1], cfg.d_model,
+                                    device=x.device)
+        x = x + pe.to(x.dtype)
+    return x
 
 
 def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
-    """The embedding of one decode step's tokens (B, 1); the dense and MoE
-    families carry positions in RoPE, so ``pos`` adds nothing here."""
-    return embed_tokens(params, token, cfg)
+    """The embedding of one decode step's tokens (B, 1) at position
+    ``pos`` (an int or a 0-dim tensor); only a model that adds sinusoidal
+    positions reads ``pos`` (the others carry positions in RoPE)."""
+    x = L.embed_lookup(params["embed"], token).to(torch_dtype(cfg.dtype))
+    if _sinusoidal_positions(cfg):
+        d = cfg.d_model
+        half = torch.arange(0, d, 2, dtype=torch.float32, device=x.device)
+        div = torch.exp(half * (-torch.log(torch.tensor(
+            10000.0, dtype=torch.float32, device=x.device)) / d))
+        ang = A.position(pos, x.device).to(torch.float32) * div
+        pe = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+        x = x + pe.reshape(d).to(x.dtype)
+    return x
 
 
 def head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -116,9 +151,79 @@ def head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.dense(params["lm_head"], x)
 
 
+def _block(stacked, *index):
+    """One block's parameters out of a (doubly) stacked subtree: views."""
+    return tree_map(lambda a: a[index], stacked)
+
+
+def _shared_attn_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+    h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                          cfg)
+    return h + T.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm),
+                             cfg)
+
+
+def _mamba_blk(p, x: torch.Tensor, cfg: ModelConfig):
+    return x + S.mamba2_forward(p["mamba"],
+                                L.apply_norm(p["norm"], x, cfg.norm), cfg)
+
+
+def _range_hybrid(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
+                  hi: int):
+    """Zamba2's blocks [lo, hi): the Mamba2 blocks of each group, and the
+    shared attention block after a group that completes inside the range;
+    then the tail past the last group."""
+    e = cfg.hybrid_attn_every
+    groups = cfg.num_layers // e
+    n_main = groups * e
+    for g in range(groups):
+        g_lo, g_hi = g * e, (g + 1) * e
+        a, b = max(lo, g_lo), min(hi, g_hi)
+        if a >= b:
+            continue
+        for j in range(a - g_lo, b - g_lo):
+            x = _mamba_blk(_block(params["mamba_main"], g, j), x, cfg)
+        if b == g_hi and hi >= g_hi:   # group completed inside range
+            x = _shared_attn_fwd(params["shared_attn"], x, cfg)
+    a, b = max(lo, n_main), min(hi, cfg.num_layers)
+    if a < b and "mamba_tail" in params:
+        for j in range(a - n_main, b - n_main):
+            x = _mamba_blk(_block(params["mamba_tail"], j), x, cfg)
+    return x, 0.0
+
+
+def _mlstm_blk(p, x: torch.Tensor, cfg: ModelConfig):
+    return x + S.mlstm_forward(p["mlstm"],
+                               L.apply_norm(p["norm"], x, cfg.norm), cfg)
+
+
+def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
+                 hi: int):
+    """xLSTM's blocks [lo, hi): in each group of ``slstm_every`` the mLSTM
+    blocks, then the sLSTM block that closes the group."""
+    e = cfg.ssm.slstm_every
+    groups = cfg.num_layers // e
+    for g in range(groups):
+        g_lo = g * e
+        a, b = max(lo, g_lo), min(hi, g_lo + e - 1)   # mlstm sub-blocks
+        for j in range(a - g_lo, b - g_lo):
+            x = _mlstm_blk(_block(params["mlstm_groups"], g, j), x, cfg)
+        sidx = g_lo + e - 1
+        if lo <= sidx < hi:
+            sp = _block(params["slstm_groups"], g)
+            y, _ = S.slstm_forward(sp["slstm"],
+                                   L.apply_norm(sp["norm"], x, cfg.norm), cfg)
+            x = x + y
+    return x, 0.0
+
+
 def apply_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
                 hi: int):
     """Run blocks [lo, hi) on hidden states x -> (x, aux)."""
+    if cfg.family == "hybrid":
+        return _range_hybrid(params, x, cfg, lo, hi)
+    if cfg.family == "ssm":
+        return _range_xlstm(params, x, cfg, lo, hi)
     aux = 0.0
     for i in range(lo, hi):
         x, a = T.decoder_block_fwd(T.layer_params(params["blocks"], i), x,
@@ -148,8 +253,65 @@ def forward(params, batch, cfg: ModelConfig) -> T.LMOutputs:
     return T.LMOutputs(head(params, x, cfg), aux)
 
 
+def _tuple_like(t: tuple, items):
+    """``items`` as a tuple of ``t``'s type (a NamedTuple or a tuple)."""
+    return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+
+
+def _stack_state(state, *lead):
+    """A per-block state NamedTuple (nested tuples of tensors) with every
+    leaf repeated over the leading dims ``lead``."""
+    if isinstance(state, tuple):
+        return _tuple_like(state, [_stack_state(s, *lead) for s in state])
+    return state.expand(lead + tuple(state.shape)).clone()
+
+
+def _state_at(stacked, *index):
+    """The block at ``index`` of a stacked state: views."""
+    if isinstance(stacked, tuple):
+        return _tuple_like(stacked, [_state_at(s, *index) for s in stacked])
+    return stacked[index]
+
+
+def _write_state(stacked, new, *index) -> None:
+    """Copy a block's new state into its slot of the stacked state."""
+    if isinstance(stacked, tuple):
+        for s, n in zip(stacked, new):
+            _write_state(s, n, *index)
+        return
+    stacked[index].copy_(new)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16, device="cuda") -> A.KVCache:
+                dtype=torch.bfloat16, device="cuda"):
+    """The decode caches: a ``KVCache`` for the dense and MoE families; for
+    Zamba2 {"main": Mamba2State (groups, every, B, ...), "shared": the
+    shared block's KVCache (groups, B, max_seq, KH, D), "tail":
+    Mamba2State (tail, B, ...) when there is a tail}; for xLSTM {"mlstm":
+    MLSTMState (groups, every - 1, B, ...), "slstm": SLSTMState (groups,
+    B, ...)}. The recurrent states are float32 and zero."""
+    if cfg.family == "hybrid":
+        e = cfg.hybrid_attn_every
+        groups = cfg.num_layers // e
+        tail = cfg.num_layers - groups * e
+        st = S.mamba2_init_state(cfg, batch, device=device)
+        shape = (groups, batch, max_seq, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        caches = {"main": _stack_state(st, groups, e),
+                  "shared": A.KVCache(
+                      k=torch.zeros(shape, dtype=dtype, device=device),
+                      v=torch.zeros(shape, dtype=dtype, device=device))}
+        if tail:
+            caches["tail"] = _stack_state(st, tail)
+        return caches
+    if cfg.family == "ssm":
+        e = cfg.ssm.slstm_every
+        groups = cfg.num_layers // e
+        return {"mlstm": _stack_state(
+                    S.mlstm_init_state(cfg, batch, device=device),
+                    groups, e - 1),
+                "slstm": _stack_state(
+                    S.slstm_init_state(cfg, batch, device=device), groups)}
     if cfg.attention == "mla":
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
         return A.KVCache(k=torch.zeros((cfg.num_layers, batch, max_seq,
@@ -200,6 +362,11 @@ def concat_layer_caches(parts, max_seq: int,
 def prefill(params, batch, cfg: ModelConfig, *,
             max_seq: Optional[int] = None):
     """(last-position logits, caches sized to max_seq)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"prefill for family {cfg.family}: use forward() + "
+            f"decode-from-scratch (runtime/generate.py steps decode_step "
+            f"through the prompt)")
     tokens = batch["tokens"]
     max_seq = max_seq or tokens.shape[1]
     x = embed_tokens(params, tokens, cfg)
@@ -224,10 +391,63 @@ def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos,
 decode_range_unrolled = decode_range
 
 
-def decode_step(params, token: torch.Tensor, caches: A.KVCache, pos,
+def decode_step(params, token: torch.Tensor, caches, pos,
                 cfg: ModelConfig):
     """token: (B, 1) int; pos: the token's position (an int or a 0-dim
-    long tensor). -> (logits, caches)."""
+    long tensor). -> (logits, caches), the caches updated in place."""
     x = embed_tokens_at(params, token, pos, cfg)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, x, caches, pos, cfg)
+    if cfg.family == "ssm":
+        return _decode_xlstm(params, x, caches, pos, cfg)
     x, caches = decode_range(params, x, caches, pos, cfg, 0, cfg.num_layers)
+    return head(params, x, cfg), caches
+
+
+def _mamba_decode_blk(p, x: torch.Tensor, states, cfg: ModelConfig, *index):
+    y, new = S.mamba2_decode(p["mamba"], L.apply_norm(p["norm"], x, cfg.norm),
+                             _state_at(states, *index), cfg)
+    _write_state(states, new, *index)
+    return x + y
+
+
+def _decode_hybrid(params, x: torch.Tensor, caches, pos, cfg: ModelConfig):
+    e = cfg.hybrid_attn_every
+    groups = cfg.num_layers // e
+    pos = A.position(pos, x.device)
+    sp = params["shared_attn"]
+    shared = caches["shared"]
+    for g in range(groups):
+        for j in range(e):
+            x = _mamba_decode_blk(_block(params["mamba_main"], g, j), x,
+                                  caches["main"], cfg, g, j)
+        a, _ = A.gqa_decode(sp["attn"], L.apply_norm(sp["ln1"], x, cfg.norm),
+                            A.KVCache(shared.k[g], shared.v[g]), pos, cfg)
+        x = x + a
+        x = x + T.mlp_forward(sp["mlp"], L.apply_norm(sp["ln2"], x, cfg.norm),
+                              cfg)
+    if "tail" in caches:
+        for j in range(cfg.num_layers - groups * e):
+            x = _mamba_decode_blk(_block(params["mamba_tail"], j), x,
+                                  caches["tail"], cfg, j)
+    return head(params, x, cfg), caches
+
+
+def _decode_xlstm(params, x: torch.Tensor, caches, pos, cfg: ModelConfig):
+    e = cfg.ssm.slstm_every
+    groups = cfg.num_layers // e
+    for g in range(groups):
+        for j in range(e - 1):
+            p = _block(params["mlstm_groups"], g, j)
+            y, new = S.mlstm_decode(
+                p["mlstm"], L.apply_norm(p["norm"], x, cfg.norm),
+                _state_at(caches["mlstm"], g, j), cfg)
+            _write_state(caches["mlstm"], new, g, j)
+            x = x + y
+        sp = _block(params["slstm_groups"], g)
+        y, new = S.slstm_forward(
+            sp["slstm"], L.apply_norm(sp["norm"], x, cfg.norm), cfg,
+            state=_state_at(caches["slstm"], g))
+        _write_state(caches["slstm"], new, g)
+        x = x + y
     return head(params, x, cfg), caches

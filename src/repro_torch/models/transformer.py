@@ -1,13 +1,18 @@
-"""Decoder stack of the dense and mixture-of-experts LM families.
+"""Decoder stack of the dense, mixture-of-experts, hybrid and SSM LM
+families.
 
-Port of the dense and MoE part of ``repro/models/transformer.py``: the
-gated MLP, the pre-norm decoder block's forward / prefill / decode with
-GQA or, for ``attention == "mla"``, latent attention (a MoE block runs
-``models/moe.py`` in the MLP's place and returns its aux loss), stacked
-parameter definitions and ``lm_defs``. The reference scans blocks with
+Port of the dense, MoE, hybrid and SSM part of
+``repro/models/transformer.py``: the gated MLP, the pre-norm decoder
+block's forward / prefill / decode with GQA or, for ``attention ==
+"mla"``, latent attention (a MoE block runs ``models/moe.py`` in the
+MLP's place and returns its aux loss), stacked parameter definitions and
+``lm_defs``, whose hybrid tree (Zamba2) stacks the Mamba2 blocks twice,
+as (groups, every), beside one shared attention block, and whose SSM tree
+(xLSTM) stacks the mLSTM blocks as (groups, every - 1) beside one sLSTM
+block a group (models/ssm.py). The reference scans blocks with
 ``lax.scan`` over stacked parameters; the port keeps the stacked layout (a
 leading layer dim on every block leaf) and walks it with a Python loop
-(models/model.py). The other families wait (ROADMAP Queue 1).
+(models/model.py). The audio and VLM families wait (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -20,15 +25,18 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
+
+# (family, attention) pairs the port runs
+SUPPORTED = (("dense", "gqa"), ("moe", "gqa"), ("dense", "mla"),
+             ("hybrid", "gqa"), ("ssm", "none"))
 
 
 def _supported(cfg: ModelConfig) -> None:
-    ok = (cfg.family in ("dense", "moe") and cfg.attention == "gqa") or (
-        cfg.family == "dense" and cfg.attention == "mla")
-    if not ok:
+    if (cfg.family, cfg.attention) not in SUPPORTED:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE GQA families and "
-            f"dense MLA, not {cfg.family}/{cfg.attention} (ROADMAP Queue 1)")
+            f"{cfg.name}: the port runs {SUPPORTED} (family, attention), "
+            f"not {cfg.family}/{cfg.attention} (ROADMAP Queue 1)")
 
 
 def _gated(cfg: ModelConfig) -> bool:
@@ -146,5 +154,32 @@ def lm_defs(cfg: ModelConfig) -> Dict[str, object]:
     if not cfg.tie_embeddings:
         d["lm_head"] = L.dense_def(cfg.d_model, cfg.padded_vocab,
                                    ("embed", "vocab"))
-    d["blocks"] = stacked_defs(decoder_block_defs(cfg), cfg.num_layers)
+    if cfg.family == "hybrid":
+        e = cfg.hybrid_attn_every
+        groups = cfg.num_layers // e
+        n_main = groups * e
+        mamba = {"norm": L.norm_def(cfg.d_model, cfg.norm),
+                 "mamba": S.mamba2_defs(cfg)}
+        d["mamba_main"] = stacked_defs(stacked_defs(mamba, e), groups)
+        if cfg.num_layers - n_main:
+            d["mamba_tail"] = stacked_defs(mamba, cfg.num_layers - n_main)
+        d["shared_attn"] = {
+            "ln1": L.norm_def(cfg.d_model, cfg.norm),
+            "attn": A.gqa_defs(cfg),
+            "ln2": L.norm_def(cfg.d_model, cfg.norm),
+            "mlp": mlp_defs(cfg),
+        }
+    elif cfg.family == "ssm":         # xlstm
+        every = cfg.ssm.slstm_every
+        assert cfg.num_layers % every == 0, "xlstm layers % slstm_every"
+        groups = cfg.num_layers // every
+        mblock = {"norm": L.norm_def(cfg.d_model, cfg.norm),
+                  "mlstm": S.mlstm_defs(cfg)}
+        sblock = {"norm": L.norm_def(cfg.d_model, cfg.norm),
+                  "slstm": S.slstm_defs(cfg)}
+        d["mlstm_groups"] = stacked_defs(stacked_defs(mblock, every - 1),
+                                         groups)
+        d["slstm_groups"] = stacked_defs(sblock, groups)
+    else:
+        d["blocks"] = stacked_defs(decoder_block_defs(cfg), cfg.num_layers)
     return d

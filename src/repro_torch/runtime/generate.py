@@ -1,11 +1,18 @@
 """Autoregressive generation: the open float path and private decode under
 the Origami two-tier protocol.
 
-Port of ``repro/runtime/generate.py`` for the dense and mixture-of-experts
-families: ``generate`` and ``generate_origami`` take both, as the
-reference's do; ``private_generate`` and ``GenerateExecutor`` need a
-decode plan, which refuses MoE (plan.ScanExclusion, the reference's
-reason), so they run the dense family only, as in the reference.
+Port of ``repro/runtime/generate.py`` for the dense, mixture-of-experts,
+hybrid and SSM families: ``generate`` takes all four and
+``generate_origami`` the dense and MoE families, as the reference's do;
+``private_generate`` and ``GenerateExecutor`` need a decode plan, which
+refuses MoE, hybrid and SSM (plan.ScanExclusion, the reference's
+reasons), so they run the dense family only, as in the reference. For
+the recurrent families (hybrid Zamba2, SSM xLSTM) ``generate`` has no
+prefill: it builds the state by stepping ``decode_step`` through the
+prompt (``prefill_recurrent``), where the reference runs one jitted
+``fori_loop``. Its counterpart of "compiles once" is ``RecurrentStep``:
+on the card one CUDA graph of the step, captured once and replayed for
+every prompt position and every new token.
 ``private_generate`` prefills the prompt through the base plan's segments
 (tier-1 blinded op by op and Freivalds-checked, tier-2 open), then walks
 each token through the decode plan's scan segments, its tier-1 pads and
@@ -38,8 +45,10 @@ from repro_torch.core import origami as OG
 from repro_torch.core import prng
 from repro_torch.core import slalom as SL
 from repro_torch.core.blinding import BlindingSpec
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.runtime import aot as AOT
 from repro_torch.runtime.sessions import TokenSlotRing
 
 
@@ -66,7 +75,10 @@ def _sample(logits: torch.Tensor, key, temperature: float,
 
 # the families of the reference's generate and generate_origami that the
 # port carries (the rest wait, ROADMAP Queue 1 item 12)
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
+ORIGAMI_FAMILIES = ("dense", "moe")         # generate_origami's
+# the families whose state is built by stepping through the prompt
+RECURRENT = ("hybrid", "ssm")
 
 
 def _family_in(cfg: ModelConfig, families) -> None:
@@ -75,27 +87,92 @@ def _family_in(cfg: ModelConfig, families) -> None:
                                   f"{families} (ROADMAP Queue 1 item 12)")
 
 
+def _zero_state(tree) -> None:
+    if isinstance(tree, torch.Tensor):
+        tree.zero_()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _zero_state(v)
+    else:
+        for v in tree:
+            _zero_state(v)
+
+
+class RecurrentStep:
+    """``decode_step`` of a recurrent model with its state ``caches``
+    bound: ``step(token (B, 1), pos) -> logits (B, 1, V)``, the state
+    updated in place. On the card it is one CUDA graph (runtime/aot.py
+    ``GraphStep``) captured once and replayed for every position: the
+    token and the position (a 0-dim tensor) are its static inputs, the
+    state its static buffers. The capture's warm-up runs one step into
+    the state, so the state is zeroed after it. On the CPU it is the eager
+    step."""
+
+    def __init__(self, params, caches, cfg: ModelConfig, batch: int,
+                 device: torch.device):
+        def step(token, pos):
+            return M.decode_step(params, token, caches, pos, cfg)[0]
+
+        self.step = step
+        if device.type == "cuda":
+            args = (torch.zeros((batch, 1), dtype=torch.long, device=device),
+                    torch.zeros((), dtype=torch.long, device=device))
+            self.step = AOT.GraphStep(step, args, device)
+            _zero_state(caches)
+
+    def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
+        return self.step(token, A.position(pos, token.device))
+
+
+def prefill_recurrent(params, prompt: torch.Tensor, caches,
+                      cfg: ModelConfig, step: Optional[RecurrentStep] = None):
+    """A recurrent model's prompt pass: ``decode_step`` at positions 0 ..
+    S0 - 1, each prompt token into the state (``caches``, updated in
+    place), eagerly or through ``step`` (a ``RecurrentStep`` bound to
+    ``caches``). -> (the last position's logits (B, 1, V), caches)."""
+    logits = None
+    for t in range(prompt.shape[1]):
+        tok = prompt[:, t:t + 1]
+        if step is None:
+            logits, caches = M.decode_step(params, tok, caches, t, cfg)
+        else:
+            logits = step(tok, t)
+    return logits, caches
+
+
 def generate(params, prompt, cfg: ModelConfig, *, max_new_tokens: int,
              temperature: float = 0.0, key=None,
              device="cuda") -> GenerationResult:
-    """Open (non-private) generation: prefill, then one decode step per
-    new token, all in the clear on ``device``."""
+    """Open (non-private) generation: the prompt pass (``prefill``, or for
+    a recurrent model ``prefill_recurrent`` through a ``RecurrentStep``,
+    which also takes the new tokens), then one decode step per new token,
+    all in the clear on ``device``."""
     _family_in(cfg, FAMILIES)
     dev = OG.resolve_device(device)
     key = key if key is not None else prng.PRNGKey(0)
     params = OG.params_to_device(params, dev)
     tokens = OG.tokens_on(prompt, dev)
-    S0 = tokens.shape[1]
+    B, S0 = tokens.shape
     total = S0 + max_new_tokens
+    step = None
     with torch.no_grad():
-        logits, caches = M.prefill(params, {"tokens": tokens}, cfg,
-                                   max_seq=total)
+        if cfg.family in RECURRENT:
+            caches = M.init_caches(cfg, B, total, device=dev)
+            step = RecurrentStep(params, caches, cfg, B, dev)
+            logits, caches = prefill_recurrent(params, tokens, caches, cfg,
+                                               step)
+        else:
+            logits, caches = M.prefill(params, {"tokens": tokens}, cfg,
+                                       max_seq=total)
         key, k = prng.split(key)
         nxt = _sample(logits[:, -1], k, temperature, cfg.vocab_size)
         tokens = torch.cat([tokens, nxt[:, None]], dim=1)
         for t in range(S0, total - 1):
-            logits, caches = M.decode_step(params, tokens[:, -1:], caches, t,
-                                           cfg)
+            if step is not None:
+                logits = step(tokens[:, -1:], t)
+            else:
+                logits, caches = M.decode_step(params, tokens[:, -1:],
+                                               caches, t, cfg)
             key, k = prng.split(key)
             nxt = _sample(logits[:, 0], k, temperature, cfg.vocab_size)
             tokens = torch.cat([tokens, nxt[:, None]], dim=1)
@@ -113,8 +190,9 @@ def generate_origami(params, prompt, cfg: ModelConfig, *,
     tier-1 ops in call order over the whole stream, so each runtime op
     draws its own pad (the reference's scanned step shares one pad among
     a step's layers, ROADMAP Queue 3); no policy verifies them, as in the
-    reference. ``telemetry`` counts every op."""
-    _family_in(cfg, FAMILIES)
+    reference. ``telemetry`` counts every op. The dense and MoE families
+    only, as the reference asserts."""
+    assert cfg.family in ORIGAMI_FAMILIES, cfg.family
     dev = OG.resolve_device(device)
     p = partition if partition is not None else cfg.origami.tier1_layers
     key = key if key is not None else prng.PRNGKey(0)

@@ -1032,3 +1032,147 @@ def test_moe_infer_on_card(dev):
     replay = ex.infer({"tokens": tokens}, trusted=True)
     assert isinstance(next(iter(ex._executables.values())), AOT.GraphStep)
     assert torch.equal(replay.logits, trusted.logits)
+
+
+@pytest.mark.parametrize("M,K,N", [(4096, 4096, 4),     # xLSTM's gates
+                                   (4, 4096, 4),
+                                   (4096, 2048, 8384),  # Zamba2's in_proj
+                                   (64, 2048, 8384)])
+def test_field_kernels_at_the_ssm_shapes(dev, M, K, N):
+    """The three field-product kernels at the narrowest N (4) and the
+    widest (8384) any path gives them, with the op's fold ([y | x] of
+    N + K digits, k = 2): bit-equal to their plain versions, one launch
+    each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(M + N)
+
+    def field(rows, cols):
+        return torch.randint(0, ref.P, (rows, cols), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    x, w, u = field(M, K), field(K, N), field(M, N)
+    Kp = ops.block_plan(M, K, N)[4]
+    xl, wl = ops.field_planes(x, Kp), ops.encode_weight_planes(w)
+    scale = torch.tensor(3.1e-6, device=dev)
+    sl = ops.encode_weight_planes(field(N + K, 2))
+    fl = ops.field_planes(field(M, N + K), sl.shape[1])
+    for name, fn, plain in (
+            ("limb_matmul", lambda: limb_matmul_planes(xl, wl),
+             lambda: limb_matmul_planes_plain(xl, wl)),
+            ("limb_matmul_fused",
+             lambda: limb_matmul_planes_fused(xl, wl, u, scale),
+             lambda: limb_matmul_planes_fused_plain(xl, wl, u, scale)),
+            ("limb_fold", lambda: limb_fold_planes(fl, sl),
+             lambda: limb_fold_planes_plain(fl, sl))):
+        n, got = _counted(fn)
+        assert n[name] == 1 and sum(n.values()) == 1, n
+        assert torch.equal(got, plain()), name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S", [(4, 1024), (2, 32), (1, 128), (2, 1000)])
+def test_flash_attention_one_query_head_a_kv_head_at_d64(dev, dtype, tol, B,
+                                                        S):
+    """Zamba2's shared attention: 32 query heads over 32 KV heads of 64
+    (G 1), causal, at its prefill and engine shapes and ragged: within
+    the tolerance of the plain version, one launch, deterministic."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(B * S)
+    q, k, v = (torch.randn((B, S, 32, 64), generator=gen, device=dev,
+                           dtype=dtype) for _ in range(3))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, got = _counted(lambda: flash_attention_fwd(q, k, v, causal=True))
+    assert n["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("arch,ops_", [("zamba2_1_2b", 6 * 2 + 2 * 6),
+                                       ("xlstm_1_3b", 3 * 4 + 3)])
+def test_ssm_infer_and_decode_on_card(dev, arch, ops_):
+    """The smoke Zamba2 and xLSTM on the card at p = 6 and 4 (both groups'
+    shared blocks, an sLSTM block blinded): blinded == trusted bit for bit,
+    every op checked; Zamba2's shared block through the flash kernel once
+    a group, xLSTM with no flash launch; the float32 forward within 1e-4
+    of the CPU's; decode within 0.06 of the card's forward."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.models import model as M
+    cfg = get_smoke(arch)
+    p = 6 if arch == "zamba2_1_2b" else 4
+    params = M.init_params(cfg, 0, device="cpu")
+    ex = OrigamiExecutor(cfg, params, "origami", p,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 32))
+    n, blinded = _counted(lambda: ex.infer({"tokens": tokens}))
+    trusted = ex.infer({"tokens": tokens}, trusted=True)
+    assert torch.equal(blinded.logits, trusted.logits)
+    rep = blinded.integrity
+    assert rep.n_checked == rep.n_ops == ops_ and rep.ok
+    groups = (cfg.num_layers // cfg.hybrid_attn_every
+              if arch == "zamba2_1_2b" else 0)
+    assert n["flash_attention"] == groups
+    assert n["blind_encode"] == n["limb_matmul_fused"] == ops_
+    f32 = cfg.replace(dtype="float32")
+    p32 = M.init_params(f32, 0, device="cpu")
+    toks = torch.from_numpy(tokens)
+    with torch.no_grad():
+        want = M.forward(p32, {"tokens": toks}, f32).logits.numpy()
+        got = M.forward(OrigamiExecutor(f32, p32, "open", 0,
+                                        device=dev).params,
+                        {"tokens": toks.to(dev)}, f32).logits.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    full = ex.reference({"tokens": tokens}).float()
+    caches = M.init_caches(cfg, 2, 16, device=dev)
+    with torch.no_grad():
+        for t in range(16):
+            logits, caches = M.decode_step(ex.params, toks[:, t:t + 1].to(dev),
+                                           caches, t, cfg)
+            np.testing.assert_allclose(
+                logits[:, 0].float().cpu().numpy(),
+                full[:, t].cpu().numpy(), rtol=0.06, atol=0.06)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1_2b", "xlstm_1_3b"])
+def test_recurrent_step_replay_matches_eager(dev, arch):
+    """The recurrent prompt pass through one captured decode step
+    (``RecurrentStep``, a CUDA graph) bit-equal to the eager pass in the
+    last logits and every state leaf, and ``generate`` (which replays the
+    step for the new tokens too) the greedy continuation of it."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.runtime import aot as AOT
+    from repro_torch.runtime import generate as G
+    cfg = get_smoke(arch)
+    params = M.init_params(cfg, 0, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12))).to(dev)
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in leaves(tree[k])]
+        return [t for v in tree for t in leaves(v)]
+
+    with torch.no_grad():
+        eager_caches = M.init_caches(cfg, 2, 16, device=dev)
+        eager, eager_caches = G.prefill_recurrent(params, prompt,
+                                                  eager_caches, cfg)
+        caches = M.init_caches(cfg, 2, 16, device=dev)
+        step = G.RecurrentStep(params, caches, cfg, 2, dev)
+        assert isinstance(step.step, AOT.GraphStep)
+        got, caches = G.prefill_recurrent(params, prompt, caches, cfg, step)
+    assert torch.equal(got, eager)
+    for a, b in zip(leaves(caches), leaves(eager_caches)):
+        assert torch.equal(a, b)
+    out = G.generate(params, prompt, cfg, max_new_tokens=4, device=dev)
+    assert torch.equal(out.tokens[:, :12], prompt)
+    assert torch.equal(out.tokens[:, 12],
+                       torch.argmax(eager[:, 0, :cfg.vocab_size].float(), -1))
