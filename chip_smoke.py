@@ -8,8 +8,10 @@ engine-served requests and ``generate_origami``, at full width and
 depth Yi-9B and MiniCPM3-4B (Multi-head Latent Attention) through private
 token generation and Qwen2.5-14B (QKV biases) through the LM forward, and
 the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
-generation and (Zamba2) the engine — and hold every kernel of them
-against its plain PyTorch version.
+generation and (Zamba2) the engine, and the cross-attention
+Llama-3.2-Vision-11B and Whisper-small through the private LM forward,
+the prompt pass and decode — and hold every kernel of them against its
+plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -280,15 +282,15 @@ Phases (any failure is fatal and exits non-zero):
    (blinded == trusted in logits and boundary, 6/6 ops checked: the
    blocks' ``in_proj`` and ``out_proj``; exactly 6 blind_encode, fused
    and fold, 12 limb_matmul and 6 flash launches, all flash in tier-2; a
-   bit_flip drill); open ``generate`` on a 4 x 256 prompt with 8 new
-   tokens: the prompt pass replayed as one captured decode step
+   bit_flip drill); the engine's sealed requests of 32, 32 and 128
+   tokens, each bit-equal to an eager infer; then open ``generate`` on a
+   4 x 256 prompt with 8 new tokens: the prompt pass replayed as one captured decode step
    (``RecurrentStep``) bit-equal to the eager pass over its first 64
    positions in logits and state, its last logits within 0.06 + 0.06 x
    |forward| of the teacher-forced forward's with float32 weights (the
    bound of the reference's tests/test_ssm.py; the bf16 gap printed), the
-   first new token the prompt pass's greedy pick; the engine's sealed
-   requests of 32, 32 and 128 tokens, each bit-equal to an eager infer.
-   Printed: blinded, trusted and open ms (medians of 3), busy shares, the
+   first new token the prompt pass's greedy pick (the float32 gate turns
+   the weights float32 in place, so it comes last). Printed: blinded, trusted and open ms (medians of 3), busy shares, the
    tier-1 boundary's distance from the float one (not gated: 8-bit
    activations of heavy-tailed Mamba2 outputs), peak memory, the prompt
    pass's ms a token eager and replayed;
@@ -296,7 +298,35 @@ Phases (any failure is fatal and exits non-zero):
    one sLSTM block; 1.99 B parameters): ``infer`` as in 30 with 12/12
    ops checked (the mLSTM blocks' ``w_up``, gates and ``w_down``) and no
    flash launch; the sLSTM blocks' share of an open forward (CUDA events
-   around each block); open ``generate`` as in 30.
+   around each block); open ``generate`` as in 30;
+32. vlm (after phase 31, each of 32-33 making its model's random bf16
+   weights from seed 0 at every published width and depth, the VLM's
+   cross-block gates, zero at init, drawn from U(0.25, 0.75), and
+   freeing them after) — Llama-3.2-Vision-11B (8 groups of 4 self blocks
+   and a gated cross block, d 4096, 32/8 heads of 128; 9.78 B
+   parameters): ``OrigamiExecutor.infer`` on 4 x 1024 tokens and 4 x 1601
+   float32 patches from N(0, 0.1^2) at p = 4 under full(k=2) (the gates
+   of phase 30: blinded == trusted, 28/28 ops checked, exactly 28
+   blind_encode, fused and fold, 56 limb_matmul and 40 flash launches: 32
+   causal self attentions and 8 non-causal cross attentions over 1601
+   keys in float32, ``sdpa`` promoting the bf16 queries); then
+   ``prefill_vlm`` on the 4 x 1024 prompt and 16 greedy ``decode_step``
+   tokens, each step's logits and the prompt pass's last against the
+   teacher-forced forward over the same tokens, within 0.05 + 0.05 x
+   |forward| (the bound of the reference's tests/test_attention.py): in
+   bf16 against the forward fed the patches in bf16, as ``prefill_vlm``
+   casts them (the cross attentions through the bf16 kernel on both
+   sides, the steps at one query), and with float32 weights; the bf16
+   run's gap to the forward over float32 patches (its cross attentions
+   float32) printed. Printed: blinded, trusted and open ms, busy shares,
+   the boundary's distance from the float one, peak memory, the prompt
+   pass's ms and ms a token;
+33. whisper — Whisper-small (12 encoder and 12 decoder blocks, d 768, 12
+   heads of 64; 0.24 B parameters): ``infer`` on 4 x 448 tokens and 4 x
+   1500 frames at p = 2 (12/12 ops checked, 36 flash launches: 12
+   non-causal encoder, 12 causal decoder and 12 cross attentions over
+   1500 frames); audio ``prefill`` on 4 x 64 tokens and 32 greedy
+   ``decode_step`` tokens, with the readings and the bound of 32.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -307,9 +337,23 @@ Zamba2's (``in_proj`` N 8384, ``out_proj``; 64, 128 and 4096 rows) and
 xLSTM's (``w_up``, the gates at N 4, ``w_down``; 4096 rows); the three
 field-product kernels at N 4 and N 8384 are also timed on lines of their
 own beside their plain versions, the bound and ``_int_mm``. Flash runs at
-Zamba2's shapes (G 1 at D 64: 4 x 1024, 2 x 32, 1 x 128, float32).
+Zamba2's shapes (G 1 at D 64: 4 x 1024, 2 x 32, 1 x 128, float32). For
+phases 32-33 the kernels phase checks the field kernels at
+Llama-3.2-Vision's tier-1 projections (q/o 4096 x 4096, k/v 4096 x 1024,
+gate/up 4096 x 14336, down 14336 x 4096) and Whisper's encoder's (768 x
+768, 768 x 3072, 3072 x 768) at the rows of phases 32 and 33 (4096 and
+6000), and the flash phase at their attention shapes: the VLM's causal
+self attention (4 x 1024, 32/8 heads of 128, G 4), its cross attention
+over 1601 patches in float32 (the forward) and bf16 (``prefill_vlm``) and
+at one query (decode), Whisper's encoder (1500 x 1500, non-causal),
+decoder (448 causal; the 64-token prompt) and cross attention (448, 64
+and one query against 1500 frames), each also within a relative
+Frobenius error of the plain version's float32 result (8e-3 bf16, 1e-4
+float32) that an unmasked last key tile exceeds: for each non-causal
+ragged case the plain version over keys zero-padded to a multiple of 64
+is shown failing that bound.
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-31 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-33 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
 kernels and no other (22 launches none).
 
@@ -764,6 +808,15 @@ ZAMBA2_PATH_ROWS = (64, 128, 4096)
 XLSTM_PROJECTIONS = (("w_up", 2048, 8192), ("gates", 4096, 4),
                      ("w_down", 4096, 2048))
 XLSTM_PATH_ROWS = (4096,)
+# the tier-1 projections of Llama-3.2-Vision-11B (its first four self
+# blocks) at 4096 rows (vlm infer's 4 x 1024) and of Whisper-small's
+# encoder at 6000 (whisper infer's 4 x 1500 frames)
+VLM_PROJECTIONS = (("q/o", 4096, 4096), ("k/v", 4096, 1024),
+                   ("gate/up", 4096, 14336), ("down", 14336, 4096))
+VLM_PATH_ROWS = (4096,)
+WHISPER_PROJECTIONS = (("q/k/v/o", 768, 768), ("up", 768, 3072),
+                       ("down", 3072, 768))
+WHISPER_PATH_ROWS = (6000,)
 # (label, M, K, N) of the new field shapes timed on lines of their own:
 # the narrowest N any path gives the kernels (xLSTM's gates) and the
 # widest (Zamba2's in_proj), at 4 x 1024 rows
@@ -850,6 +903,9 @@ def phase_lm_limb_shapes(gen, dev):
     phase_path_shapes(gen, dev, "zamba2", ZAMBA2_PROJECTIONS,
                       ZAMBA2_PATH_ROWS)
     phase_path_shapes(gen, dev, "xlstm", XLSTM_PROJECTIONS, XLSTM_PATH_ROWS)
+    phase_path_shapes(gen, dev, "vlm", VLM_PROJECTIONS, VLM_PATH_ROWS)
+    phase_path_shapes(gen, dev, "whisper", WHISPER_PROJECTIONS,
+                      WHISPER_PATH_ROWS)
     phase_ssm_field_shapes(gen, dev)
 
 
@@ -2092,16 +2148,81 @@ FLASH_CASES = (
      2e-2),
     ("float32 G 1 D 64", 2, 256, 32, 32, 64, 64, torch.float32, True, 2e-5),
 )
+# (label, B, Sq, Skv, H, KH, D, Dv, dtype, causal, tolerance): the
+# cross-attention families. Llama-3.2-Vision (32/8 heads of 128, G 4): its
+# causal self attention at 4 x 1024; its cross attention over 1601 patches
+# in float32 (the forward's float32 patches promote the bf16 queries), in
+# bf16 (``prefill_vlm``) and at one query (a decode step); Whisper (12/12
+# heads of 64): the encoder over 1500 frames, the decoder's causal self
+# attention at 448 (the infer phase) and 64 (the prompt pass), its cross
+# attention at 448, 64 and one query against 1500 frames. Besides the max
+# abs tolerance, each is held within ``CROSS_REL_TOL`` (relative Frobenius)
+# of the plain version's float32 result
+CROSS_FLASH_CASES = (
+    ("vlm self prefill", 4, 1024, 1024, 32, 8, 128, 128, torch.bfloat16,
+     True, 2e-2),
+    ("vlm cross forward", 4, 1024, 1601, 32, 8, 128, 128, torch.float32,
+     False, 2e-5),
+    ("vlm cross prefill", 4, 1024, 1601, 32, 8, 128, 128, torch.bfloat16,
+     False, 2e-2),
+    ("vlm cross decode", 4, 1, 1601, 32, 8, 128, 128, torch.bfloat16, False,
+     2e-2),
+    ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 64, torch.bfloat16, False,
+     2e-2),
+    ("whisper decoder self", 4, 448, 448, 12, 12, 64, 64, torch.bfloat16,
+     True, 2e-2),
+    ("whisper cross", 4, 448, 1500, 12, 12, 64, 64, torch.bfloat16, False,
+     2e-2),
+    ("whisper decode cross", 4, 1, 1500, 12, 12, 64, 64, torch.bfloat16,
+     False, 2e-2),
+    ("whisper prompt self", 4, 64, 64, 12, 12, 64, 64, torch.bfloat16, True,
+     2e-2),
+    ("whisper prompt cross", 4, 64, 1500, 12, 12, 64, 64, torch.bfloat16,
+     False, 2e-2),
+)
+# An absolute 2e-2 is half a typical output over ~1500 keys (std ~sqrt(e /
+# Skv) ~0.04 for scores of std 1), so a fault that scales every output by
+# a few percent passes it. The relative bound catches one: bf16 rounds the
+# probabilities and the output (~1e-3 each), while the last partial key
+# tile's zero-filled keys left unmasked scale every output by ~1 / (1 +
+# pad / Skv), 36 keys at 1500 and 63 at 1601. Each non-causal ragged case
+# shows that fault (the plain version over keys zero-padded to a multiple
+# of ``KEY_TILE``) failing the bound.
+CROSS_REL_TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-4}
+KEY_TILE = 64
 
 
-def flash_bound(B, S, H, KH, D, Dv, dtype, causal):
+def _rel_frobenius(got, exact):
+    return ((got.float() - exact).norm() / exact.norm()).item()
+
+
+def _unmasked_tail_rel(q, k, v, exact):
+    """The relative Frobenius error, against ``exact``, of non-causal
+    attention over k and v zero-padded to a multiple of ``KEY_TILE`` keys
+    (what the kernel gives if it left its last key tile unmasked), or None
+    where Skv fills its tiles."""
+    pad = -k.shape[1] % KEY_TILE
+    if not pad:
+        return None
+    kp, vp = (torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])],
+                        dim=1) for t in (k, v))
+    return _rel_frobenius(flash_attention_plain(q, kp, vp, causal=False),
+                          exact)
+
+
+def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal):
     """(bound ms, "bytes" | "operations") of one attention call: q, k, v
     read once and the output written once against 3.35 TB/s; 2 (D + Dv)
     operations for every (query, key) pair the mask lets through (QK and
-    PV) against the dense peak of the input type."""
+    PV; causal: query i sees keys 0..i) against the dense peak of the
+    input type."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (B * S * H * (D + Dv) + B * S * KH * (D + Dv))
-    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = size * (B * Sq * H * (D + Dv) + B * Skv * KH * (D + Dv))
+    if causal:
+        n = min(Sq, Skv)
+        pairs = n * (n + 1) // 2 + (Sq - n) * Skv
+    else:
+        pairs = Sq * Skv
     ops = 2 * B * H * (D + Dv) * pairs
     peak = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
     t_bytes, t_ops = nbytes / BYTES_S * 1e3, ops / peak * 1e3
@@ -2118,11 +2239,14 @@ def phase_flash(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     main_case, err_max = None, 0.0
-    for label, B, S, H, KH, D, Dv, dtype, causal, tol in FLASH_CASES:
+    cases = [(c[0], c[1], c[2], c[2]) + c[3:] for c in FLASH_CASES]
+    n_plain = len(cases)
+    for i, (label, B, S, Skv, H, KH, D, Dv, dtype, causal, tol) in enumerate(
+            cases + list(CROSS_FLASH_CASES)):
         q = torch.randn((B, S, H, D), generator=gen, device=dev, dtype=dtype)
-        k = torch.randn((B, S, KH, D), generator=gen, device=dev,
+        k = torch.randn((B, Skv, KH, D), generator=gen, device=dev,
                         dtype=dtype)
-        v = torch.randn((B, S, KH, Dv), generator=gen, device=dev,
+        v = torch.randn((B, Skv, KH, Dv), generator=gen, device=dev,
                         dtype=dtype)
         got = flash_attention_fwd(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
@@ -2132,6 +2256,25 @@ def phase_flash(dev):
             raise AssertionError(f"flash_attention {label}: max abs err "
                                  f"{err} against the plain version, "
                                  f"tolerance {tol}")
+        rel_note = ""
+        if i >= n_plain:
+            exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=causal)
+            rel, rel_tol = _rel_frobenius(got, exact), CROSS_REL_TOL[dtype]
+            tail = None if causal else _unmasked_tail_rel(q, k, v, exact)
+            if not rel <= rel_tol:
+                raise AssertionError(f"flash_attention {label}: relative "
+                                     f"Frobenius err {rel} against the "
+                                     f"plain float32 result, bound {rel_tol}")
+            if tail is not None and not tail > rel_tol:
+                raise AssertionError(f"flash_attention {label}: an unmasked "
+                                     f"last key tile ({tail}) would pass the "
+                                     f"bound {rel_tol}")
+            rel_note = (f"; relative Frobenius err {rel:.3g} (bound "
+                        f"{rel_tol:g}" + ("" if tail is None else
+                                          f"; an unmasked last key tile "
+                                          f"{tail:.3g}") + ")")
+            del exact
         if not torch.equal(got, flash_attention_fwd(q, k, v, causal=causal)):
             raise AssertionError(f"flash_attention {label}: two launches "
                                  f"differ")
@@ -2143,14 +2286,16 @@ def phase_flash(dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by = flash_bound(B, S, H, KH, D, Dv, dtype, causal)
+        bound, by = flash_bound(B, S, Skv, H, KH, D, Dv, dtype, causal)
         width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
-        print(f"flash_attention {label} (B {B}, S {S}, H {H}, KH {KH}, "
+        seq = f"S {S}" if Skv == S else f"Sq {S}, Skv {Skv}"
+        print(f"flash_attention {label} (B {B}, {seq}, H {H}, KH {KH}, "
               f"{width}, {str(dtype)[6:]}, "
               f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
               f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
               f"ms (device {fmt_ms(sdpa_dms)}), bound "
-              f"{bound:.4f} ms ({by}); max abs err {err:.3g} (tol {tol})")
+              f"{bound:.4f} ms ({by}); max abs err {err:.3g} (tol {tol})"
+              f"{rel_note}")
         if main_case is None:
             main_case = {"ms": ms, "plain_ms": plain_ms,
                          "library_ms": sdpa_ms, "bound_ms": bound,
@@ -2414,19 +2559,20 @@ def phase_lm_infer(cfg, params, dev, card):
 
 def _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed,
                     flash=None, reps=10, boundary_bound=PREFILL_REL_BOUND,
-                    busy=True):
+                    busy=True, memory=None):
     """``OrigamiExecutor.infer`` of an LM on ``shape`` tokens at
     partition ``p`` under full(k=2), ``block_ops`` blinded ops a tier-1
     block and ``flash`` flash launches a forward (every block's, when
     None): the gates and readings of ``phase_lm_infer``, the times medians
     of ``reps``; the tier-1 boundary's distance from the float one gated
     at ``boundary_bound``, or printed only when it is None; the busy
-    shares read from ``torch.profiler`` unless ``busy`` is false. Returns
-    the blinded run's launches."""
+    shares read from ``torch.profiler`` unless ``busy`` is false.
+    ``memory``: the batch's other entries (a cross-attention model's
+    frames or patches). Returns the blinded run's launches."""
     policy = IntegrityPolicy.full(k=2)
     ex = OrigamiExecutor(cfg, params, "origami", p, integrity=policy,
                          device=dev)
-    batch = {"tokens": _lm_tokens(cfg, shape, seed)}
+    batch = {"tokens": _lm_tokens(cfg, shape, seed), **(memory or {})}
     key = PRNGKey(seed + 1)
     n_ops = block_ops * p
     flash = cfg.num_layers if flash is None else flash
@@ -3601,16 +3747,16 @@ def _prompt_pass(cfg, params, prompt, dev, graphed):
     return ms, logits[:, 0].float(), caches
 
 
-def _forward_gap(cfg, params, prompt, got):
-    """(the teacher-forced forward's ms, the largest |got - forward| at the
-    last position, its margin to ``DECODE_BOUND`` (+ ``DECODE_BOUND`` x
-    |forward|))."""
+def _forward_gap(cfg, params, batch, got, bound, first=-1):
+    """(the teacher-forced forward's ms on ``batch``, the largest |got -
+    forward| over its positions ``first`` on (``got``: (B, n, V) float32),
+    its margin to ``bound`` + ``bound`` x |forward|)."""
     with torch.no_grad():
-        fwd_ms, full = _timed(
-            lambda: M.forward(params, {"tokens": prompt}, cfg).logits)
-    want = full[:, -1].float()
+        fwd_ms, full = _timed(lambda: M.forward(params, batch, cfg).logits)
+    want = full[:, first:].float()
+    del full
     err = (got - want).abs()
-    margin = -(err - DECODE_BOUND * (1 + want.abs())).max().item()
+    margin = -(err - bound * (1 + want.abs())).max().item()
     return fwd_ms, err.max().item(), margin
 
 
@@ -3629,14 +3775,14 @@ def _open_generate_gates(cfg, params, dev, tag, seed):
     ``SSM_EAGER_PREFIX`` positions: bit-equal in the last logits and in
     every state leaf. The replayed pass over the whole prompt against the
     teacher-forced ``forward`` at the last position, gated within
-    ``DECODE_BOUND`` on a float32 copy of the weights (the recurrent and
+    ``DECODE_BOUND`` with the weights turned float32 (the recurrent and
     the chunked forms of one function) and printed for the bf16 model,
     whose rounding points differ between the two forms (a token's
     projections are one-row matmuls in the prompt pass) and whose
     heavy-tailed Mamba2 and mLSTM outputs turn one bf16 ulp into a step
     of up to 0.25. Then ``generate`` in bf16 with 8 new tokens: the
     prompt kept and the first new token the greedy pick of the prompt
-    pass. The times printed."""
+    pass. The times printed. Leaves ``params`` float32."""
     prompt = _lm_tokens(cfg, SSM_GEN_SHAPE, seed)
     B, S0 = prompt.shape
     torch.cuda.reset_peak_memory_stats()
@@ -3655,7 +3801,8 @@ def _open_generate_gates(cfg, params, dev, tag, seed):
                   for t in _state_leaves(state))
     del eager_state, state, replayed, eager
     replay_ms, got, _ = _prompt_pass(cfg, params, prompt, dev, True)
-    fwd_ms, err, margin = _forward_gap(cfg, params, prompt, got)
+    fwd_ms, err, margin = _forward_gap(cfg, params, {"tokens": prompt},
+                                       got[:, None], DECODE_BOUND)
     gen_ms, out = _timed(lambda: generate(params, prompt, cfg,
                                           max_new_tokens=SSM_GEN_NEW,
                                           device=dev))
@@ -3668,10 +3815,10 @@ def _open_generate_gates(cfg, params, dev, tag, seed):
     del out
     _peak(tag)
     f32 = cfg.replace(dtype="float32")
-    p32 = _float32_tree(params)
-    _, got32, _ = _prompt_pass(f32, p32, prompt, dev, True)
-    _, err32, margin32 = _forward_gap(f32, p32, prompt, got32)
-    del p32
+    _to_float32_in_place(params)
+    _, got32, _ = _prompt_pass(f32, params, prompt, dev, True)
+    _, err32, margin32 = _forward_gap(f32, params, {"tokens": prompt},
+                                      got32[:, None], DECODE_BOUND)
     if margin32 < 0:
         raise AssertionError(f"{tag}: float32 prompt pass's last logits "
                              f"exceed the bound {DECODE_BOUND} + "
@@ -3695,18 +3842,22 @@ def _open_generate_gates(cfg, params, dev, tag, seed):
     _free()
 
 
-def _float32_tree(tree):
-    """A float32 copy of a parameter tree."""
-    if isinstance(tree, dict):
-        return {k: _float32_tree(v) for k, v in tree.items()}
-    return tree.float()
+def _to_float32_in_place(tree):
+    """Every leaf of a parameter tree replaced by its float32 copy, one at
+    a time (the bf16 leaf is freed as its copy lands)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_float32_in_place(v)
+        else:
+            tree[k] = v.float()
 
 
 def phase_zamba2(dev, card):
     """Zamba2-1.2B at every width and depth: ``infer`` on 4 x 1024 tokens at
     p = 3 (6 ops checked, 6 flash launches: the shared block after each
-    complete group, all in tier-2), open ``generate`` (4 x 256 + 8) and
-    the engine's sealed requests of 32, 32 and 128 tokens. The tier-1
+    complete group, all in tier-2), the engine's sealed requests of 32,
+    32 and 128 tokens, then open ``generate`` (4 x 256 + 8), whose float32
+    gate leaves the weights float32. The tier-1
     boundary's distance from the float one is printed, not gated: the
     8-bit activations of ``out_proj`` (out_norm(y) x silu(z), its absmax
     ~50 times its standard deviation) put ~6% into each block's output,
@@ -3720,11 +3871,11 @@ def phase_zamba2(dev, card):
                     reps=SSM_REPS, boundary_bound=None)
     _peak(tag)
     _free()
-    _open_generate_gates(cfg, params, dev, f"zamba2 generate on {card}",
-                         SEED + 92)
-    _free()
     _serve_lm_engine("zamba2", cfg, params, p, SSM_ENGINE_SEQS, SEED + 94,
                      dev, card)
+    _free()
+    _open_generate_gates(cfg, params, dev, f"zamba2 generate on {card}",
+                         SEED + 92)
     del params
     _free()
 
@@ -3777,6 +3928,239 @@ def phase_xlstm(dev, card):
     _slstm_share(cfg, params, tag, SEED + 96)
     _open_generate_gates(cfg, params, dev, f"xlstm generate on {card}",
                          SEED + 98)
+    del params
+    _free()
+
+
+# -- the cross-attention families: Llama-3.2-Vision-11B and Whisper-small --
+
+VLM_INFER_SHAPE = (4, 1024)             # (batch, tokens), 4 x 1601 patches
+VLM_GEN_SHAPE, VLM_GEN_NEW = (4, 1024), 16
+WHISPER_INFER_SHAPE = (4, 448)          # (batch, tokens), 4 x 1500 frames
+WHISPER_GEN_SHAPE, WHISPER_GEN_NEW = (4, 64), 32
+# blinded ops a tier-1 block: a VLM self block's q, k, v, o, gate, up and
+# down; a Whisper encoder block's q, k, v, o, up and down
+VLM_OPS, WHISPER_OPS = 7, 6
+# the bound of the reference's tests/test_attention.py (the prompt pass,
+# then decode, against the teacher-forced forward): 0.05 + 0.05 x |forward|
+CROSS_DECODE_BOUND = 0.05
+MEMORY_STD = 0.1                        # the reference's tests' N(0, 0.1^2)
+
+
+class _FlashCalls:
+    """Counts the attention calls ``models/attention.py`` hands the flash
+    wrapper inside the block, by (causal, key length, dtype). ``check``:
+    each call's output is also held against the plain version's float32
+    result on the same inputs, the largest relative Frobenius error kept
+    in ``rel`` by (causal, query length, key length, dtype). ``plain``:
+    the plain version answers in place of the kernel."""
+
+    def __init__(self, check=False, plain=False):
+        self.check, self.plain = check, plain
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        self.module, self.inner = A, A.flash_attention_fwd
+        self.calls, self.rel = {}, {}
+
+        def spy(q, k, v, *, causal=True):
+            key = (causal, k.shape[1], str(q.dtype)[6:])
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if self.plain:
+                return flash_attention_plain(q, k, v, causal=causal)
+            out = self.inner(q, k, v, causal=causal)
+            if self.check:
+                exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                              causal=causal)
+                at = (causal, q.shape[1]) + key[1:]
+                self.rel[at] = max(self.rel.get(at, 0.0),
+                                   _rel_frobenius(out, exact))
+            return out
+
+        A.flash_attention_fwd = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention_fwd = self.inner
+
+
+def _memory(cfg, batch, seed, dev):
+    """A cross-attention model's memory from N(0, 0.1^2) on ``dev``:
+    {"frames": (batch, 1500, d)} or {"patches": (batch, 1601, d)},
+    float32."""
+    key, n = (("frames", cfg.encoder_seq_len) if cfg.family == "audio"
+              else ("patches", cfg.vision_seq_len))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {key: torch.randn((batch, n, cfg.d_model), generator=gen,
+                             device=dev) * MEMORY_STD}
+
+
+def _cross_decode(cfg, params, prompt, memory, new):
+    """The open prompt pass (``prefill`` or ``prefill_vlm``) and ``new``
+    greedy ``decode_step`` tokens: (prompt pass ms, ms a token, the
+    logits (B, new + 1, V) float32 of the prompt's last position and of
+    every step, the tokens (B, S0 + new) they were fed)."""
+    B, S0 = prompt.shape
+    fill = M.prefill if cfg.family == "audio" else M.prefill_vlm
+    with torch.no_grad():
+        fill_ms, (logits, caches) = _timed(lambda: fill(
+            params, {"tokens": prompt, **memory}, cfg, max_seq=S0 + new))
+        got = [logits[:, 0].float()]
+        toks = [prompt]
+        nxt = torch.argmax(got[0][:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(S0, S0 + new):
+            toks.append(nxt[:, None])
+            logits, caches = M.decode_step(params, nxt[:, None], caches, t,
+                                           cfg)
+            got.append(logits[:, 0].float())
+            nxt = torch.argmax(got[-1][:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / new
+    return (fill_ms, step_ms, torch.stack(got, dim=1),
+            torch.cat(toks, dim=1))
+
+
+def _cross_generate_gates(cfg, params, dev, tag, shape, new, seed):
+    """The open prompt pass and ``new`` greedy decode tokens
+    (``_cross_decode``) against the teacher-forced forward over the same
+    tokens at the prompt's last position and every step, at
+    ``CROSS_DECODE_BOUND``: gated with the weights turned float32 in place
+    (the caches stay bf16, as the reference's). With the bf16 weights the
+    gap is printed three ways: against the forward fed the memory in bf16,
+    as the prompt pass casts it (both sides attend it through the bf16
+    kernel, the decode steps at one query); against the forward over the
+    float32 memory (for the VLM, whose forward keeps its patches float32,
+    the split between the float32 and bf16 cross attentions); and with
+    every attention through the plain version on both sides (no kernel:
+    what is left is the bf16 model's own rounding). The bf16 path is gated
+    call by call: every attention of the prompt pass and the decode steps
+    within ``CROSS_REL_TOL`` of the plain version on its own inputs. The
+    times printed. Leaves ``params`` float32."""
+    S0 = shape[1]
+    prompt = _lm_tokens(cfg, shape, seed)
+    memory = _memory(cfg, shape[0], seed + 1, dev)
+    half = {k: t.to(torch.bfloat16) for k, t in memory.items()}
+
+    def gap(c, mem, run):
+        got, toks = run[2:]
+        return _forward_gap(c, params, {"tokens": toks, **mem}, got,
+                            CROSS_DECODE_BOUND, S0 - 1)
+
+    run = _cross_decode(cfg, params, prompt, half, new)
+    fill_ms, step_ms = run[:2]
+    fwd_ms, err, margin = gap(cfg, half, run)
+    _, err_s, margin_s = gap(cfg, memory, run)
+    del run
+    with _FlashCalls(check=True) as fc:
+        _cross_decode(cfg, params, prompt, half, new)
+    with _FlashCalls(plain=True):
+        _, err_p, margin_p = gap(cfg, half, _cross_decode(cfg, params, prompt,
+                                                          half, new))
+    _free()
+    _to_float32_in_place(params)
+    f32 = cfg.replace(dtype="float32")
+    run = _cross_decode(f32, params, prompt, memory, new)
+    fill32, step32 = run[:2]
+    _, err32, margin32 = gap(f32, memory, run)
+    del run
+    rel = {f"{'causal' if c else 'non-causal'} {sq}x{skv} {dt}": round(r, 6)
+           for (c, sq, skv, dt), r in sorted(fc.rel.items())}
+    print(f"{tag}: {cfg.name} open prompt pass on {shape[0]}x{S0} tokens "
+          f"and {new} greedy decode_step tokens against the teacher-forced "
+          f"forward at each position, bound {CROSS_DECODE_BOUND} + "
+          f"{CROSS_DECODE_BOUND} x |forward|: float32 weights max abs err "
+          f"{err32:.5f} (margin {margin32:.5f}); bf16 weights (printed) max "
+          f"abs err {err:.5f} (margin {margin:.5f}) with the memory in bf16 "
+          f"on both sides, {err_s:.5f} (margin {margin_s:.5f}) against the "
+          f"forward over float32 memory, {err_p:.5f} (margin "
+          f"{margin_p:.5f}) with every attention through the plain version "
+          f"on both sides; each attention call of the bf16 prompt pass and "
+          f"decode against the plain version on its inputs, the largest "
+          f"relative Frobenius err by kind {rel}; bf16 prompt pass "
+          f"{fill_ms:.1f} ms, {step_ms:.2f} ms a token, forward "
+          f"{fwd_ms:.1f} ms; float32 prompt pass {fill32:.1f} ms, "
+          f"{step32:.2f} ms a token")
+    if margin32 < 0:
+        raise AssertionError(f"{tag}: the float32 prompt pass and decode "
+                             f"steps exceed {CROSS_DECODE_BOUND} + "
+                             f"{CROSS_DECODE_BOUND} x |forward| by "
+                             f"{-margin32} (max abs err {err32})")
+    bad = {k: r for k, r in fc.rel.items()
+           if not r <= CROSS_REL_TOL[getattr(torch, k[3])]}
+    if bad or not any(sq == 1 for _, sq, _, _ in fc.rel):
+        raise AssertionError(f"{tag}: attention calls of the bf16 prompt "
+                             f"pass and decode off the plain version "
+                             f"beyond {CROSS_REL_TOL}: {bad}, or no decode "
+                             f"step attended ({sorted(fc.rel)})")
+    _peak(tag)
+
+
+def _cross_infer(cfg, params, dev, tag, block_ops, shape, seed, flash_want):
+    """``_lm_infer_gates`` on ``shape`` tokens and the model's memory at
+    the config's partition, with the attention calls counted by kind
+    (``flash_want``: {(causal, key length, dtype): calls})."""
+    p = cfg.origami.tier1_layers
+    torch.cuda.reset_peak_memory_stats()
+    with _FlashCalls() as fc:
+        _lm_infer_gates(cfg, params, dev, tag, p, block_ops, shape, seed,
+                        flash=sum(flash_want.values()), reps=SSM_REPS,
+                        boundary_bound=None,
+                        memory=_memory(cfg, shape[0], seed + 1, dev))
+        calls = dict(fc.calls)
+    # the gates' own runs (blinded, trusted, split, bit_flip, timings)
+    # each attend the same; the first blinded run's share is one in n
+    n_runs = sum(calls.values()) // sum(flash_want.values())
+    assert all(c == n_runs * flash_want.get(k, 0)
+               for k, c in calls.items()) and set(calls) == set(flash_want), \
+        (calls, flash_want)
+    print(f"{tag}: attention calls a forward by (causal, keys, dtype): "
+          f"{ {k: c // n_runs for k, c in sorted(calls.items())} }")
+    _peak(tag)
+    _free()
+
+
+def phase_vlm(dev, card):
+    """Llama-3.2-Vision-11B at every width and depth: ``infer`` on 4 x 1024
+    tokens and 4 x 1601 float32 patches at p = 4 (28 ops checked, 40
+    flash launches: 32 causal bf16, 8 cross float32 over 1601 keys), then
+    ``prefill_vlm`` and 16 decode tokens against the forward. The
+    cross-block gates, zero at init (a block would add nothing), are
+    drawn from U(0.25, 0.75)."""
+    cfg, params = _load_model("llama3_2_vision_11b", dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 100)
+    for name in ("attn_gate", "mlp_gate"):
+        g = params["cross_groups"][name]
+        g.copy_(torch.rand(g.shape, generator=gen, device=dev) * 0.5 + 0.25)
+    groups = cfg.num_layers // cfg.cross_attn_every
+    _cross_infer(cfg, params, dev, f"vlm infer on {card}", VLM_OPS,
+                 VLM_INFER_SHAPE, SEED + 102,
+                 {(True, VLM_INFER_SHAPE[1], "bfloat16"):
+                      cfg.num_layers - groups,
+                  (False, cfg.vision_seq_len, "float32"): groups})
+    _cross_generate_gates(cfg, params, dev, f"vlm generate on {card}",
+                          VLM_GEN_SHAPE, VLM_GEN_NEW, SEED + 104)
+    del params
+    _free()
+
+
+def phase_whisper(dev, card):
+    """Whisper-small at every width and depth: ``infer`` on 4 x 448 tokens
+    and 4 x 1500 frames at p = 2 (12 ops checked, 36 flash launches: 12
+    non-causal encoder, 12 causal decoder and 12 cross attentions), then
+    the audio ``prefill`` on 4 x 64 tokens and 32 decode tokens against
+    the forward."""
+    cfg, params = _load_model("whisper_small", dev)
+    L_, frames = cfg.num_layers, cfg.encoder_seq_len
+    _cross_infer(cfg, params, dev, f"whisper infer on {card}", WHISPER_OPS,
+                 WHISPER_INFER_SHAPE, SEED + 106,
+                 {(False, frames, "bfloat16"): 2 * L_,
+                  (True, WHISPER_INFER_SHAPE[1], "bfloat16"): L_})
+    _cross_generate_gates(cfg, params, dev, f"whisper generate on {card}",
+                          WHISPER_GEN_SHAPE, WHISPER_GEN_NEW, SEED + 108)
     del params
     _free()
 
@@ -3869,9 +4253,13 @@ def main():
     _free()
     mark("mla infer, mla generate_origami")
     phase_zamba2(dev, card)
-    mark("zamba2 infer, zamba2 generate, zamba2 engine")
+    mark("zamba2 infer, zamba2 engine, zamba2 generate")
     phase_xlstm(dev, card)
     mark("xlstm infer, xlstm generate")
+    phase_vlm(dev, card)
+    mark("vlm infer, vlm generate")
+    phase_whisper(dev, card)
+    mark("whisper infer, whisper generate")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

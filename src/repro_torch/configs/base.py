@@ -87,7 +87,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # cnn | dense | moe | hybrid | ssm
+    family: str         # cnn | dense | moe | hybrid | ssm | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int

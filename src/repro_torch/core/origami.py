@@ -28,8 +28,11 @@ derives material from the session key on the host (no precompute cache,
 or a "sampled" Freivalds policy, whose check decisions are host draws).
 Without an attached cache ``infer`` runs eagerly.
 
-For an LM (the dense, mixture-of-experts, hybrid and SSM families),
-``infer`` on {"tokens": (B, S)} is the forward over every position. A MoE
+For an LM (every LM family), ``infer`` on {"tokens": (B, S)} is the
+forward over every position; Whisper's batch adds its "frames" (B, M, d)
+and its plan ranges over the encoder blocks (the decoder runs in the
+clear after the last segment), Llama-3.2-Vision's adds its "patches"
+(B, M, d), which every segment's cross blocks attend to. A MoE
 block's experts and router are not ``layers.dense`` calls: they run as
 plain float ops in every segment (in tier-1 on the enclave's side, as in
 the reference), and only its attention projections (and Arctic's
@@ -42,8 +45,9 @@ private autoregressive decode (runtime/generate.py):
 (every tier-1 op blinded with its own key, ``step`` 0) and
 ``decode_once`` walks one token through the scan segments (``step`` = the
 token's position), its factors from a TokenSlotRing slot or derived live.
-A MoE executor has no decode plan: ``attach_decode_plan`` raises
-plan.ScanExclusion with the reference's reason.
+A MoE, recurrent, audio or VLM executor has no decode plan:
+``attach_decode_plan`` raises plan.ScanExclusion with the reference's
+reason.
 With a CompileCache attached, the trusted prompt pass and the slot-fed
 and trusted token steps replay CUDA graphs keyed on the decode plan's
 digest (``warm_decode_aot`` captures them ahead of the first request).
@@ -711,12 +715,15 @@ class OrigamiExecutor:
 
     # -- public API ----------------------------------------------------------
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
-        """The batch on the executor's device: a CNN's images as float32, an
-        LM's token ids as long."""
-        dtype = torch.float32 if self.cfg.family == "cnn" else torch.long
+        """The batch on the executor's device: an LM's token ids as long,
+        every other entry (a CNN's images, Whisper's frames, a VLM's
+        patches) as float32; the model casts the memory as the reference
+        does (Whisper's prologue to the model dtype, a VLM's forward not
+        at all)."""
         return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.asarray(v))).to(self.device,
-                                                            dtype)
+                    else torch.from_numpy(np.asarray(v))).to(
+                        self.device,
+                        torch.long if k == "tokens" else torch.float32)
                 for k, v in batch.items()}
 
     @staticmethod
@@ -726,7 +733,8 @@ class OrigamiExecutor:
     def infer(self, batch, session_key=None, trusted: bool = False,
               jit: bool = True) -> OrigamiResult:
         """Run the plan on ``batch`` ({"images": (B, H, W, C)} or, for an
-        LM, {"tokens": (B, S)}: logits at every position) under the
+        LM, {"tokens": (B, S)} and a cross-attention model's "frames" or
+        "patches": logits at every position) under the
         blinding session ``session_key`` (a (2,) uint32 key; PRNGKey(0)
         when omitted). ``trusted=True`` runs the enclave-recompute path:
         no device, no blinding, no verification, bit-identical logits.
@@ -774,9 +782,7 @@ class OrigamiExecutor:
     def reference(self, batch) -> torch.Tensor:
         """Plain float forward — the correctness oracle for all plans."""
         with torch.no_grad():
+            batch = self._on_device(batch)
             if self.cfg.family != "cnn":
-                tokens = tokens_on(batch["tokens"], self.device)
-                return M.forward(self.params, {"tokens": tokens},
-                                 self.cfg).logits
-            return V.vgg_forward(self.params, self._on_device(batch)["images"],
-                                 self.cfg)
+                return M.forward(self.params, batch, self.cfg).logits
+            return V.vgg_forward(self.params, batch["images"], self.cfg)

@@ -1,7 +1,8 @@
-"""Attention of the dense and MoE LMs: GQA with RoPE and Multi-head
-Latent Attention (MLA), prefill and decode paths.
+"""Attention of the LMs: GQA with RoPE, Multi-head Latent Attention (MLA)
+and cross-attention (Whisper's decoder, Llama-3.2-Vision's image blocks),
+prefill and decode paths.
 
-Port of the GQA and MLA parts of ``repro/models/attention.py``.
+Port of ``repro/models/attention.py`` but its windowed attention.
 Projections work on the flat ``(..., n_heads * head_dim)`` layout and go
 through ``layers.dense``, so the Origami executor's hook routes them into
 the Slalom protocol in tier-1. Layouts are the reference's: q (B, S, H, D),
@@ -13,19 +14,25 @@ kv_lora_rank + qk_rope_head_dim), with no ``v``.
 plain or a chunked online-softmax core in jnp; both compute the function
 of the flash-attention kernel, so here every call goes to
 ``flash_attention_fwd``: on a CUDA tensor the hand-written kernel (head
-widths 32 and 64 of SmolLM, 128 of Yi, Qwen2.5, Qwen3-MoE and Arctic, and
-MLA's q/k 96 against v 64, 48 against 32 at the smoke widths), on a CPU
-tensor its plain version. The reference pads an irregular key length
-to a tile multiple and masks the padded keys; the kernel masks a ragged
-length itself, so such calls go to it unpadded. Sliding windows and query
-offsets are not ported. ``decode_sdpa`` (one query
-against the cache) has no kernel in the reference and stays plain
-PyTorch, as do MLA's absorbed decode einsums, which read ``wkv_b``'s
-weight directly (not through ``layers.dense``): in tier-1 they run in
-float32 in the enclave, as in the reference.
+widths 32 and 64 of SmolLM and Whisper, 128 of Yi, Qwen2.5, Qwen3-MoE,
+Arctic and Llama-3.2-Vision, and MLA's q/k 96 against v 64, 48 against 32
+at the smoke widths), on a CPU tensor its plain version. The reference
+pads an irregular key length to a tile multiple and masks the padded keys
+(vision's 1601 patches); the kernel masks a ragged length itself, so such
+calls go to it unpadded. Like the reference's, ``sdpa`` takes keys and
+values of another dtype than the queries (Llama-3.2-Vision's float32
+patches projected into float32 k and v against bf16 queries): it promotes
+the three to one dtype, runs the kernel of that dtype and casts the
+output to q's. Sliding windows and query offsets are not ported.
+``decode_sdpa`` (one query against the cache) has no kernel in the
+reference and stays plain PyTorch, as do MLA's absorbed decode einsums,
+which read ``wkv_b``'s weight directly (not through ``layers.dense``): in
+tier-1 they run in float32 in the enclave, as in the reference.
 
-Cross-attention and windowed attention are not ported yet (ROADMAP
-Queue 1).
+Cross-attention projects its keys and values from a memory (Whisper's
+encoder output, Llama-3.2-Vision's patches) and attends without a causal
+mask; a decode step attends to the memory's K/V, precomputed once
+(``cross_kv``), through ``sdpa`` at one query, as the reference does.
 """
 from __future__ import annotations
 
@@ -83,7 +90,8 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, object]:
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
          q_offset=0, window=0) -> torch.Tensor:
     """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
-    q's dtype, the scores scaled by 1/sqrt(D).
+    q's dtype, the scores scaled by 1/sqrt(D); k and v may be of another
+    dtype than q (computed in the promoted dtype).
 
     A sliding window or a query offset has no kernel and no caller in the
     port and raises."""
@@ -91,7 +99,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
         raise NotImplementedError(
             f"sdpa with window={window}, q_offset={q_offset} is not ported "
             f"({_ROADMAP})")
-    return flash_attention_fwd(q, k, v, causal=causal)
+    if k.dtype == q.dtype and v.dtype == q.dtype:
+        return flash_attention_fwd(q, k, v, causal=causal)
+    # mixed dtypes: the kernel of the promoted dtype, the output in q's
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    return flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt),
+                               causal=causal).to(q.dtype)
 
 
 def position(pos, device) -> torch.Tensor:
@@ -290,3 +303,40 @@ def mla_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig,
         q = torch.cat([q_nope, q_rope], dim=-1)
         y = decode_sdpa(q, k, v, pos).reshape(B, 1, -1)
     return L.dense(p["wo"], y), cache
+
+
+def cross_attn_defs(cfg: ModelConfig) -> Dict[str, object]:
+    return gqa_defs(cfg)
+
+
+def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
+    """The cross-attention K/V (B, M, KH, D) of a memory (B, M, d), in the
+    memory's dtype."""
+    B = memory.shape[0]
+    hd = cfg.resolved_head_dim
+    k = L.dense(p["wk"], memory).reshape(B, -1, cfg.num_kv_heads, hd)
+    v = L.dense(p["wv"], memory).reshape(B, -1, cfg.num_kv_heads, hd)
+    return k, v
+
+
+def cross_attn_forward(p, x: torch.Tensor, memory: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """x: (B,S,d) queries; memory: (B,M,d) encoder or vision states,
+    attended without a mask."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = L.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    k, v = cross_kv(p, memory, cfg)
+    out = sdpa(q, k, v, causal=False)
+    return L.dense(p["wo"], out.reshape(B, S, -1))
+
+
+def cross_attn_cached(p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention against precomputed K/V (B, M, KH, D): a decode
+    step's query (S = 1) through ``sdpa``, as in the reference."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = L.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    out = sdpa(q, ck, cv, causal=False)
+    return L.dense(p["wo"], out.reshape(B, S, -1))

@@ -1,7 +1,7 @@
-"""Top-level LM API of the dense, mixture-of-experts, hybrid and SSM
-families: config -> init / forward / prefill / decode.
+"""Top-level LM API of every LM family: config -> init / forward /
+prefill / decode.
 
-Port of the dense, MoE, hybrid and SSM part of ``repro/models/model.py``.
+Port of the LM part of ``repro/models/model.py``.
 Parameters are a nested dict of tensors with the reference's tree and
 layouts: block leaves are stacked (a leading layer dim; a MoE expert bank
 is (L, E, d, f), its router float32; Zamba2's Mamba2 blocks (groups,
@@ -30,6 +30,21 @@ as their parameters, and the shared block's KV cache, one a group).
 (the reference returns new stacks) and returns the same dict. They have
 no ``prefill``, as in the reference: open generation builds the state by
 stepping ``decode_step`` through the prompt (runtime/generate.py).
+
+The cross-attention families attend to a memory that the batch carries
+beside its tokens. Whisper (audio) encodes ``frames`` (B, 1500, d), cast
+to the model dtype and given sinusoidal positions, through its encoder
+blocks, and its decoder (sinusoidal positions on the tokens, no RoPE)
+attends to the normed encoder output; its Origami ranges are the encoder
+blocks (the private input is the audio) and the decoder runs in the
+program's epilogue, in the clear like the head. Llama-3.2-Vision (vlm)
+closes each group of self blocks with a gated cross block over
+``patches`` (B, 1601, d), which the forward keeps in float32, as the
+reference does (their K/V come out float32 against bf16 queries;
+``sdpa`` promotes); ``prefill_vlm`` casts them to the model dtype. Their
+caches are {"self": the self-attention ``KVCache``, "cross_k",
+"cross_v": the memory's K/V, bf16, projected once by the prompt pass};
+``decode_step`` writes the self caches in place and reads the cross K/V.
 """
 from __future__ import annotations
 
@@ -113,10 +128,11 @@ def params_to_numpy(params):
 
 
 def _sinusoidal_positions(cfg: ModelConfig) -> bool:
-    """A model without attention and without RoPE adds sinusoidal
-    positions to its embeddings (the reference's condition; no config the
-    port carries meets it: xLSTM keeps ``rope_theta`` 10000)."""
-    return cfg.attention == "none" and cfg.rope_theta == 0.0
+    """Whisper, and a model without attention and without RoPE, add
+    sinusoidal positions to their token embeddings (the reference's
+    condition; xLSTM keeps ``rope_theta`` 10000)."""
+    return cfg.family == "audio" or (cfg.attention == "none"
+                                     and cfg.rope_theta == 0.0)
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -217,13 +233,47 @@ def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
     return x, 0.0
 
 
+def _range_vlm(params, x: torch.Tensor, cfg: ModelConfig, lo: int, hi: int,
+               patches: torch.Tensor):
+    """Llama-3.2-Vision's blocks [lo, hi): in each group of
+    ``cross_attn_every`` the self blocks, then the gated cross block over
+    ``patches`` that closes the group."""
+    e = cfg.cross_attn_every
+    groups = cfg.num_layers // e
+    for g in range(groups):
+        g_lo = g * e
+        a, b = max(lo, g_lo), min(hi, g_lo + e - 1)   # self sub-blocks
+        for j in range(a - g_lo, b - g_lo):
+            x, _ = T.decoder_block_fwd(_block(params["self_groups"], g, j),
+                                       x, cfg)
+        cidx = g_lo + e - 1
+        if lo <= cidx < hi:
+            x = T.vlm_cross_block_fwd(_block(params["cross_groups"], g), x,
+                                      patches, cfg)
+    return x, 0.0
+
+
+def _range_audio_encoder(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
+                         hi: int):
+    for i in range(lo, hi):
+        x = T.encoder_block_fwd(T.layer_params(params["enc_blocks"], i), x,
+                                cfg)
+    return x, 0.0
+
+
 def apply_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                hi: int):
-    """Run blocks [lo, hi) on hidden states x -> (x, aux)."""
+                hi: int, *, memory: Optional[torch.Tensor] = None):
+    """Run blocks [lo, hi) on hidden states x -> (x, aux). ``memory``: a
+    VLM's patches; an audio model's range is over its encoder blocks."""
     if cfg.family == "hybrid":
         return _range_hybrid(params, x, cfg, lo, hi)
     if cfg.family == "ssm":
         return _range_xlstm(params, x, cfg, lo, hi)
+    if cfg.family == "vlm":
+        return _range_vlm(params, x, cfg, lo, hi, memory)
+    if cfg.family == "audio":
+        # ranges apply to the encoder (tier-1 is a prefix of the encoder)
+        return _range_audio_encoder(params, x, cfg, lo, hi)
     aux = 0.0
     for i in range(lo, hi):
         x, a = T.decoder_block_fwd(T.layer_params(params["blocks"], i), x,
@@ -232,25 +282,70 @@ def apply_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
     return x, aux
 
 
+def _audio_input(frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Whisper's encoder input: the frames in the model dtype plus
+    sinusoidal positions."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device)
+    return x + pe.to(x.dtype)
+
+
 def layer_program(cfg: ModelConfig):
     """(prologue, segment, epilogue): the LM layer iterator the plan
-    interpreter walks (core/plan.py:program_for)."""
+    interpreter walks (core/plan.py:program_for).
+
+    Audio plans range over the encoder blocks; the decoder runs in the
+    epilogue, in the clear like the LM head. A VLM's prologue hands the
+    batch's patches to every segment as the memory."""
+    audio = cfg.family == "audio"
+
     def prologue(params, batch):
-        return embed_tokens(params, batch["tokens"], cfg), None
+        if audio:
+            return _audio_input(batch["frames"], cfg), None
+        memory = batch.get("patches") if cfg.family == "vlm" else None
+        return embed_tokens(params, batch["tokens"], cfg), memory
 
     def segment(params, x, lo, hi, memory=None):
-        return apply_range(params, x, cfg, lo, hi)[0]
+        return apply_range(params, x, cfg, lo, hi, memory=memory)[0]
 
     def epilogue(params, x, batch, memory=None):
+        if audio:
+            mem = L.apply_norm(params["enc_norm"], x, cfg.norm)
+            return forward_audio_decoder(params, batch, mem, cfg)
         return head(params, x, cfg)
 
     return prologue, segment, epilogue
 
 
 def forward(params, batch, cfg: ModelConfig) -> T.LMOutputs:
+    """Teacher-forced logits at every position: {"tokens"} and, for the
+    cross-attention families, {"frames"} (audio) or {"patches"} (vlm)."""
+    if cfg.family == "audio":
+        memory = encode_audio(params, batch["frames"], cfg)
+        return T.LMOutputs(forward_audio_decoder(params, batch, memory, cfg),
+                           0.0)
     x = embed_tokens(params, batch["tokens"], cfg)
-    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers)
+    memory = batch.get("patches") if cfg.family == "vlm" else None
+    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers, memory=memory)
     return T.LMOutputs(head(params, x, cfg), aux)
+
+
+def encode_audio(params, frames: torch.Tensor, cfg: ModelConfig):
+    """Whisper's encoder: frames (B, M, d) -> the normed memory (B, M, d)."""
+    x, _ = _range_audio_encoder(params, _audio_input(frames, cfg), cfg, 0,
+                                cfg.num_layers)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def forward_audio_decoder(params, batch, memory: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Whisper's decoder over a precomputed encoder memory -> logits (the
+    Origami program's epilogue)."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    for i in range(cfg.num_layers):
+        x = T.cross_decoder_block_fwd(T.layer_params(params["dec_blocks"], i),
+                                      x, memory, cfg)
+    return head(params, x, cfg)
 
 
 def _tuple_like(t: tuple, items):
@@ -289,7 +384,29 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     shared block's KVCache (groups, B, max_seq, KH, D), "tail":
     Mamba2State (tail, B, ...) when there is a tail}; for xLSTM {"mlstm":
     MLSTMState (groups, every - 1, B, ...), "slstm": SLSTMState (groups,
-    B, ...)}. The recurrent states are float32 and zero."""
+    B, ...)}; for Whisper {"self": KVCache (L, B, max_seq, KH, D),
+    "cross_k", "cross_v": (L, B, encoder_seq_len, KH, D)}; for
+    Llama-3.2-Vision {"self": KVCache (groups, every - 1, B, max_seq, KH,
+    D), "cross_k", "cross_v": (groups, B, vision_seq_len, KH, D)}. The
+    recurrent states are float32 and zero."""
+    hd = cfg.resolved_head_dim
+    if cfg.family in ("audio", "vlm"):
+        if cfg.family == "audio":
+            lead, mem = (cfg.num_layers,), cfg.encoder_seq_len
+            self_lead = lead
+        else:
+            e = cfg.cross_attn_every
+            lead, mem = (cfg.num_layers // e,), cfg.vision_seq_len
+            self_lead = lead + (e - 1,)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"self": A.KVCache(
+                    zeros(*self_lead, batch, max_seq, cfg.num_kv_heads, hd),
+                    zeros(*self_lead, batch, max_seq, cfg.num_kv_heads, hd)),
+                "cross_k": zeros(*lead, batch, mem, cfg.num_kv_heads, hd),
+                "cross_v": zeros(*lead, batch, mem, cfg.num_kv_heads, hd)}
     if cfg.family == "hybrid":
         e = cfg.hybrid_attn_every
         groups = cfg.num_layers // e
@@ -317,8 +434,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
         return A.KVCache(k=torch.zeros((cfg.num_layers, batch, max_seq,
                                         width), dtype=dtype, device=device),
                          v=None)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd)
     return A.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                      v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -359,20 +475,85 @@ def concat_layer_caches(parts, max_seq: int,
     return A.KVCache(cat([p.k for p in parts]), cat([p.v for p in parts]))
 
 
+def _cross_prefill_out(params, x: torch.Tensor, cfg: ModelConfig, ks, vs,
+                       cks, cvs, max_seq: int):
+    """A cross-attention prompt pass's (last-position logits, caches): the
+    stacked self K/V (..., S, KH, D) zero-padded along S to ``max_seq``
+    and the stacked cross K/V, all bf16."""
+    def pad(c):
+        return F.pad(c, (0, 0, 0, 0, 0, max_seq - c.shape[-3])).to(
+            torch.bfloat16)
+
+    return head(params, x[:, -1:], cfg), {
+        "self": A.KVCache(pad(torch.stack(ks)), pad(torch.stack(vs))),
+        "cross_k": torch.stack(cks).to(torch.bfloat16),
+        "cross_v": torch.stack(cvs).to(torch.bfloat16)}
+
+
 def prefill(params, batch, cfg: ModelConfig, *,
             max_seq: Optional[int] = None):
-    """(last-position logits, caches sized to max_seq)."""
-    if cfg.family not in ("dense", "moe"):
+    """(last-position logits, caches sized to max_seq). Whisper's batch
+    carries its ``frames``: the encoder runs once, and each decoder block
+    leaves its self-attention K/V and the memory's cross K/V (bf16)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError("prefill for family vlm: use prefill_vlm")
+    if cfg.family not in ("dense", "moe", "audio"):
         raise NotImplementedError(
             f"prefill for family {cfg.family}: use forward() + "
             f"decode-from-scratch (runtime/generate.py steps decode_step "
             f"through the prompt)")
     tokens = batch["tokens"]
     max_seq = max_seq or tokens.shape[1]
+    if cfg.family == "audio":
+        return _prefill_audio(params, batch, cfg, max_seq)
     x = embed_tokens(params, tokens, cfg)
     x, caches = prefill_range(params, x, cfg, 0, cfg.num_layers)
     return head(params, x[:, -1:], cfg), concat_layer_caches([caches],
                                                              max_seq)
+
+
+def _prefill_audio(params, batch, cfg: ModelConfig, max_seq: int):
+    memory = encode_audio(params, batch["frames"], cfg)
+    x = embed_tokens(params, batch["tokens"], cfg)
+    ks, vs, cks, cvs = [], [], [], []
+    for i in range(cfg.num_layers):
+        p = T.layer_params(params["dec_blocks"], i)
+        x, cache = T.cross_decoder_block_prefill(p, x, memory, cfg)
+        ck, cv = A.cross_kv(p["xattn"], memory, cfg)
+        ks.append(cache.k)
+        vs.append(cache.v)
+        cks.append(ck)
+        cvs.append(cv)
+    return _cross_prefill_out(params, x, cfg, ks, vs, cks, cvs, max_seq)
+
+
+def prefill_vlm(params, batch, cfg: ModelConfig, *,
+                max_seq: Optional[int] = None):
+    """Llama-3.2-Vision's prompt pass over {"tokens", "patches"} (the
+    patches cast to the model dtype, as the reference's) -> (last-position
+    logits, {"self": KVCache (groups, every - 1, B, max_seq, KH, D),
+    "cross_k", "cross_v": (groups, B, M, KH, D)}, all bf16)."""
+    tokens = batch["tokens"]
+    max_seq = max_seq or tokens.shape[1]
+    x = embed_tokens(params, tokens, cfg)
+    patches = batch["patches"].to(x.dtype)
+    e = cfg.cross_attn_every
+    ks, vs, cks, cvs = [], [], [], []
+    for g in range(cfg.num_layers // e):
+        gk, gv = [], []
+        for j in range(e - 1):
+            x, cache, _ = T.decoder_block_prefill(
+                _block(params["self_groups"], g, j), x, cfg)
+            gk.append(cache.k)
+            gv.append(cache.v)
+        cp = _block(params["cross_groups"], g)
+        x = T.vlm_cross_block_fwd(cp, x, patches, cfg)
+        ck, cv = A.cross_kv(cp["xattn"], patches, cfg)
+        ks.append(torch.stack(gk))
+        vs.append(torch.stack(gv))
+        cks.append(ck)
+        cvs.append(cv)
+    return _cross_prefill_out(params, x, cfg, ks, vs, cks, cvs, max_seq)
 
 
 def decode_range(params, x: torch.Tensor, caches: A.KVCache, pos,
@@ -400,6 +581,10 @@ def decode_step(params, token: torch.Tensor, caches, pos,
         return _decode_hybrid(params, x, caches, pos, cfg)
     if cfg.family == "ssm":
         return _decode_xlstm(params, x, caches, pos, cfg)
+    if cfg.family == "audio":
+        return _decode_audio(params, x, caches, pos, cfg)
+    if cfg.family == "vlm":
+        return _decode_vlm(params, x, caches, pos, cfg)
     x, caches = decode_range(params, x, caches, pos, cfg, 0, cfg.num_layers)
     return head(params, x, cfg), caches
 
@@ -450,4 +635,30 @@ def _decode_xlstm(params, x: torch.Tensor, caches, pos, cfg: ModelConfig):
             state=_state_at(caches["slstm"], g))
         _write_state(caches["slstm"], new, g)
         x = x + y
+    return head(params, x, cfg), caches
+
+
+def _decode_audio(params, x: torch.Tensor, caches, pos, cfg: ModelConfig):
+    pos = A.position(pos, x.device)
+    sc = caches["self"]
+    for i in range(cfg.num_layers):
+        x, _ = T.cross_decoder_block_decode(
+            T.layer_params(params["dec_blocks"], i), x,
+            caches["cross_k"][i], caches["cross_v"][i],
+            A.KVCache(sc.k[i], sc.v[i]), pos, cfg)
+    return head(params, x, cfg), caches
+
+
+def _decode_vlm(params, x: torch.Tensor, caches, pos, cfg: ModelConfig):
+    e = cfg.cross_attn_every
+    pos = A.position(pos, x.device)
+    sc = caches["self"]
+    for g in range(cfg.num_layers // e):
+        for j in range(e - 1):
+            x, _ = T.decoder_block_decode(
+                _block(params["self_groups"], g, j), x,
+                A.KVCache(sc.k[g, j], sc.v[g, j]), pos, cfg)
+        x = T.vlm_cross_block_cached(_block(params["cross_groups"], g), x,
+                                     caches["cross_k"][g],
+                                     caches["cross_v"][g], cfg)
     return head(params, x, cfg), caches

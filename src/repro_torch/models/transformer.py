@@ -1,18 +1,21 @@
-"""Decoder stack of the dense, mixture-of-experts, hybrid and SSM LM
-families.
+"""Decoder stacks of every LM family the port runs.
 
-Port of the dense, MoE, hybrid and SSM part of
-``repro/models/transformer.py``: the gated MLP, the pre-norm decoder
-block's forward / prefill / decode with GQA or, for ``attention ==
+Port of ``repro/models/transformer.py``: the gated MLP, the pre-norm
+decoder block's forward / prefill / decode with GQA or, for ``attention ==
 "mla"``, latent attention (a MoE block runs ``models/moe.py`` in the
 MLP's place and returns its aux loss), stacked parameter definitions and
 ``lm_defs``, whose hybrid tree (Zamba2) stacks the Mamba2 blocks twice,
-as (groups, every), beside one shared attention block, and whose SSM tree
+as (groups, every), beside one shared attention block, whose SSM tree
 (xLSTM) stacks the mLSTM blocks as (groups, every - 1) beside one sLSTM
-block a group (models/ssm.py). The reference scans blocks with
-``lax.scan`` over stacked parameters; the port keeps the stacked layout (a
-leading layer dim on every block leaf) and walks it with a Python loop
-(models/model.py). The audio and VLM families wait (ROADMAP Queue 1).
+block a group (models/ssm.py), whose audio tree (Whisper) stacks the
+encoder blocks (non-causal self-attention) and the decoder blocks (causal
+self-attention, cross-attention to the encoder's output, MLP), and whose
+VLM tree (Llama-3.2-Vision) stacks the self blocks as (groups, every - 1)
+beside one gated cross-attention block a group (its float32 ``attn_gate``
+and ``mlp_gate``, zero at init, enter as ``tanh(gate)``). The reference
+scans blocks with ``lax.scan`` over stacked parameters; the port keeps the
+stacked layout (a leading layer dim on every block leaf) and walks it
+with a Python loop (models/model.py).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.models import ssm as S
 
 # (family, attention) pairs the port runs
 SUPPORTED = (("dense", "gqa"), ("moe", "gqa"), ("dense", "mla"),
-             ("hybrid", "gqa"), ("ssm", "none"))
+             ("hybrid", "gqa"), ("ssm", "none"), ("audio", "gqa"),
+             ("vlm", "gqa"))
 
 
 def _supported(cfg: ModelConfig) -> None:
@@ -180,6 +184,112 @@ def lm_defs(cfg: ModelConfig) -> Dict[str, object]:
         d["mlstm_groups"] = stacked_defs(stacked_defs(mblock, every - 1),
                                          groups)
         d["slstm_groups"] = stacked_defs(sblock, groups)
+    elif cfg.family == "audio":       # whisper enc-dec
+        d["enc_blocks"] = stacked_defs(encoder_block_defs(cfg),
+                                       cfg.num_layers)
+        d["enc_norm"] = L.norm_def(cfg.d_model, cfg.norm)
+        d["dec_blocks"] = stacked_defs(cross_decoder_block_defs(cfg),
+                                       cfg.num_layers)
+    elif cfg.family == "vlm":
+        every = cfg.cross_attn_every
+        assert cfg.num_layers % every == 0
+        groups = cfg.num_layers // every
+        d["self_groups"] = stacked_defs(
+            stacked_defs(decoder_block_defs(cfg), every - 1), groups)
+        d["cross_groups"] = stacked_defs(vlm_cross_block_defs(cfg), groups)
     else:
         d["blocks"] = stacked_defs(decoder_block_defs(cfg), cfg.num_layers)
     return d
+
+
+# -- Whisper blocks ---------------------------------------------------------
+
+def encoder_block_defs(cfg: ModelConfig):
+    return {"ln1": L.norm_def(cfg.d_model, cfg.norm),
+            "attn": A.gqa_defs(cfg),
+            "ln2": L.norm_def(cfg.d_model, cfg.norm),
+            "mlp": mlp_defs(cfg)}
+
+
+def encoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+    h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                          cfg, causal=False)
+    return h + mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+
+
+def cross_decoder_block_defs(cfg: ModelConfig):
+    return {"ln1": L.norm_def(cfg.d_model, cfg.norm),
+            "attn": A.gqa_defs(cfg),
+            "ln_x": L.norm_def(cfg.d_model, cfg.norm),
+            "xattn": A.cross_attn_defs(cfg),
+            "ln2": L.norm_def(cfg.d_model, cfg.norm),
+            "mlp": mlp_defs(cfg)}
+
+
+def _cross_and_mlp(p, h: torch.Tensor, memory: torch.Tensor,
+                   cfg: ModelConfig):
+    h = h + A.cross_attn_forward(p["xattn"],
+                                 L.apply_norm(p["ln_x"], h, cfg.norm),
+                                 memory, cfg)
+    return h + mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+
+
+def cross_decoder_block_fwd(p, x: torch.Tensor, memory: torch.Tensor,
+                            cfg: ModelConfig):
+    h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                          cfg)
+    return _cross_and_mlp(p, h, memory, cfg)
+
+
+def cross_decoder_block_prefill(p, x: torch.Tensor, memory: torch.Tensor,
+                                cfg: ModelConfig):
+    a, cache = A.gqa_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                             cfg)
+    return _cross_and_mlp(p, x + a, memory, cfg), cache
+
+
+def cross_decoder_block_decode(p, x: torch.Tensor, cross_ck: torch.Tensor,
+                               cross_cv: torch.Tensor, cache: A.KVCache, pos,
+                               cfg: ModelConfig):
+    """Decode against the precomputed cross K/V (the memory is not
+    projected again); the self-attention cache written in place."""
+    a, cache = A.gqa_decode(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                            cache, pos, cfg)
+    h = x + a
+    h = h + A.cross_attn_cached(p["xattn"],
+                                L.apply_norm(p["ln_x"], h, cfg.norm),
+                                cross_ck, cross_cv, cfg)
+    return (h + mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm),
+                            cfg), cache)
+
+
+# -- Llama-3.2-Vision's gated cross-attention block -------------------------
+
+def vlm_cross_block_defs(cfg: ModelConfig):
+    return {"ln1": L.norm_def(cfg.d_model, cfg.norm),
+            "xattn": A.cross_attn_defs(cfg),
+            "attn_gate": L.ParamDef((1,), "zeros", (None,), torch.float32),
+            "ln2": L.norm_def(cfg.d_model, cfg.norm),
+            "mlp": mlp_defs(cfg),
+            "mlp_gate": L.ParamDef((1,), "zeros", (None,), torch.float32)}
+
+
+def _gated_mlp(p, h: torch.Tensor, a: torch.Tensor, cfg: ModelConfig):
+    """h + tanh(attn_gate) a, then its gated MLP residual."""
+    h = h + torch.tanh(p["attn_gate"]).to(h.dtype) * a
+    m = mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
+    return h + torch.tanh(p["mlp_gate"]).to(h.dtype) * m
+
+
+def vlm_cross_block_fwd(p, x: torch.Tensor, patches: torch.Tensor,
+                        cfg: ModelConfig):
+    a = A.cross_attn_forward(p["xattn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                             patches, cfg)
+    return _gated_mlp(p, x, a, cfg)
+
+
+def vlm_cross_block_cached(p, x: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, cfg: ModelConfig):
+    a = A.cross_attn_cached(p["xattn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                            ck, cv, cfg)
+    return _gated_mlp(p, x, a, cfg)

@@ -5,8 +5,11 @@ Port of ``repro/runtime/generate.py`` for the dense, mixture-of-experts,
 hybrid and SSM families: ``generate`` takes all four and
 ``generate_origami`` the dense and MoE families, as the reference's do;
 ``private_generate`` and ``GenerateExecutor`` need a decode plan, which
-refuses MoE, hybrid and SSM (plan.ScanExclusion, the reference's
-reasons), so they run the dense family only, as in the reference. For
+refuses MoE, hybrid, SSM, audio and VLM (plan.ScanExclusion, the
+reference's reasons), so they run the dense family only, as in the
+reference. ``generate`` refuses the cross-attention families (audio,
+vlm): the reference's passes the prompt pass only the tokens and raises
+``KeyError`` on the missing frames or patches. For
 the recurrent families (hybrid Zamba2, SSM xLSTM) ``generate`` has no
 prefill: it builds the state by stepping ``decode_step`` through the
 prompt (``prefill_recurrent``), where the reference runs one jitted
@@ -73,18 +76,28 @@ def _sample(logits: torch.Tensor, key, temperature: float,
                                                           temperature))
 
 
-# the families of the reference's generate and generate_origami that the
-# port carries (the rest wait, ROADMAP Queue 1 item 12)
+# the families the reference's generate and generate_origami run (its
+# generate fails for audio and vlm: MEMORY_KEYS)
 FAMILIES = ("dense", "moe", "hybrid", "ssm")
 ORIGAMI_FAMILIES = ("dense", "moe")         # generate_origami's
 # the families whose state is built by stepping through the prompt
 RECURRENT = ("hybrid", "ssm")
+# the memory a cross-attention family's prompt pass needs beside the tokens
+MEMORY_KEYS = {"audio": "frames", "vlm": "patches"}
 
 
 def _family_in(cfg: ModelConfig, families) -> None:
+    if cfg.family in MEMORY_KEYS:
+        raise NotImplementedError(
+            f"{cfg.family}: open generate is refused, as the reference "
+            f"cannot run it: its generate passes only the prompt's tokens "
+            f"to the prompt pass, which raises KeyError on "
+            f"{MEMORY_KEYS[cfg.family]!r}; run prefill"
+            f"{'_vlm' if cfg.family == 'vlm' else ''} and decode_step "
+            f"(models/model.py)")
     if cfg.family not in families:
         raise NotImplementedError(f"{cfg.family}: the port generates for "
-                                  f"{families} (ROADMAP Queue 1 item 12)")
+                                  f"{families}")
 
 
 def _zero_state(tree) -> None:

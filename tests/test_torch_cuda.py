@@ -1176,3 +1176,157 @@ def test_recurrent_step_replay_matches_eager(dev, arch):
     assert torch.equal(out.tokens[:, :12], prompt)
     assert torch.equal(out.tokens[:, 12],
                        torch.argmax(eager[:, 0, :cfg.vocab_size].float(), -1))
+
+
+# the cross-attention slice's attention shapes at reduced batch: (B, Sq,
+# Skv, H, KH, D, causal, dtype)
+CROSS_FLASH_SHAPES = [
+    (1, 1024, 1024, 32, 8, 128, True, torch.bfloat16),   # VLM self, G 4
+    (1, 1024, 1601, 32, 8, 128, False, torch.float32),   # VLM cross, forward
+    (1, 1024, 1601, 32, 8, 128, False, torch.bfloat16),  # ... prefill_vlm
+    (2, 1, 1601, 32, 8, 128, False, torch.bfloat16),     # VLM cross, decode
+    (1, 1500, 1500, 12, 12, 64, False, torch.bfloat16),  # Whisper encoder
+    (1, 448, 448, 12, 12, 64, True, torch.bfloat16),     # Whisper self
+    (1, 448, 1500, 12, 12, 64, False, torch.bfloat16),   # Whisper cross
+    (2, 1, 1500, 12, 12, 64, False, torch.bfloat16),     # ... at decode
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,causal,dtype", CROSS_FLASH_SHAPES)
+def test_flash_attention_at_the_cross_attention_shapes(dev, B, Sq, Skv, H, KH,
+                                                       D, causal, dtype):
+    """Llama-3.2-Vision's and Whisper's attention: the ragged key lengths
+    1601 and 1500, non-causal with Sq != Skv, one query at decode, G 4 at
+    D 128 and G 1 at D 64: within the plain version's tolerance (2e-5
+    float32, 2e-2 bf16), one launch, deterministic. An absolute 2e-2 is
+    half a typical output over ~1500 keys, so each is also held within a
+    relative Frobenius error of the plain float32 result (1e-4 float32,
+    8e-3 bf16) that the last partial key tile's zero-filled keys, left
+    unmasked, would exceed; that fault (the plain version over keys
+    zero-padded to a multiple of 64) is shown failing the bound."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(Sq * 7 + Skv)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev, dtype=dtype)
+    k, v = (torch.randn((B, Skv, KH, D), generator=gen, device=dev,
+                        dtype=dtype) for _ in range(2))
+    n, got = _counted(lambda: flash_attention_fwd(q, k, v, causal=causal))
+    assert n["flash_attention"] == 1 and sum(n.values()) == 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, Sq, H, D)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+    exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                  causal=causal)
+
+    def rel(out):
+        return ((out.float() - exact).norm() / exact.norm()).item()
+
+    rel_tol = 1e-4 if dtype == torch.float32 else 8e-3
+    assert rel(got) <= rel_tol
+    pad = -Skv % 64
+    if pad and not causal:
+        kp, vp = (torch.cat([t, t.new_zeros((B, pad, KH, D))], dim=1)
+                  for t in (k, v))
+        assert rel(flash_attention_plain(q, kp, vp, causal=False)) > rel_tol
+
+
+def test_sdpa_mixed_dtypes_launch_the_float32_kernel(dev, monkeypatch):
+    """bf16 queries against float32 keys and values (the VLM's forward over
+    float32 patches): ``sdpa`` launches the flash kernel once on float32
+    operands, never the plain version, and returns bf16 within the
+    plain version's float32 result rounded to bf16."""
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    from repro_torch.models import attention as A
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    q = torch.randn((2, 64, 32, 128), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 1601, 8, 128), generator=gen, device=dev)
+            for _ in range(2))
+    seen = []
+    inner = FA.flash_attention_fwd
+
+    def spy(q_, k_, v_, **kw):
+        seen.append((q_.dtype, k_.dtype, v_.dtype))
+        return inner(q_, k_, v_, **kw)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(A, "flash_attention_fwd", spy)
+    monkeypatch.setattr(FA, "flash_attention_plain", no_plain)
+    n, got = _counted(lambda: A.sdpa(q, k, v, causal=False))
+    monkeypatch.undo()
+    assert seen == [(torch.float32,) * 3]
+    assert n["flash_attention"] == 1 and sum(n.values()) == 1
+    assert got.dtype == torch.bfloat16
+    want = FA.flash_attention_plain(q.float(), k, v, causal=False)
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    assert ((got.float() - want).norm() / want.norm()).item() <= 8e-3
+
+
+@pytest.mark.parametrize("arch", ["whisper_small", "llama3_2_vision_11b"])
+def test_cross_infer_and_decode_on_card(dev, arch):
+    """The smoke Whisper (p = 2, 12 ops) and Llama-3.2-Vision (p = 5, 35
+    ops: its cross block blinded) on the card: blinded == trusted bit for
+    bit, every op checked, one flash launch a self and a cross attention;
+    the float32 forward within 1e-4 of the CPU's; the prompt pass and
+    decode steps within 0.05 of the card's forward (the reference's
+    bound, tests/test_attention.py)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.integrity import IntegrityPolicy
+    from repro_torch.core.origami import OrigamiExecutor
+    from repro_torch.models import model as M
+    cfg = get_smoke(arch)
+    p, ops_ = (2, 12) if arch == "whisper_small" else (5, 35)
+    rng = np.random.default_rng(1)
+    key = "frames" if cfg.family == "audio" else "patches"
+    mem_len = (cfg.encoder_seq_len if cfg.family == "audio"
+               else cfg.vision_seq_len)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)),
+             key: (rng.standard_normal((2, mem_len, cfg.d_model))
+                   * 0.1).astype(np.float32)}
+    params = M.init_params(cfg, 0, device="cpu")
+    if cfg.family == "vlm":
+        params["cross_groups"]["attn_gate"].fill_(0.7)
+        params["cross_groups"]["mlp_gate"].fill_(-0.4)
+    ex = OrigamiExecutor(cfg, params, "origami", p,
+                         integrity=IntegrityPolicy.full(k=2), device=dev)
+    n, blinded = _counted(lambda: ex.infer(batch))
+    trusted = ex.infer(batch, trusted=True)
+    assert torch.equal(blinded.logits, trusted.logits)
+    rep = blinded.integrity
+    assert rep.n_checked == rep.n_ops == ops_ and rep.ok
+    assert n["blind_encode"] == n["limb_matmul_fused"] == ops_
+    # audio: encoder, decoder self and cross; vlm: each block's attention
+    assert n["flash_attention"] == (3 * cfg.num_layers if cfg.family == "audio"
+                                    else cfg.num_layers)
+    f32 = cfg.replace(dtype="float32")
+    p32 = M.init_params(f32, 0, device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        want = M.forward(p32, tb, f32).logits.numpy()
+        got = M.forward(OrigamiExecutor(f32, p32, "open", 0,
+                                        device=dev).params,
+                        {k: v.to(dev) for k, v in tb.items()},
+                        f32).logits.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    full = ex.reference(batch).float().cpu().numpy()
+    prompt = {k: v.to(dev) for k, v in tb.items()}
+    prompt["tokens"] = prompt["tokens"][:, :12]
+    fill = M.prefill if cfg.family == "audio" else M.prefill_vlm
+    with torch.no_grad():
+        logits, caches = fill(ex.params, prompt, cfg, max_seq=16)
+        np.testing.assert_allclose(logits[:, 0].float().cpu().numpy(),
+                                   full[:, 11], rtol=0.05, atol=0.05)
+        for t in range(12, 16):
+            logits, caches = M.decode_step(
+                ex.params, tb["tokens"][:, t:t + 1].to(dev), caches, t, cfg)
+            np.testing.assert_allclose(
+                logits[:, 0].float().cpu().numpy(), full[:, t], rtol=0.05,
+                atol=0.05)

@@ -61,7 +61,9 @@ def test_port_files_exist():
                    "configs/arctic_480b.py", "configs/yi_9b.py",
                    "configs/qwen2_5_14b.py", "configs/minicpm3_4b.py",
                    "models/ssm.py", "configs/zamba2_1_2b.py",
-                   "configs/xlstm_1_3b.py"):
+                   "configs/xlstm_1_3b.py",
+                   "configs/llama3_2_vision_11b.py",
+                   "configs/whisper_small.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
