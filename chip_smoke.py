@@ -10,8 +10,9 @@ token generation and Qwen2.5-14B (QKV biases) through the LM forward, and
 the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
 generation and (Zamba2) the engine, and the cross-attention
 Llama-3.2-Vision-11B and Whisper-small through the private LM forward,
-the prompt pass and decode — and hold every kernel of them against its
-plain PyTorch version.
+the prompt pass and decode, and SmolLM-135M's training through the
+trainer — and hold every kernel of them against its plain PyTorch
+version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -74,7 +75,17 @@ Phases (any failure is fatal and exits non-zero):
    non-causal, ragged 1000; the smoke widths 48 against 32), each with
    its time and device time, the plain version's time, one
    ``scaled_dot_product_attention`` call's (timed only) and the card's
-   bound;
+   bound; then the backward kernel (``flash_attention_bwd``) against its
+   plain version (the materialized float32 formula) on the same
+   residuals at SmolLM-135M's training shape (8 x 1024, 9/3 heads of 64,
+   bf16, causal) and a sweep (float32, non-causal, G 1, ragged 1000 and
+   6, D 128 at G 8, MLA's (96, 64), float32 (48, 32)): dq, dk and dv each
+   within a relative Frobenius 8e-3 (bf16) / 1e-5 (float32) and 2e-2 /
+   1e-5 of its largest magnitude, two launches bit-equal, the forward's
+   lse within 1e-5 of the plain one and its output bit-equal with and
+   without the lse; each with its time and device time, the plain
+   version's, one ``scaled_dot_product_attention`` backward's (timed
+   only) and the card's bound (2 (3 D + 2 Dv) operations a pair);
 10. private generation — full-width, full-depth SmolLM-135M (random bf16
    weights from a seed) generating 16 tokens for a batch of 4 1024-token
    prompts through ``private_generate`` under full(k=2) verification:
@@ -326,7 +337,25 @@ Phases (any failure is fatal and exits non-zero):
    1500 frames at p = 2 (12/12 ops checked, 36 flash launches: 12
    non-causal encoder, 12 causal decoder and 12 cross attentions over
    1500 frames); audio ``prefill`` on 4 x 64 tokens and 32 greedy
-   ``decode_step`` tokens, with the readings and the bound of 32.
+   ``decode_step`` tokens, with the readings and the bound of 32;
+34. train (last) — SmolLM-135M at every width and depth (random bf16
+   weights from the reference's keyed init, seed 0) through
+   ``launch/train.py:train`` on the pipeline's batches of 8 x 1024
+   tokens, ``TrainConfig(learning_rate=1e-3, warmup_steps=5,
+   total_steps=30)``: (b) 30 steps, every loss finite and the last below
+   the first by more than 0.2 (the reference test's margin), exactly 60
+   flash (remat runs each block's forward twice) and 30
+   flash_attention_bwd launches a step and no other kernel; each step's
+   time and the peak memory printed; (c) one batch's gradients with the
+   kernels against the plain attention (forward and backward) in float32
+   weights with TF32 off, each leaf within a relative Frobenius 1e-4; in
+   bf16 every backward call held against the plain backward on its own
+   inputs (8e-3), two gradients bit-equal, the gap to the plain
+   attention's gradient printed; (d) 10 steps straight against 5, an
+   ``AsyncCheckpointer`` save and a resume to 10: parameters and
+   optimizer state bit-equal; (e) one step at 2 microbatches: its loss
+   within 5e-2 of the step at 1; then one step under ``torch.profiler``:
+   its device-busy share and top device ops, printed.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -353,9 +382,9 @@ float32) that an unmasked last key tile exceeds: for each non-causal
 ragged case the plain version over keys zero-padded to a multiple of 64
 is shown failing that bound.
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-33 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-34 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
-kernels and no other (22 launches none).
+kernels and no other (22 launches none); only 34 launches the backward.
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
@@ -387,7 +416,8 @@ from repro_torch.kernels.blind.blind import (blind,  # noqa: E402
                                              blind_plain, unblind,
                                              unblind_plain)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_plain)
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_plain)
 from repro_torch.kernels.limb_matmul import ops, ref  # noqa: E402
 from repro_torch.kernels.limb_matmul.fold import (  # noqa: E402
     limb_fold_planes, limb_fold_planes_plain)
@@ -423,6 +453,8 @@ REPLACES = {
     "unblind": "src/repro/kernels/blind/blind.py:113",
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:76",
+    # no TPU kernel: the reference's custom VJP of its attention core
+    "flash_attention_bwd": "src/repro/models/attention.py:151",
 }
 SOURCES = {
     "blind_encode": "src/repro_torch/kernels/csrc/blind_encode.cu",
@@ -432,6 +464,8 @@ SOURCES = {
     "blind": "src/repro_torch/kernels/csrc/blind.cu",
     "unblind": "src/repro_torch/kernels/csrc/blind.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 # the kernels each path launches (and no other): the fused and unfused
 # data paths, and the offload plane over the fused path (blind on the
@@ -593,7 +627,7 @@ def phase_kernels(cfg, dev):
     acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                   "library_ms": None, "bytes": 0, "ops": 0,
                   "peak": INT8_OPS_S, "err": 0.0}
-           for name in KB.KERNELS if name != "flash_attention"}
+           for name in KB.KERNELS if not name.startswith("flash_attention")}
     for name in ("blind_encode", "blind", "unblind"):
         acc[name]["peak"] = F32_OPS_S
     lib_sums = {"row-major": 0.0, "column-major": 0.0}
@@ -2190,6 +2224,26 @@ CROSS_FLASH_CASES = (
 # of ``KEY_TILE``) failing the bound.
 CROSS_REL_TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-4}
 KEY_TILE = 64
+# (label, B, S, H, KH, D, Dv, dtype, causal): the backward kernel at
+# SmolLM-135M's training shape (the train phase's 8 x 1024, 9/3 heads of
+# 64), and a sweep: float32, non-causal, G 1, ragged 1000 and 6, D 128 at
+# G 8 (Yi's heads), MLA's (96, 64) and its smoke widths
+BWD_CASES = (
+    ("smollm train", 8, 1024, 9, 3, 64, 64, torch.bfloat16, True),
+    ("float32", 8, 1024, 9, 3, 64, 64, torch.float32, True),
+    ("non-causal", 8, 1024, 9, 3, 64, 64, torch.bfloat16, False),
+    ("G 1", 8, 1024, 9, 9, 64, 64, torch.bfloat16, True),
+    ("ragged 1000", 8, 1000, 9, 3, 64, 64, torch.bfloat16, True),
+    ("ragged 6", 8, 6, 9, 3, 64, 64, torch.bfloat16, True),
+    ("D 128 G 8", 2, 1024, 32, 4, 128, 128, torch.bfloat16, True),
+    ("MLA (96, 64)", 2, 1024, 40, 40, 96, 64, torch.bfloat16, True),
+    ("float32 (48, 32)", 2, 130, 4, 4, 48, 32, torch.float32, False),
+)
+# bf16: each gradient is rounded to bf16 once (2^-9), and Drow comes from
+# the bf16 output on both sides; float32: the two sum in other orders
+BWD_REL_TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+BWD_ABS_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}   # x max |want|
+LSE_TOL = 1e-5
 
 
 def _rel_frobenius(got, exact):
@@ -2210,20 +2264,26 @@ def _unmasked_tail_rel(q, k, v, exact):
                           exact)
 
 
-def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal):
+def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False):
     """(bound ms, "bytes" | "operations") of one attention call: q, k, v
     read once and the output written once against 3.35 TB/s; 2 (D + Dv)
     operations for every (query, key) pair the mask lets through (QK and
     PV; causal: query i sees keys 0..i) against the dense peak of the
-    input type."""
+    input type. ``backward``: q, k, v, the output, its gradient and the
+    float32 lse read once, dq, dk and dv written once; 2 (3 D + 2 Dv)
+    operations a pair (S = QK^T, dP = dO V^T, dV, dQ, dK)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (B * Sq * H * (D + Dv) + B * Skv * KH * (D + Dv))
+    q_rows, kv_rows = B * Sq * H, B * Skv * KH
+    nbytes = size * (q_rows * (D + Dv) + kv_rows * (D + Dv))
+    if backward:       # + dO, lse; + dq, dk, dv
+        nbytes += size * q_rows * Dv + 4 * q_rows
+        nbytes += size * (q_rows * D + kv_rows * (D + Dv))
     if causal:
         n = min(Sq, Skv)
         pairs = n * (n + 1) // 2 + (Sq - n) * Skv
     else:
         pairs = Sq * Skv
-    ops = 2 * B * H * (D + Dv) * pairs
+    ops = 2 * B * H * ((3 * D + 2 * Dv) if backward else (D + Dv)) * pairs
     peak = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
     t_bytes, t_ops = nbytes / BYTES_S * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -2303,6 +2363,91 @@ def phase_flash(dev):
         del q, k, v, got, want, qt, kt, vt
     main_case["err"] = err_max
     torch.cuda.empty_cache()
+    main_case["bwd"] = _flash_bwd_cases(dev, gen)
+    return main_case
+
+
+def _flash_bwd_cases(dev, gen):
+    """The backward kernel against its plain version (the materialized
+    float32 formula) on the same residuals (q, k, v, dO and the forward
+    kernel's output and lse): each gradient within ``BWD_REL_TOL``
+    (relative Frobenius) and ``BWD_ABS_TOL`` x its largest magnitude, two
+    launches bit-equal; the forward's lse within ``LSE_TOL`` of the plain
+    one and its output bit-equal with and without the lse. Timed beside
+    the plain version and one ``scaled_dot_product_attention`` backward (a
+    yardstick the port never calls); returns the training shape's
+    numbers."""
+    main_case, err_max = None, 0.0
+    for label, B, S, H, KH, D, Dv, dtype, causal in BWD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                   for shape in ((B, S, H, D), (B, S, KH, D),
+                                 (B, S, KH, Dv)))
+        dout = torch.randn((B, S, H, Dv), generator=gen, device=dev,
+                           dtype=dtype)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        if not torch.equal(out, flash_attention_fwd(q, k, v, causal=causal)):
+            raise AssertionError(f"flash_attention {label}: the output "
+                                 f"differs with the lse asked for")
+        lse_err = (lse - flash_attention_plain(
+            q, k, v, causal=causal, return_lse=True)[1]).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_attention {label}: lse err "
+                                 f"{lse_err} against the plain version, "
+                                 f"tolerance {LSE_TOL}")
+        got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal)
+        torch.cuda.synchronize()
+        rels, errs = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = _rel_frobenius(g, w.float())
+            err = (g.float() - w.float()).abs().max().item()
+            bound = BWD_ABS_TOL[dtype] * w.float().abs().max().item()
+            if not (rel <= BWD_REL_TOL[dtype] and err <= bound):
+                raise AssertionError(
+                    f"flash_attention_bwd {label} {name}: relative Frobenius "
+                    f"err {rel} (bound {BWD_REL_TOL[dtype]}), max abs err "
+                    f"{err} (bound {bound}) against the plain version")
+            rels.append(rel)
+            errs.append(err)
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two launches "
+                                 f"differ")
+        del want, again
+        err_max = max(err_max, max(errs))
+        ms, dms = timed(lambda: flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    causal=causal),
+                        "flash_bwd")
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, causal=causal), reps=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        sdpa_ms, sdpa_dms = timed(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        bound, by = flash_bound(B, S, S, H, KH, D, Dv, dtype, causal,
+                                backward=True)
+        width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
+        print(f"flash_attention_bwd {label} (B {B}, S {S}, H {H}, KH {KH}, "
+              f"{width}, {str(dtype)[6:]}, "
+              f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
+              f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa backward "
+              f"{sdpa_ms:.4f} ms (device {fmt_ms(sdpa_dms)}), bound "
+              f"{bound:.4f} ms ({by}); relative Frobenius err dq/dk/dv "
+              f"{'/'.join(f'{r:.3g}' for r in rels)} (bound "
+              f"{BWD_REL_TOL[dtype]:g}), max abs err "
+              f"{'/'.join(f'{e:.3g}' for e in errs)}; lse err {lse_err:.3g}")
+        if main_case is None:
+            main_case = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": sdpa_ms, "bound_ms": bound,
+                         "bound_by": by}
+        del q, k, v, dout, out, lse, got, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    main_case["err"] = err_max
     return main_case
 
 
@@ -4165,6 +4310,262 @@ def phase_whisper(dev, card):
     _free()
 
 
+TRAIN_ARCH = "smollm_135m"
+TRAIN_SHAPE = (8, 1024)                 # (batch, tokens) of every train step
+TRAIN_STEPS = 30
+TRAIN_TCFG = dict(learning_rate=1e-3, warmup_steps=5, total_steps=30)
+TRAIN_MARGIN = 0.2                      # the reference test's loss drop
+RESUME_TCFG = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+RESUME_STEPS = (10, 5)                  # straight, and where the save is
+GRAD_REL_TOL = 1e-4                     # float32, kernels vs plain
+MICRO_LOSS_TOL = 5e-2                   # the reference test's bound
+TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
+
+
+class _StepRecorder:
+    """A ``StepWatchdog`` for ``train`` that also keeps each step's launch
+    counts (read after the step's loss, which waits for its kernels)."""
+
+    def __init__(self):
+        from repro_torch.runtime.straggler import StepWatchdog
+        self.watchdog, self.launches = StepWatchdog(), []
+
+    def __getattr__(self, name):
+        return getattr(self.watchdog, name)
+
+    def start_step(self):
+        self._before = dict(KB.LAUNCHES)
+        self.watchdog.start_step()
+
+    def end_step(self):
+        self.launches.append({k: KB.LAUNCHES[k] - self._before[k]
+                              for k in KB.KERNELS})
+        return self.watchdog.end_step()
+
+
+def _train(cfg, tcfg, steps, dev, recorder=None, **kw):
+    """``launch/train.py:train`` at ``TRAIN_SHAPE`` on ``dev``; with
+    ``recorder`` its watchdog."""
+    from repro_torch.launch import train as TR
+    made = TR.StepWatchdog
+    if recorder is not None:
+        TR.StepWatchdog = lambda: recorder
+    try:
+        return TR.train(cfg, tcfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1],
+                        steps=steps, log_every=0, device=dev, **kw)
+    finally:
+        TR.StepWatchdog = made
+
+
+class _PlainAttention:
+    """Inside the block, training attention runs the plain versions (the
+    forward with its lse, the materialized backward) in the kernels'
+    place."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        self.module = A
+        self.saved = (A.flash_attention_fwd, A.flash_attention_bwd)
+        A.flash_attention_fwd = flash_attention_plain
+        A.flash_attention_bwd = flash_attention_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        (self.module.flash_attention_fwd,
+         self.module.flash_attention_bwd) = self.saved
+
+
+class _BwdCheck:
+    """Holds every backward call inside the block against the plain
+    backward on the same inputs: the largest relative Frobenius error of
+    dq, dk and dv in ``rel``, the calls in ``calls``."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+        self.module, self.inner = A, A.flash_attention_bwd
+        self.rel, self.calls = 0.0, 0
+
+        def spy(q, k, v, out, lse, dout, *, causal=True):
+            got = self.inner(q, k, v, out, lse, dout, causal=causal)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                             causal=causal)
+            self.calls += 1
+            self.rel = max([self.rel] + [_rel_frobenius(g, w.float())
+                                         for g, w in zip(got, want)])
+            return got
+
+        A.flash_attention_bwd = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention_bwd = self.inner
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def _leaf_gaps(a, b):
+    """(the largest relative Frobenius gap of tree ``a`` from ``b`` over
+    their leaves, its leaf's path)."""
+    fb = dict(_named_leaves(b))
+    gaps = {k: _rel_frobenius(t, fb[k].float()) for k, t in _named_leaves(a)}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def phase_train(dev, card):
+    """SmolLM-135M at every width and depth trained through
+    ``launch/train.py:train`` on the pipeline's batches of 8 x 1024
+    tokens: (b) 30 steps, the loss falling by more than the reference
+    test's margin, exactly 60 flash forward (remat: two a block) and 30
+    backward launches a step and no other kernel; (c) one step's
+    gradients with the kernels against the plain attention, in float32
+    weights with TF32 off, and in bf16 every backward call against the
+    plain backward on its own inputs; (d) 10 steps straight against 5, an
+    ``AsyncCheckpointer`` save and a resume to 10, bit-equal; (e) one step
+    at 2 microbatches against 1; one step's device-busy share and top
+    device ops printed. Returns (b)'s launch counts."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    n_layers = cfg.num_layers
+    tcfg = TrainConfig(**TRAIN_TCFG)
+
+    # (b) training
+    rec = _StepRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    launches, wall, (params, opt, losses) = counted(
+        lambda: _train(cfg, tcfg, TRAIN_STEPS, dev, rec))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches(launches, TRAIN_PATH, "train phase")
+    want = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}
+    for i, got in enumerate(rec.launches):
+        for name in KB.KERNELS:
+            if got[name] != want.get(name, 0):
+                raise AssertionError(f"train step {i + 1}: {got[name]} "
+                                     f"{name} launches, expected "
+                                     f"{want.get(name, 0)}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    if not losses[-1] < losses[0] - TRAIN_MARGIN:
+        raise AssertionError(f"train: the loss fell from {losses[0]} to "
+                             f"{losses[-1]}, not by {TRAIN_MARGIN}")
+    step_ms = [t * 1e3 for t in rec.watchdog.history]
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"train {cfg.name} (every width and depth, {n_params} params, "
+          f"bf16, seed {tcfg.seed}; batch {TRAIN_SHAPE[0]} x "
+          f"{TRAIN_SHAPE[1]} tokens, {TRAIN_STEPS} steps, lr "
+          f"{tcfg.learning_rate}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(margin {losses[0] - losses[-1] - TRAIN_MARGIN:.4f}); "
+          f"{want['flash_attention']} flash and {n_layers} flash_bwd "
+          f"launches a step, no other kernel; step {_spread(step_ms[1:])} "
+          f"after the first ({step_ms[0]:.2f} ms), wall {wall:.1f} ms "
+          f"with the set-up; peak device memory {peak:.2f} GiB")
+    print("  losses: " + " ".join(f"{x:.4f}" for x in losses))
+    print("  step ms: " + " ".join(f"{x:.2f}" for x in step_ms))
+    del params, opt
+    _free()
+
+    # (c) gradients: kernels against the plain attention
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SHAPE[1],
+                                    TRAIN_SHAPE[0], seed=tcfg.seed))
+    batch = {"tokens": torch.from_numpy(pipe.batch(0)["tokens"]).to(dev)}
+    f32 = cfg.replace(dtype="float32")
+    params32 = TR.init_train_state(f32, tcfg, dev)[0]
+    g_kernel, ce_kernel = S.loss_grads(params32, batch, f32)
+    with _PlainAttention():
+        g_plain, ce_plain = S.loss_grads(params32, batch, f32)
+    gap, leaf = _leaf_gaps(g_kernel, g_plain)
+    if not gap <= GRAD_REL_TOL:
+        raise AssertionError(f"train float32 gradients: {leaf} lies {gap} "
+                             f"(relative Frobenius) from the plain "
+                             f"attention's, bound {GRAD_REL_TOL}")
+    print(f"train gradients, float32 weights, TF32 off: every leaf within "
+          f"{gap:.3g} (relative Frobenius, the largest at {leaf}; bound "
+          f"{GRAD_REL_TOL:g}) of the plain attention's; ce "
+          f"{float(ce_kernel):.6f} vs {float(ce_plain):.6f}")
+    del params32, g_kernel, g_plain
+    params16 = TR.init_train_state(cfg, tcfg, dev)[0]
+    again = S.loss_grads(params16, batch, cfg)[0]
+    with _BwdCheck() as chk:
+        g16, _ = S.loss_grads(params16, batch, cfg)
+    repeat = all(torch.equal(a, b) for a, b in zip(_leaves(g16),
+                                                   _leaves(again)))
+    if chk.calls != n_layers or not chk.rel <= BWD_REL_TOL[torch.bfloat16]:
+        raise AssertionError(f"train bf16: {chk.calls} backward calls, the "
+                             f"largest {chk.rel} from the plain backward")
+    if not repeat:
+        raise AssertionError("train bf16: two gradients of one batch differ")
+    with _PlainAttention():
+        g16_plain, _ = S.loss_grads(params16, batch, cfg)
+    gap16, leaf16 = _leaf_gaps(g16, g16_plain)
+    print(f"train gradients, bf16: each of the {chk.calls} backward calls "
+          f"within {chk.rel:.3g} of the plain backward on its inputs (bound "
+          f"{BWD_REL_TOL[torch.bfloat16]:g}); two gradients bit-equal; the "
+          f"gap to the plain attention's gradient {gap16:.3g} (largest at "
+          f"{leaf16}; not gated)")
+    del params16, g16, again, g16_plain
+
+    # (d) resume
+    rtcfg = TrainConfig(**RESUME_TCFG)
+    straight, half = RESUME_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        pa, oa, _ = _train(cfg, rtcfg, straight, dev)
+        t0 = time.perf_counter()
+        _train(cfg, rtcfg, half, dev, ckpt_dir=d, ckpt_every=half)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pb, ob, resumed = _train(cfg, rtcfg, straight, dev, ckpt_dir=d,
+                                 ckpt_every=100)
+        second_ms = (time.perf_counter() - t0) * 1e3
+        on_disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file())
+    same = (len(resumed) == straight - half
+            and torch.equal(oa.step, ob.step)
+            and all(torch.equal(a, b) for x, y in ((pa, pb), (oa.mu, ob.mu),
+                                                   (oa.nu, ob.nu))
+                    for a, b in zip(_leaves(x), _leaves(y))))
+    if not same:
+        raise AssertionError("train: the resumed run differs from the "
+                             "straight one")
+    print(f"train resume: {straight} steps straight == {half}, an "
+          f"AsyncCheckpointer save and a resume to {straight} (parameters "
+          f"and optimizer state bit-equal); the halves took {first_ms:.0f} "
+          f"and {second_ms:.0f} ms with their saves, "
+          f"{on_disk / 2 ** 30:.2f} GiB on disk")
+    del pa, oa, pb, ob
+
+    # (e) microbatches
+    params, opt = TR.init_train_state(cfg, tcfg, dev)
+    loss = {}
+    for m in (1, 2):
+        step = S.make_train_step(cfg, dataclasses.replace(tcfg,
+                                                          microbatches=m))
+        loss[m] = float(step(params, opt, batch)[2]["loss"])
+    if not abs(loss[2] - loss[1]) < MICRO_LOSS_TOL:
+        raise AssertionError(f"train: microbatches 2 loss {loss[2]} against "
+                             f"{loss[1]}")
+    print(f"train microbatches: loss at 2 {loss[2]:.6f} against 1 "
+          f"{loss[1]:.6f} (bound {MICRO_LOSS_TOL})")
+    step = S.make_train_step(cfg, tcfg)
+    busy, ops = _busy_share(lambda: step(params, opt, batch), top=8)
+    print(f"train step under torch.profiler: device-busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'}; top device "
+          f"ops: " + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops))
+    del params, opt
+    _free()
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4260,22 +4661,25 @@ def main():
     mark("vlm infer, vlm generate")
     phase_whisper(dev, card)
     mark("whisper infer, whisper generate")
+    train_launches = phase_train(dev, card)
+    mark("train")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it
     launches = {name: (unfused_launches if name in READ_ON_UNFUSED
                        else fused_launches)[name] for name in KB.KERNELS}
     launches["flash_attention"] = gen_launches["flash_attention"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     kernels = []
     for name in KB.KERNELS:
-        if name == "flash_attention":
+        if name.startswith("flash_attention"):
+            f = flash["bwd"] if name == "flash_attention_bwd" else flash
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": flash["err"], "ms": flash["ms"],
-                "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-                "bound_by": flash["bound_by"],
-                "library_ms": flash["library_ms"]})
+                "max_abs_err": f["err"], "ms": f["ms"],
+                "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
             continue
         a = acc[name]
         t_bytes = a["bytes"] / BYTES_S * 1e3

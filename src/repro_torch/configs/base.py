@@ -10,7 +10,9 @@ state-space and hybrid families (models/ssm.py) read them, and
 ``to_json()`` nests them as the reference does. The
 properties (``resolved_head_dim``, ``padded_vocab``) are not fields, so
 they do not enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
-(optim/adamw.py) reads it.
+(optim/adamw.py) reads it. ``ShapeConfig`` and ``SHAPES`` are the
+reference's, verbatim: the train, prefill and decode steps take a shape
+(launch/steps.py).
 """
 from __future__ import annotations
 
@@ -135,3 +137,24 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per-arch)."""
+    name: str                      # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_training(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

@@ -40,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 KERNELS = ("blind_encode", "limb_matmul", "limb_matmul_fused", "limb_fold",
-           "blind", "unblind", "flash_attention")
+           "blind", "unblind", "flash_attention", "flash_attention_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _launch_lock = threading.Lock()
 _capture = threading.local()
@@ -58,11 +58,17 @@ _SIGNATURES = {
                         ctypes.c_int, _P),
     "repro_blind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     "repro_unblind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
-    # q, k, v, out, dtype, B, Sq, Skv, H, KH, D, Dv, causal, the (b, s, h)
-    # element strides of q, k and v, the score scale, the stream
-    "repro_flash_attention": (_P, _P, _P, _P) + (ctypes.c_int,) * 9
+    # q, k, v, out, lse (or None), dtype, B, Sq, Skv, H, KH, D, Dv, causal,
+    # the (b, s, h) element strides of q, k and v, the score scale, the
+    # stream
+    "repro_flash_attention": (_P,) * 5 + (ctypes.c_int,) * 9
                              + (ctypes.c_longlong,) * 9
                              + (ctypes.c_float, _P),
+    # q, k, v, out, dout, lse, the Drow scratch, dq, dk, dv, then as the
+    # forward from dtype on
+    "repro_flash_attention_bwd": (_P,) * 10 + (ctypes.c_int,) * 9
+                                 + (ctypes.c_longlong,) * 9
+                                 + (ctypes.c_float, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

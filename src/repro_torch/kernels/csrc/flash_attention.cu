@@ -77,6 +77,12 @@
 // exceed the 255 registers a thread may hold, so they spill to local memory:
 // a sweep-only dtype, its spill bytes printed by the build line.
 //
+// Training (flash_attention_bwd.cu) needs each row's log-sum-exp: when the
+// caller passes an lse pointer, both kernels also write, once a row after
+// its last reduction, m + log(max(l, 1e-30)) in the natural domain (the
+// reference's lse; the bf16 kernel's max is in the exp2 domain, times
+// ln 2). The output is the same with or without it.
+//
 // Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
 // the first tile always holds key 0, which every row sees, so no exp argument
 // is ever -1e30 - (-1e30) on a real row. Sums run in a fixed order with no
@@ -103,6 +109,7 @@ template <int D, int DV>
 constexpr int mma_max_gb() { return D + DV > 192 ? 2 : 3; }
 constexpr int WARPS_PER_HEAD = BQ / 16;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Padded rows (an odd number of 16-byte units: ldmatrix reads them without
 // bank conflicts) of q and K (D wide) and of V (DV wide).
@@ -157,7 +164,8 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int G,
+                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                              int Sq, int Skv, int H, int G,
                               int GB, int n_qblocks, int n_heads_b, Strides qs, Strides ks,
                               Strides vs, float scale) {
   using S = Smem<D, DV>;
@@ -332,13 +340,18 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     for (int j = 0; j < DT; ++j)
       *reinterpret_cast<unsigned*>(op + 8 * j) =
           pack_bf16(o[j][2 * h] * inv_l, o[j][2 * h + 1] * inv_l);
+    // the row's log-sum-exp in the natural domain, once a row (every lane
+    // of the quad holds the reduced l and the same max)
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(bidx) * Sq + qpos) * H + h0 + gi] =
+          m_row[h] * LN2 + logf(fmaxf(l_row[h], 1e-30f));
   }
 }
 
 template <int D, int DV, bool CAUSAL>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
+                float scale, cudaStream_t stream) {
   const int G = H / KH;
   const int GB = flash::heads_per_cta(G, mma_max_gb<D, DV>());
   const int n_qblocks = (Sq + BQ - 1) / BQ;
@@ -353,8 +366,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, S::bytes(GB),
            stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                     static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq,
-                     Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
+                     static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
+                     Sq, Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,29 +375,31 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <int D, int DV>
 int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
-             float scale, cudaStream_t st) {
+             float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
+             Strides vs, float scale, cudaStream_t st) {
   if (dtype == 0)
-    return flash::launch_f32(D, DV, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
-                             st);
+    return flash::launch_f32(D, DV, causal, q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
+                             scale, st);
   // bf16: 16-byte copies of rows need 16-byte-aligned rows
   const Strides all[3] = {qs, ks, vs};
   for (const Strides& s : all)
     if (s.b % 8 || s.s % 8 || s.h % 8) return static_cast<int>(cudaErrorMisalignedAddress);
   if (!aligned16(q) || !aligned16(k) || !aligned16(v))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  return causal
-             ? launch_bf16<D, DV, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale, st)
-             : launch_bf16<D, DV, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, scale,
-                                         st);
+  return causal ? launch_bf16<D, DV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
+                                           scale, st)
+                : launch_bf16<D, DV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
+                                            scale, st);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bf16. D is the width of q and k, Dv of v and the output;
-// (D, Dv) must be a built pair. Strides are in elements.
+// (D, Dv) must be a built pair. Strides are in elements. ``lse``, when not
+// null, receives each row's float32 log-sum-exp (B, Sq, H), the residual of
+// the backward (flash_attention_bwd.cu); the output is the same either way.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, int dtype, int B, int Sq, int Skv,
+                                     void* out, void* lse, int dtype, int B, int Sq, int Skv,
                                      int H, int KH, int D, int Dv, int causal, long long qsb,
                                      long long qss, long long qsh, long long ksb,
                                      long long kss, long long ksh, long long vsb,
@@ -397,8 +412,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_PAIR(DQ, DVV)                                                           \
   if (D == DQ && Dv == DVV)                                                               \
-    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, B, Sq, Skv, H, KH, qs, ks, vs, \
-                             scale, st);
+    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, static_cast<float*>(lse), B, Sq, \
+                             Skv, H, KH, qs, ks, vs, scale, st);
   REPRO_FLASH_PAIRS(REPRO_FLASH_PAIR)
 #undef REPRO_FLASH_PAIR
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,9 +18,9 @@ constexpr int MAX_GB = 4;      // query heads a CTA (BQ * MAX_GB threads)
 template <int D, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(BQ * MAX_GB)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out, int Sq,
-                         int Skv, int H, int G, int GB, Strides qs, Strides ks, Strides vs,
-                         float scale) {
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ lse, int Sq, int Skv, int H, int G, int GB,
+                         Strides qs, Strides ks, Strides vs, float scale) {
   constexpr int D4 = D / 4, DV4 = DV / 4;
   extern __shared__ float4 kv_tiles[];   // K (BK rows of D4 float4), then V (DV4)
   float4* k_tile = kv_tiles;
@@ -119,13 +119,15 @@ __global__ void __launch_bounds__(BQ * MAX_GB)
                 static_cast<long long>(h) * DV;
 #pragma unroll
     for (int d = 0; d < DV; ++d) op[d] = acc[d] * inv_l;
+    if (lse != nullptr)
+      lse[(static_cast<long long>(b) * Sq + qpos) * H + h] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int D, int DV, bool CAUSAL>
-int launch_pair(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-                cudaStream_t stream) {
+int launch_pair(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
+                float scale, cudaStream_t stream) {
   const int G = H / KH;
   const int GB = flash::heads_per_cta(G, MAX_GB);
   const dim3 grid(static_cast<unsigned>((Sq + BQ - 1) / BQ),
@@ -137,21 +139,22 @@ int launch_pair(const void* q, const void* k, const void* v, void* out, int B, i
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<grid, BQ * GB, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Skv, H, G, GB, qs, ks, vs, scale);
+      static_cast<float*>(out), lse, Sq, Skv, H, G, GB, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 int flash::launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-                      void* out, int B, int Sq, int Skv, int H, int KH, Strides qs,
-                      Strides ks, Strides vs, float scale, cudaStream_t stream) {
+                      void* out, float* lse, int B, int Sq, int Skv, int H, int KH,
+                      Strides qs, Strides ks, Strides vs, float scale,
+                      cudaStream_t stream) {
 #define REPRO_FLASH_F32(DQ, DVV)                                                         \
   if (D == DQ && Dv == DVV)                                                            \
-    return causal ? launch_pair<DQ, DVV, true>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks,  \
-                                               vs, scale, stream)                       \
-                  : launch_pair<DQ, DVV, false>(q, k, v, out, B, Sq, Skv, H, KH, qs, ks, \
-                                                vs, scale, stream);
+    return causal ? launch_pair<DQ, DVV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, \
+                                               ks, vs, scale, stream)                   \
+                  : launch_pair<DQ, DVV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH,   \
+                                                qs, ks, vs, scale, stream);
   REPRO_FLASH_PAIRS(REPRO_FLASH_F32)
 #undef REPRO_FLASH_F32
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
-// Shared by the two translation units of the flash-attention kernel:
-// flash_attention.cu (the bf16 tensor-core kernel and the C entry point) and
-// flash_attention_f32.cu (the float32 CUDA-core kernel), compiled by separate
-// nvcc processes in parallel.
+// Shared by the translation units of the flash-attention kernels:
+// flash_attention.cu (the bf16 tensor-core kernel and the C entry point),
+// flash_attention_f32.cu (the float32 CUDA-core kernel) and
+// flash_attention_bwd.cu (the backward), compiled by separate nvcc processes
+// in parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,8 +30,9 @@ inline int heads_per_cta(int G, int most) {
 
 // The float32 kernel's launch for the pair (D, Dv) (flash_attention_f32.cu);
 // cudaErrorInvalidValue for a pair it was not built for.
+// ``lse`` (float32 (B, Sq, H)) is written when not null.
 int launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-               void* out, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
-               Strides vs, float scale, cudaStream_t stream);
+               void* out, float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs,
+               Strides ks, Strides vs, float scale, cudaStream_t stream);
 
 }  // namespace flash

@@ -1,6 +1,7 @@
-"""Wrapper of the flash-attention forward kernel
+"""Wrappers of the flash-attention kernels: the forward
 (``csrc/flash_attention.cu``; its float32 kernel is
-``csrc/flash_attention_f32.cu``).
+``csrc/flash_attention_f32.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``).
 
 Port of ``repro/kernels/flash_attention/flash_attention.py``
 (``flash_attention_fwd``): causal or non-causal GQA softmax attention,
@@ -18,8 +19,19 @@ multiples of 16 bytes: a view that is not is copied first.
 Unlike the TPU kernel, no length has to divide a tile: the kernel masks
 ragged ``Sq`` and ``Skv`` itself.
 
-A CUDA tensor launches the kernel, a CPU tensor takes
-``flash_attention_plain`` (``ref.mha_ref``) beside it.
+The forward also gives, when asked (``return_lse``), each row's float32
+log-sum-exp (B, Sq, H), the residual of the backward; its output is the
+same either way. ``flash_attention_bwd`` is the port's kernel for the
+backward of the reference's custom VJP (``repro/models/attention.py``,
+``_make_flash``): the Pallas kernel has none. From q, k, v, the output,
+its gradient and the lse it recomputes each block's probabilities and
+returns (dq, dk, dv) in the inputs' dtypes, dk and dv summed over each KV
+head's query heads, with no atomics (bit-for-bit repeatable). It is
+built for the forward's ``HEAD_DIMS``.
+
+A CUDA tensor launches the kernel, a CPU tensor takes the plain version
+beside it (``flash_attention_plain``, ``flash_attention_bwd_plain``:
+``ref.mha_ref_lse`` and ``ref.mha_bwd_ref``).
 """
 from __future__ import annotations
 
@@ -28,7 +40,8 @@ import math
 import torch
 
 from repro_torch.kernels import build as KB
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.ref import (mha_bwd_ref, mha_ref,
+                                                     mha_ref_lse)
 
 # the kernel's compiled (q/k width, v width) pairs: SmolLM's 32 and 64;
 # 128 of Yi, Qwen2.5, Qwen3-MoE and Arctic; MiniCPM3's MLA (96, 64) and its
@@ -38,22 +51,30 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: materialized float32 softmax attention."""
+                          *, causal: bool = True, return_lse: bool = False):
+    """Plain PyTorch version: materialized float32 softmax attention (and
+    with ``return_lse`` each row's float32 log-sum-exp)."""
+    if return_lse:
+        return mha_ref_lse(q, k, v, causal=causal)
     return mha_ref(q, k, v, causal=causal)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True):
+    """Plain PyTorch version of the backward: the materialized float32
+    formula (not autograd)."""
+    return mha_bwd_ref(q, k, v, out, lse, dout, causal=causal)
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
-    """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
-    q's dtype, the scores scaled by 1/sqrt(D). Causal masking is
-    ``qpos >= kpos`` with both positions from 0."""
-    if KB.on_cpu(q):
-        return flash_attention_plain(q, k, v, causal=causal)
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(B, Sq, Skv, H, KH, D, Dv) of inputs the kernels take; raises on
+    any other."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k, v of one dtype in "
                         f"{tuple(_DTYPES)}, got {q.dtype}, {k.dtype}, "
@@ -75,15 +96,68 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"head dims (q/k {D}, v {Dv}): the kernel is built "
                          f"for {HEAD_DIMS}")
+    return B, Sq, Skv, H, KH, D, Dv
+
+
+def _strides(*ts):
+    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, return_lse: bool = False):
+    """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
+    q's dtype, the scores scaled by 1/sqrt(D); with ``return_lse`` also
+    each row's float32 log-sum-exp (B,Sq,H). Causal masking is ``qpos >=
+    kpos`` with both positions from 0."""
+    if KB.on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     return_lse=return_lse)
+    B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
     fit = KB.aligned16 if q.dtype == torch.bfloat16 else _unit_last
     q, k, v = fit(q), fit(k), fit(v)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     KB.launch("flash_attention", q,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              None if lse is None else lse.data_ptr(),
               _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal),
-              q.stride(0), q.stride(1), q.stride(2),
-              k.stride(0), k.stride(1), k.stride(2),
-              v.stride(0), v.stride(1), v.stride(2), 1.0 / math.sqrt(D))
-    return out
+              *_strides(q, k, v), 1.0 / math.sqrt(D))
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True):
+    """The backward of ``flash_attention_fwd`` from its residuals: q, k, v
+    as the forward took them, its output and float32 lse, and dout, the
+    gradient of the output (B,Sq,H,Dv) -> (dq, dk, dv) in q's dtype."""
+    if KB.on_cpu(q):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal)
+    B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
+    for name, t, dt, shape in (("out", out, q.dtype, (B, Sq, H, Dv)),
+                               ("dout", dout, q.dtype, (B, Sq, H, Dv)),
+                               ("lse", lse, torch.float32, (B, Sq, H))):
+        if t.device != q.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected {dt} {shape} on "
+                             f"{q.device}")
+    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    # every element is written by the kernel (zeros where no pair is seen)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, KH, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Skv, KH, Dv), dtype=q.dtype, device=q.device)
+    if B == 0 or (Sq == 0 and Skv == 0):
+        return dq, dk, dv
+    drow = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    KB.launch("flash_attention_bwd", q,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), drow.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal),
+              *_strides(q, k, v), 1.0 / math.sqrt(D))
+    return dq, dk, dv

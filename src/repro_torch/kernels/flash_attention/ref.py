@@ -1,9 +1,12 @@
-"""Plain PyTorch oracle of the flash-attention forward kernel.
+"""Plain PyTorch oracles of the flash-attention kernels.
 
 Port of ``repro/kernels/flash_attention/ref.py`` (``mha_ref``): plain
 materialized softmax attention over GQA-shaped inputs in float32, cast to
 the query's dtype — the allclose target of the tiled kernel and the same
-function as models/attention.py's plain core.
+function as models/attention.py's plain core. ``mha_ref_lse`` also
+returns each row's log-sum-exp and ``mha_bwd_ref`` is the backward of the
+reference's custom VJP (``repro/models/attention.py:_make_flash``) from
+those residuals, both materialized in float32.
 """
 from __future__ import annotations
 
@@ -12,19 +15,70 @@ import math
 import torch
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """(float32 scores over sqrt(D), (B,Sq,KH,G,Skv); the causal mask
+    (1,Sq,1,1,Skv) with query i seeing keys 0..i, or None)."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    qr = q.reshape(B, Sq, KH, H // KH, D).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qr, k.to(torch.float32))
+    s = s / math.sqrt(D)
+    if not causal:
+        return s, None
+    mask = (torch.arange(Sq, device=q.device)[:, None]
+            >= torch.arange(Skv, device=q.device)[None, :])
+    return s, mask[None, :, None, None, :]
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True) -> torch.Tensor:
     """q: (B,Sq,H,D); k,v: (B,Skv,KH,D) -> (B,Sq,H,Dv)."""
-    B, Sq, H, D = q.shape
-    Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    qr = q.reshape(B, Sq, KH, G, D).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bqhgk", qr, k.to(torch.float32))
-    s = s / math.sqrt(D)
-    if causal:
-        mask = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Skv, device=q.device)[None, :])
-        s = s.masked_fill(~mask[None, :, None, None, :], float("-inf"))
+    return _attend(q, k, v, causal, False)[0]
+
+
+def mha_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True):
+    """``mha_ref`` and each row's float32 log-sum-exp (B,Sq,H) of the
+    scaled, masked scores."""
+    return _attend(q, k, v, causal, True)
+
+
+def _attend(q, k, v, causal: bool, want_lse: bool):
+    B, Sq, H, _ = q.shape
+    s, mask = _scores(q, k, causal)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.to(torch.float32))
-    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not want_lse:
+        return out, None
+    return out, torch.logsumexp(s, dim=-1).reshape(B, Sq, H)
+
+
+def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                causal: bool = True):
+    """(dq, dk, dv) in q's, k's and v's dtypes: the reference's bwd
+    materialized in float32 (not autograd). Drow = rowsum(dO * O), P =
+    exp(s - lse) (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP -
+    Drow) scale, dQ = dS K, dK = dS^T Q, dK and dV summed over each KV
+    head's G query heads."""
+    B, Sq, H, D = q.shape
+    KH, Dv = k.shape[2], v.shape[-1]
+    G = H // KH
+    s, mask = _scores(q, k, causal)
+    p = torch.exp(s - lse.to(torch.float32).reshape(B, Sq, KH, G, 1))
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    do = dout.to(torch.float32).reshape(B, Sq, KH, G, Dv)
+    drow = torch.sum(do * out.to(torch.float32).reshape(B, Sq, KH, G, Dv),
+                     dim=-1)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", do, v.to(torch.float32))
+    ds = p * (dp - drow[..., None]) * (1.0 / math.sqrt(D))
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, k.to(torch.float32))
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds,
+                      q.reshape(B, Sq, KH, G, D).to(torch.float32))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

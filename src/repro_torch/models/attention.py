@@ -24,6 +24,12 @@ values of another dtype than the queries (Llama-3.2-Vision's float32
 patches projected into float32 k and v against bf16 queries): it promotes
 the three to one dtype, runs the kernel of that dtype and casts the
 output to q's. Sliding windows and query offsets are not ported.
+When grad is enabled and an input requires it (training), ``sdpa`` goes
+through ``FlashAttention``, a ``torch.autograd.Function``: its forward is
+the same kernel, which also saves each row's log-sum-exp, and its
+backward is ``flash_attention_bwd`` (the kernel on the card, its plain
+version on the CPU), the port of the reference's custom VJP. Every
+inference path calls the forward kernel alone, as before.
 ``decode_sdpa`` (one query against the cache) has no kernel in the
 reference and stays plain PyTorch, as do MLA's absorbed decode einsums,
 which read ``wkv_b``'s weight directly (not through ``layers.dense``): in
@@ -43,7 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_fwd)
+    flash_attention_bwd, flash_attention_fwd)
 from repro_torch.models import layers as L
 
 _ROADMAP = "ROADMAP Queue 1"
@@ -87,6 +93,35 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, object]:
     }
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward kernel keeps
+    q, k, v, its output and lse; the backward recomputes the
+    probabilities from them (reference: ``_make_flash``'s fwd and bwd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
          q_offset=0, window=0) -> torch.Tensor:
     """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
@@ -100,11 +135,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
             f"sdpa with window={window}, q_offset={q_offset} is not ported "
             f"({_ROADMAP})")
     if k.dtype == q.dtype and v.dtype == q.dtype:
-        return flash_attention_fwd(q, k, v, causal=causal)
+        return _flash(q, k, v, causal)
     # mixed dtypes: the kernel of the promoted dtype, the output in q's
     dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
-    return flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt),
-                               causal=causal).to(q.dtype)
+    return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
 
 
 def position(pos, device) -> torch.Tensor:

@@ -45,6 +45,12 @@ reference does (their K/V come out float32 against bf16 queries;
 caches are {"self": the self-attention ``KVCache``, "cross_k",
 "cross_v": the memory's K/V, bf16, projected once by the prompt pass};
 ``decode_step`` writes the self caches in place and reads the cross K/V.
+
+``forward(..., train=True)`` is the training forward: each block the
+reference scans runs under activation checkpointing (``T.remat``), and
+attention differentiates through the flash backward kernel
+(models/attention.py). ``loss_fn`` is the reference's next-token loss on
+it.
 """
 from __future__ import annotations
 
@@ -185,10 +191,11 @@ def _mamba_blk(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _range_hybrid(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                  hi: int):
+                  hi: int, train: bool = False):
     """Zamba2's blocks [lo, hi): the Mamba2 blocks of each group, and the
     shared attention block after a group that completes inside the range;
     then the tail past the last group."""
+    mamba_blk = T.remat(lambda p, h: _mamba_blk(p, h, cfg), cfg, train)
     e = cfg.hybrid_attn_every
     groups = cfg.num_layers // e
     n_main = groups * e
@@ -198,13 +205,13 @@ def _range_hybrid(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
         if a >= b:
             continue
         for j in range(a - g_lo, b - g_lo):
-            x = _mamba_blk(_block(params["mamba_main"], g, j), x, cfg)
+            x = mamba_blk(_block(params["mamba_main"], g, j), x)
         if b == g_hi and hi >= g_hi:   # group completed inside range
             x = _shared_attn_fwd(params["shared_attn"], x, cfg)
     a, b = max(lo, n_main), min(hi, cfg.num_layers)
     if a < b and "mamba_tail" in params:
         for j in range(a - n_main, b - n_main):
-            x = _mamba_blk(_block(params["mamba_tail"], j), x, cfg)
+            x = mamba_blk(_block(params["mamba_tail"], j), x)
     return x, 0.0
 
 
@@ -214,16 +221,17 @@ def _mlstm_blk(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                 hi: int):
+                 hi: int, train: bool = False):
     """xLSTM's blocks [lo, hi): in each group of ``slstm_every`` the mLSTM
     blocks, then the sLSTM block that closes the group."""
+    mlstm_blk = T.remat(lambda p, h: _mlstm_blk(p, h, cfg), cfg, train)
     e = cfg.ssm.slstm_every
     groups = cfg.num_layers // e
     for g in range(groups):
         g_lo = g * e
         a, b = max(lo, g_lo), min(hi, g_lo + e - 1)   # mlstm sub-blocks
         for j in range(a - g_lo, b - g_lo):
-            x = _mlstm_blk(_block(params["mlstm_groups"], g, j), x, cfg)
+            x = mlstm_blk(_block(params["mlstm_groups"], g, j), x)
         sidx = g_lo + e - 1
         if lo <= sidx < hi:
             sp = _block(params["slstm_groups"], g)
@@ -234,18 +242,19 @@ def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
 
 
 def _range_vlm(params, x: torch.Tensor, cfg: ModelConfig, lo: int, hi: int,
-               patches: torch.Tensor):
+               patches: torch.Tensor, train: bool = False):
     """Llama-3.2-Vision's blocks [lo, hi): in each group of
     ``cross_attn_every`` the self blocks, then the gated cross block over
     ``patches`` that closes the group."""
+    self_blk = T.remat(lambda p, h: T.decoder_block_fwd(p, h, cfg), cfg,
+                       train)
     e = cfg.cross_attn_every
     groups = cfg.num_layers // e
     for g in range(groups):
         g_lo = g * e
         a, b = max(lo, g_lo), min(hi, g_lo + e - 1)   # self sub-blocks
         for j in range(a - g_lo, b - g_lo):
-            x, _ = T.decoder_block_fwd(_block(params["self_groups"], g, j),
-                                       x, cfg)
+            x, _ = self_blk(_block(params["self_groups"], g, j), x)
         cidx = g_lo + e - 1
         if lo <= cidx < hi:
             x = T.vlm_cross_block_fwd(_block(params["cross_groups"], g), x,
@@ -254,30 +263,32 @@ def _range_vlm(params, x: torch.Tensor, cfg: ModelConfig, lo: int, hi: int,
 
 
 def _range_audio_encoder(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                         hi: int):
+                         hi: int, train: bool = False):
+    blk = T.remat(lambda p, h: T.encoder_block_fwd(p, h, cfg), cfg, train)
     for i in range(lo, hi):
-        x = T.encoder_block_fwd(T.layer_params(params["enc_blocks"], i), x,
-                                cfg)
+        x = blk(T.layer_params(params["enc_blocks"], i), x)
     return x, 0.0
 
 
 def apply_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                hi: int, *, memory: Optional[torch.Tensor] = None):
+                hi: int, *, memory: Optional[torch.Tensor] = None,
+                train: bool = False):
     """Run blocks [lo, hi) on hidden states x -> (x, aux). ``memory``: a
-    VLM's patches; an audio model's range is over its encoder blocks."""
+    VLM's patches; an audio model's range is over its encoder blocks.
+    ``train``: each block the reference scans runs under ``T.remat``."""
     if cfg.family == "hybrid":
-        return _range_hybrid(params, x, cfg, lo, hi)
+        return _range_hybrid(params, x, cfg, lo, hi, train)
     if cfg.family == "ssm":
-        return _range_xlstm(params, x, cfg, lo, hi)
+        return _range_xlstm(params, x, cfg, lo, hi, train)
     if cfg.family == "vlm":
-        return _range_vlm(params, x, cfg, lo, hi, memory)
+        return _range_vlm(params, x, cfg, lo, hi, memory, train)
     if cfg.family == "audio":
         # ranges apply to the encoder (tier-1 is a prefix of the encoder)
-        return _range_audio_encoder(params, x, cfg, lo, hi)
+        return _range_audio_encoder(params, x, cfg, lo, hi, train)
+    blk = T.remat(lambda p, h: T.decoder_block_fwd(p, h, cfg), cfg, train)
     aux = 0.0
     for i in range(lo, hi):
-        x, a = T.decoder_block_fwd(T.layer_params(params["blocks"], i), x,
-                                   cfg)
+        x, a = blk(T.layer_params(params["blocks"], i), x)
         aux = aux + a
     return x, aux
 
@@ -317,34 +328,50 @@ def layer_program(cfg: ModelConfig):
     return prologue, segment, epilogue
 
 
-def forward(params, batch, cfg: ModelConfig) -> T.LMOutputs:
+def forward(params, batch, cfg: ModelConfig, *,
+            train: bool = False) -> T.LMOutputs:
     """Teacher-forced logits at every position: {"tokens"} and, for the
-    cross-attention families, {"frames"} (audio) or {"patches"} (vlm)."""
+    cross-attention families, {"frames"} (audio) or {"patches"} (vlm).
+    ``train``: the blocks the reference scans run under ``T.remat``."""
     if cfg.family == "audio":
-        memory = encode_audio(params, batch["frames"], cfg)
-        return T.LMOutputs(forward_audio_decoder(params, batch, memory, cfg),
-                           0.0)
+        memory = encode_audio(params, batch["frames"], cfg, train=train)
+        return T.LMOutputs(forward_audio_decoder(params, batch, memory, cfg,
+                                                 train=train), 0.0)
     x = embed_tokens(params, batch["tokens"], cfg)
     memory = batch.get("patches") if cfg.family == "vlm" else None
-    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers, memory=memory)
+    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers, memory=memory,
+                         train=train)
     return T.LMOutputs(head(params, x, cfg), aux)
 
 
-def encode_audio(params, frames: torch.Tensor, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
+    """(ce + aux_weight * aux loss, ce) of next-token prediction over the
+    shifted tokens, from a training forward (reference: ``loss_fn``)."""
+    out = forward(params, batch, cfg, train=True)
+    logits = out.logits[:, :-1]
+    labels = batch["tokens"][:, 1:]
+    ce = L.cross_entropy(logits, labels, cfg.vocab_size)
+    return ce + aux_weight * out.aux_loss, ce
+
+
+def encode_audio(params, frames: torch.Tensor, cfg: ModelConfig, *,
+                 train: bool = False):
     """Whisper's encoder: frames (B, M, d) -> the normed memory (B, M, d)."""
     x, _ = _range_audio_encoder(params, _audio_input(frames, cfg), cfg, 0,
-                                cfg.num_layers)
+                                cfg.num_layers, train)
     return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
 
 def forward_audio_decoder(params, batch, memory: torch.Tensor,
-                          cfg: ModelConfig) -> torch.Tensor:
+                          cfg: ModelConfig, *,
+                          train: bool = False) -> torch.Tensor:
     """Whisper's decoder over a precomputed encoder memory -> logits (the
     Origami program's epilogue)."""
     x = embed_tokens(params, batch["tokens"], cfg)
+    blk = T.remat(lambda p, h: T.cross_decoder_block_fwd(p, h, memory, cfg),
+                  cfg, train)
     for i in range(cfg.num_layers):
-        x = T.cross_decoder_block_fwd(T.layer_params(params["dec_blocks"], i),
-                                      x, memory, cfg)
+        x = blk(T.layer_params(params["dec_blocks"], i), x)
     return head(params, x, cfg)
 
 

@@ -15,13 +15,16 @@ beside one gated cross-attention block a group (its float32 ``attn_gate``
 and ``mlp_gate``, zero at init, enter as ``tanh(gate)``). The reference
 scans blocks with ``lax.scan`` over stacked parameters; the port keeps the
 stacked layout (a leading layer dim on every block leaf) and walks it
-with a Python loop (models/model.py).
+with a Python loop (models/model.py). ``remat`` is the reference's
+``_maybe_remat``: when training, each block the reference scans runs under
+activation checkpointing.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
@@ -137,6 +140,20 @@ def stacked_defs(defs, n: int):
 
 def slice_layers(stacked, lo: int, hi: int):
     return tree_map(lambda a: a[lo:hi], stacked)
+
+
+def remat(fn, cfg: ModelConfig, train: bool):
+    """``fn`` (a block), for a training forward with ``cfg.remat`` other
+    than "none" run under ``checkpoint``: its activations are not kept but
+    recomputed in the backward (reference: ``_maybe_remat``, which
+    ``jax.checkpoint``s the scanned block)."""
+    if not train or cfg.remat == "none":
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
 
 
 def layer_params(stacked, i: int):

@@ -1330,3 +1330,123 @@ def test_cross_infer_and_decode_on_card(dev, arch):
             np.testing.assert_allclose(
                 logits[:, 0].float().cpu().numpy(), full[:, t], rtol=0.05,
                 atol=0.05)
+
+
+def _rel_frobenius(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv,causal", [
+    (2, 256, 256, 9, 3, 64, 64, True),     # SmolLM's heads, causal
+    (2, 256, 256, 9, 3, 64, 64, False),
+    (2, 200, 200, 4, 4, 64, 64, True),     # G 1, ragged
+    (2, 6, 6, 9, 3, 64, 64, True),         # one partial tile
+    (1, 130, 130, 16, 2, 128, 128, True),  # D 128, G 8, ragged
+    (1, 100, 100, 8, 8, 96, 64, True),     # MLA (96, 64)
+    (1, 70, 70, 4, 4, 48, 32, False),      # the MLA smoke widths
+    (2, 90, 90, 6, 3, 32, 32, True),       # D 32
+    (1, 200, 70, 8, 2, 64, 64, True),      # causal, Sq > Skv
+    (1, 37, 200, 8, 1, 64, 64, False),     # Sq < Skv
+])
+def test_flash_attention_bwd_matches_plain(dev, dtype, rel_tol, B, Sq, Skv,
+                                           H, KH, D, Dv, causal):
+    """The backward kernel against its plain version (float32 matmuls,
+    TF32 off) on the same residuals: each gradient within a relative
+    Frobenius 1e-5 (float32) / 8e-3 (bf16), launched once a call, two
+    launches bit-equal (no atomics)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq * 3 + H + D)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(dev, dtype) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                               (B, Skv, KH, Dv),
+                                               (B, Sq, H, Dv)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    before = KB.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert _rel_frobenius(g, w) <= rel_tol
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,Dv,H,KH,causal", [(64, 64, 9, 3, True),
+                                              (128, 128, 8, 2, False),
+                                              (96, 64, 4, 4, True)])
+def test_flash_attention_lse_output(dev, dtype, D, Dv, H, KH, causal):
+    """The forward's lse within 1e-5 of the plain one; its output
+    bit-equal with and without the lse."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    rng = np.random.default_rng(D + H)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dev, dtype) for s in ((2, 150, H, D), (2, 150, KH, D),
+                                         (2, 150, KH, Dv)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 150, H)
+    assert torch.equal(out, flash_attention_fwd(q, k, v, causal=causal))
+    _, want = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert (lse - want).abs().max().item() <= 1e-5
+
+
+def test_flash_attention_bwd_rejects(dev):
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    q = torch.randn((1, 8, 4, 64), device=dev)
+    out, lse = flash_attention_fwd(q, q, q, return_lse=True)
+    before = KB.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, out, lse[..., :2], out)
+    with pytest.raises(ValueError):
+        t = torch.randn((1, 8, 4, 16), device=dev)
+        flash_attention_bwd(t, t, t, t, lse, t)        # D 16 is not built
+    assert KB.LAUNCHES["flash_attention_bwd"] == before
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """A smoke SmolLM train step in float32 on the card: its gradients
+    within 1e-4 (relative Frobenius a leaf) of the same gradients on the
+    CPU (the kernels against their plain versions), 2 flash forward and 1
+    backward launch a layer (remat), and the step repeats bit for bit.
+    The parameters after an Adam step are not compared: its first update
+    is sign(g) lr, which flips where |g| is below the two devices'
+    rounding."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import init_train_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke("smollm_135m").replace(dtype="float32")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    params, opt = init_train_state(cfg, tcfg, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    g_cpu, ce_cpu = S.loss_grads(params, {"tokens": tokens}, cfg)
+    gp = tree_map(lambda t: t.to(dev), params)
+    g_card, ce_card = S.loss_grads(gp, {"tokens": tokens.to(dev)}, cfg)
+    assert abs(float(ce_card) - float(ce_cpu)) <= 1e-5
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        assert _rel_frobenius(a.cpu(), b) <= 1e-4
+    gopt = type(opt)(opt.step.to(dev), tree_map(lambda t: t.to(dev), opt.mu),
+                     tree_map(lambda t: t.to(dev), opt.nu))
+    step = S.make_train_step(cfg, tcfg)
+    before = dict(KB.LAUNCHES)
+    p_card, _, _ = step(gp, gopt, {"tokens": tokens.to(dev)})
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] - before["flash_attention"] == \
+        2 * cfg.num_layers
+    assert KB.LAUNCHES["flash_attention_bwd"] - \
+        before["flash_attention_bwd"] == cfg.num_layers
+    p_again, _, _ = step(gp, gopt, {"tokens": tokens.to(dev)})
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_card),
+                                                 tree_leaves(p_again)))

@@ -63,11 +63,15 @@ def test_port_files_exist():
                    "models/ssm.py", "configs/zamba2_1_2b.py",
                    "configs/xlstm_1_3b.py",
                    "configs/llama3_2_vision_11b.py",
-                   "configs/whisper_small.py"):
+                   "configs/whisper_small.py", "data/pipeline.py",
+                   "parallel/compression.py", "launch/steps.py",
+                   "launch/train.py", "runtime/checkpoint.py",
+                   "runtime/elastic.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",
-                "blind.cu", "flash_attention.cu", "flash_attention_f32.cu"):
+                "blind.cu", "flash_attention.cu", "flash_attention_f32.cu",
+                "flash_attention_bwd.cu"):
         assert (csrc / src).is_file(), src
 
 
