@@ -79,13 +79,15 @@ Phases (any failure is fatal and exits non-zero):
    plain version (the materialized float32 formula) on the same
    residuals at SmolLM-135M's training shape (8 x 1024, 9/3 heads of 64,
    bf16, causal) and a sweep (float32, non-causal, G 1, ragged 1000 and
-   6, D 128 at G 8, MLA's (96, 64), float32 (48, 32)): dq, dk and dv each
-   within a relative Frobenius 8e-3 (bf16) / 1e-5 (float32) and 2e-2 /
-   1e-5 of its largest magnitude, two launches bit-equal, the forward's
-   lse within 1e-5 of the plain one and its output bit-equal with and
-   without the lse; each with its time and device time, the plain
-   version's, one ``scaled_dot_product_attention`` backward's (timed
-   only) and the card's bound (2 (3 D + 2 Dv) operations a pair);
+   6, D 128 at G 8, MLA's (96, 64), float32 (48, 32), the VLM's cross
+   attention: 1024 queries against 1601 keys, non-causal, D 128 at G 4):
+   dq, dk and dv each within a relative Frobenius 8e-3 (bf16) / 1e-5
+   (float32) and 2e-2 / 1e-5 of its largest magnitude, two launches
+   bit-equal, the forward's lse within 1e-5 of the plain one and its
+   output bit-equal with and without the lse; each with its time and
+   device time, the plain version's, one ``scaled_dot_product_attention``
+   backward's (timed only) and the card's bound (2 (3 D + 2 Dv)
+   operations a pair);
 10. private generation — full-width, full-depth SmolLM-135M (random bf16
    weights from a seed) generating 16 tokens for a batch of 4 1024-token
    prompts through ``private_generate`` under full(k=2) verification:
@@ -355,7 +357,8 @@ Phases (any failure is fatal and exits non-zero):
    ``AsyncCheckpointer`` save and a resume to 10: parameters and
    optimizer state bit-equal; (e) one step at 2 microbatches: its loss
    within 5e-2 of the step at 1; then one step under ``torch.profiler``:
-   its device-busy share and top device ops, printed.
+   its device-busy share beside the median step time of (b), the flash
+   backward's device ms and the top device ops, printed.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -1368,10 +1371,11 @@ def _busy_share(fn, top=6):
     """(device-busy share, top device ops) of one call of ``fn``: the union
     of the device activity intervals ``torch.profiler`` saw over the
     call's wall interval (the call synchronizes at its end), None when it
-    saw none; and the ``top`` device ops by device time, as (name, ms,
-    count). The window's own range also appears on the device timeline
-    (a user annotation from its first kernel to its last) and is not
-    activity: counted, it would read nearly 1 for any call."""
+    saw none; and the ``top`` device ops (every one when None) by device
+    time, as (name, ms, count). The window's own range also appears on
+    the device timeline (a user annotation from its first kernel to its
+    last) and is not activity: counted, it would read nearly 1 for any
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import record_function
     torch.cuda.synchronize()
@@ -2224,20 +2228,22 @@ CROSS_FLASH_CASES = (
 # of ``KEY_TILE``) failing the bound.
 CROSS_REL_TOL = {torch.bfloat16: 8e-3, torch.float32: 1e-4}
 KEY_TILE = 64
-# (label, B, S, H, KH, D, Dv, dtype, causal): the backward kernel at
+# (label, B, Sq, Skv, H, KH, D, Dv, dtype, causal): the backward kernel at
 # SmolLM-135M's training shape (the train phase's 8 x 1024, 9/3 heads of
 # 64), and a sweep: float32, non-causal, G 1, ragged 1000 and 6, D 128 at
-# G 8 (Yi's heads), MLA's (96, 64) and its smoke widths
+# G 8 (Yi's heads), MLA's (96, 64) and its smoke widths, and the VLM's cross
+# attention (1024 queries against 1601 patches, G 4 at D 128)
 BWD_CASES = (
-    ("smollm train", 8, 1024, 9, 3, 64, 64, torch.bfloat16, True),
-    ("float32", 8, 1024, 9, 3, 64, 64, torch.float32, True),
-    ("non-causal", 8, 1024, 9, 3, 64, 64, torch.bfloat16, False),
-    ("G 1", 8, 1024, 9, 9, 64, 64, torch.bfloat16, True),
-    ("ragged 1000", 8, 1000, 9, 3, 64, 64, torch.bfloat16, True),
-    ("ragged 6", 8, 6, 9, 3, 64, 64, torch.bfloat16, True),
-    ("D 128 G 8", 2, 1024, 32, 4, 128, 128, torch.bfloat16, True),
-    ("MLA (96, 64)", 2, 1024, 40, 40, 96, 64, torch.bfloat16, True),
-    ("float32 (48, 32)", 2, 130, 4, 4, 48, 32, torch.float32, False),
+    ("smollm train", 8, 1024, 1024, 9, 3, 64, 64, torch.bfloat16, True),
+    ("float32", 8, 1024, 1024, 9, 3, 64, 64, torch.float32, True),
+    ("non-causal", 8, 1024, 1024, 9, 3, 64, 64, torch.bfloat16, False),
+    ("G 1", 8, 1024, 1024, 9, 9, 64, 64, torch.bfloat16, True),
+    ("ragged 1000", 8, 1000, 1000, 9, 3, 64, 64, torch.bfloat16, True),
+    ("ragged 6", 8, 6, 6, 9, 3, 64, 64, torch.bfloat16, True),
+    ("D 128 G 8", 2, 1024, 1024, 32, 4, 128, 128, torch.bfloat16, True),
+    ("MLA (96, 64)", 2, 1024, 1024, 40, 40, 96, 64, torch.bfloat16, True),
+    ("float32 (48, 32)", 2, 130, 130, 4, 4, 48, 32, torch.float32, False),
+    ("VLM cross", 1, 1024, 1601, 32, 8, 128, 128, torch.bfloat16, False),
 )
 # bf16: each gradient is rounded to bf16 once (2^-9), and Drow comes from
 # the bf16 output on both sides; float32: the two sum in other orders
@@ -2378,10 +2384,10 @@ def _flash_bwd_cases(dev, gen):
     yardstick the port never calls); returns the training shape's
     numbers."""
     main_case, err_max = None, 0.0
-    for label, B, S, H, KH, D, Dv, dtype, causal in BWD_CASES:
+    for label, B, S, Skv, H, KH, D, Dv, dtype, causal in BWD_CASES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
-                   for shape in ((B, S, H, D), (B, S, KH, D),
-                                 (B, S, KH, Dv)))
+                   for shape in ((B, S, H, D), (B, Skv, KH, D),
+                                 (B, Skv, KH, Dv)))
         dout = torch.randn((B, S, H, Dv), generator=gen, device=dev,
                            dtype=dtype)
         out, lse = flash_attention_fwd(q, k, v, causal=causal,
@@ -2429,10 +2435,11 @@ def _flash_bwd_cases(dev, gen):
         dot = dout.transpose(1, 2)
         sdpa_ms, sdpa_dms = timed(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True))
-        bound, by = flash_bound(B, S, S, H, KH, D, Dv, dtype, causal,
+        bound, by = flash_bound(B, S, Skv, H, KH, D, Dv, dtype, causal,
                                 backward=True)
         width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
-        print(f"flash_attention_bwd {label} (B {B}, S {S}, H {H}, KH {KH}, "
+        seq = f"S {S}" if Skv == S else f"Sq {S}, Skv {Skv}"
+        print(f"flash_attention_bwd {label} (B {B}, {seq}, H {H}, KH {KH}, "
               f"{width}, {str(dtype)[6:]}, "
               f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
               f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa backward "
@@ -4557,10 +4564,17 @@ def phase_train(dev, card):
     print(f"train microbatches: loss at 2 {loss[2]:.6f} against 1 "
           f"{loss[1]:.6f} (bound {MICRO_LOSS_TOL})")
     step = S.make_train_step(cfg, tcfg)
-    busy, ops = _busy_share(lambda: step(params, opt, batch), top=8)
+    busy, ops = _busy_share(lambda: step(params, opt, batch), top=None)
+    bwd = {part: sum(ms for n, ms, _ in ops if f"flash_bwd_{part}" in n)
+           for part in ("rowdot", "dkdv", "dq")}
     print(f"train step under torch.profiler: device-busy share "
-          f"{'not measured' if busy is None else f'{busy:.4f}'}; top device "
-          f"ops: " + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops))
+          f"{'not measured' if busy is None else f'{busy:.4f}'} at "
+          f"{statistics.median(step_ms[1:]):.2f} ms a step (the {TRAIN_STEPS}"
+          f"-step run's median after the first); the flash backward's "
+          f"kernels {sum(bwd.values()):.2f} ms of device time a step (Drow "
+          f"{bwd['rowdot']:.2f}, dK/dV {bwd['dkdv']:.2f}, dQ "
+          f"{bwd['dq']:.2f}); top device ops: "
+          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops[:8]))
     del params, opt
     _free()
     return launches

@@ -1,0 +1,52 @@
+"""Time the flash-attention backward of one source tree on one NVIDIA GPU,
+over the cases and gates of this checkout's ``chip_smoke.py``.
+
+``chip_smoke.py``'s flash phase times only its own tree's backward. To
+compare a change with its parent on one card, unpack the parent with
+``git archive`` under ``.archive/`` and call this script once per tree in
+one command, parent, change, change, parent:
+
+    for t in .archive/parent/src src src .archive/parent/src; do
+        python3 scripts/torch_flash_bwd_compare.py --src $t; done
+
+``--src`` (default: this checkout's ``src``) is the directory that holds
+the ``repro_torch`` package whose kernels are built (into that package's
+gitignored ``kernels/_build/``) and timed; its wrapper's interface must be
+this checkout's. Prints the card's name and power limit, the build and
+every kernel's registers and spill bytes, then one line per case of
+``BWD_CASES``, as ``chip_smoke.py`` prints them (device time by
+``torch.profiler``, the event time, the plain version, SDPA's backward,
+the bound; each case passes its gates or the script fails).
+"""
+import argparse
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory holding the repro_torch package "
+                         "to time")
+    src = Path(ap.parse_args().src).resolve()
+    # import that tree's package first: chip_smoke's own imports then find
+    # it in sys.modules, whatever it puts on sys.path
+    sys.path.insert(0, str(src))
+    import repro_torch
+    sys.path.insert(0, str(ROOT))
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("torch_flash_bwd_compare: CUDA is not available")
+    import chip_smoke as C
+    print(f"tree: {Path(repro_torch.__file__).resolve().parents[1]}")
+    C.phase_card_and_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(C.SEED)
+    C._flash_bwd_cases(torch.device("cuda"), gen)
+
+
+if __name__ == "__main__":
+    main()

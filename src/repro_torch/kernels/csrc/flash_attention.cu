@@ -101,6 +101,8 @@ using flash::BK;
 using flash::BQ;
 using flash::NEG;
 using flash::Strides;
+using tiles::pack_bf16;
+using tiles::split_bf16;
 
 // ---- bf16: tensor cores ----
 
@@ -124,19 +126,6 @@ struct Smem {
   // q rows of GB heads, then K and V of two stages
   static constexpr int bytes(int GB) { return GB * BQ * ROW + 2 * STAGE; }
 };
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// (a, b) = hi + lo in two packed bf16 pairs: lo is the rounding error of hi
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
 
 // K then V of keys [k0, k0 + BK) into one stage (K at 0, V at KTILE)
 template <int D, int DV>
@@ -371,8 +360,6 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 template <int D, int DV>
 int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
@@ -380,11 +367,7 @@ int dispatch(int dtype, int causal, const void* q, const void* k, const void* v,
   if (dtype == 0)
     return flash::launch_f32(D, DV, causal, q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                              scale, st);
-  // bf16: 16-byte copies of rows need 16-byte-aligned rows
-  const Strides all[3] = {qs, ks, vs};
-  for (const Strides& s : all)
-    if (s.b % 8 || s.s % 8 || s.h % 8) return static_cast<int>(cudaErrorMisalignedAddress);
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v))
+  if (!flash::bf16_rows_aligned(q, k, v, qs, ks, vs))
     return static_cast<int>(cudaErrorMisalignedAddress);
   return causal ? launch_bf16<D, DV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                                            scale, st)

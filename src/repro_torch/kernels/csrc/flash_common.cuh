@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // The built (q/k width D, v width Dv) pairs: SmolLM's 32 and 64, 128 of the
 // GQA LMs, MiniCPM3's MLA (96, 64) and its smoke widths (48, 32).
@@ -20,6 +21,18 @@ constexpr float NEG = -1e30f;
 struct Strides {
   long long b, s, h;
 };
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The bf16 kernels copy q, k and v in 16-byte chunks of rows: their starts
+// and their (b, s, h) element strides must be multiples of 16 bytes.
+inline bool bf16_rows_aligned(const void* q, const void* k, const void* v, Strides qs,
+                              Strides ks, Strides vs) {
+  const Strides all[3] = {qs, ks, vs};
+  for (const Strides& s : all)
+    if (s.b % 8 || s.s % 8 || s.h % 8) return false;
+  return aligned16(q) && aligned16(k) && aligned16(v);
+}
 
 // Query heads a CTA holds: the largest divisor of G up to `most`.
 inline int heads_per_cta(int G, int most) {

@@ -27,7 +27,9 @@ backward of the reference's custom VJP (``repro/models/attention.py``,
 its gradient and the lse it recomputes each block's probabilities and
 returns (dq, dk, dv) in the inputs' dtypes, dk and dv summed over each KV
 head's query heads, with no atomics (bit-for-bit repeatable). It is
-built for the forward's ``HEAD_DIMS``.
+built for the forward's ``HEAD_DIMS``; like the forward it copies bf16
+q, k, v (and dO) in 16-byte rows, so a view that does not start on 16
+bytes is copied first.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 beside it (``flash_attention_plain``, ``flash_attention_bwd_plain``:
@@ -68,7 +70,11 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return mha_bwd_ref(q, k, v, out, lse, dout, causal=causal)
 
 
-def _unit_last(t: torch.Tensor) -> torch.Tensor:
+def _fit(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernels read it, else a copy: bf16 in 16-byte chunks of
+    rows (``KB.aligned16``), float32 with a unit-stride last dim."""
+    if t.dtype == torch.bfloat16:
+        return KB.aligned16(t)
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
@@ -113,8 +119,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal,
                                      return_lse=return_lse)
     B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
-    fit = KB.aligned16 if q.dtype == torch.bfloat16 else _unit_last
-    q, k, v = fit(q), fit(k), fit(v)
+    q, k, v = _fit(q), _fit(k), _fit(v)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -145,8 +150,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected {dt} {shape} on "
                              f"{q.device}")
-    q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
-    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    q, k, v, dout = _fit(q), _fit(k), _fit(v), _fit(dout.contiguous())
+    out, lse = out.contiguous(), lse.contiguous()
     # every element is written by the kernel (zeros where no pair is seen)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, KH, D), dtype=q.dtype, device=q.device)

@@ -219,10 +219,11 @@ def test_limb_matmul_unaligned_planes(dev):
 
 
 def test_tensor_core_kernels_in_sass(dev):
-    """The built library's SASS: the bf16 flash kernels issue HMMA/HGMMA and
-    the limb kernels (plain, fused, fold) IMMA/IGMMA with no IDP
-    (dp4a), and all copy their tiles with cp.async (LDGSTS) or TMA
-    (UTMALDG), so none can quietly go back to the CUDA cores."""
+    """The built library's SASS: the bf16 flash kernels (the forward and
+    the backward's dK/dV and dQ passes) issue HMMA/HGMMA and the limb
+    kernels (plain, fused, fold) IMMA/IGMMA with no IDP (dp4a), and all
+    copy their tiles with cp.async (LDGSTS) or TMA (UTMALDG), so none can
+    quietly go back to the CUDA cores."""
     import re
     import subprocess
     sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
@@ -232,15 +233,19 @@ def test_tensor_core_kernels_in_sass(dev):
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
     flash = [b for n, b in bodies.items() if "flash_fwd_bf16_mma_kernel" in n]
+    bwd = [b for n, b in bodies.items()
+           if any(k in n for k in ("flash_bwd_dkdv_mma_kernel",
+                                   "flash_bwd_dq_mma_kernel"))]
     limb = [b for n, b in bodies.items()
             if any(k in n for k in ("limb_matmul_mma_kernel",
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
     # flash: the (q/k, v) width pairs (32, 32), (64, 64), (128, 128),
-    # (96, 64) and (48, 32), causal and not; the fold has two tilings, one
-    # kernel each
-    assert len(flash) == 10 and len(limb) == 4, sorted(bodies)
-    for body in flash:
+    # (96, 64) and (48, 32), causal and not, in the forward and in each of
+    # the backward's two passes; the fold has two tilings, one kernel each
+    assert len(flash) == 10 and len(bwd) == 20 and len(limb) == 4, \
+        sorted(bodies)
+    for body in flash + bwd:
         assert re.search(r"\bHG?MMA\b", body)
         assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
     for body in limb:
@@ -1350,6 +1355,7 @@ def _rel_frobenius(got, want):
     (2, 90, 90, 6, 3, 32, 32, True),       # D 32
     (1, 200, 70, 8, 2, 64, 64, True),      # causal, Sq > Skv
     (1, 37, 200, 8, 1, 64, 64, False),     # Sq < Skv
+    (1, 1024, 1601, 32, 8, 128, 128, False),   # the VLM's cross attention
 ])
 def test_flash_attention_bwd_matches_plain(dev, dtype, rel_tol, B, Sq, Skv,
                                            H, KH, D, Dv, causal):
@@ -1396,6 +1402,34 @@ def test_flash_attention_lse_output(dev, dtype, D, Dv, H, KH, causal):
     assert torch.equal(out, flash_attention_fwd(q, k, v, causal=causal))
     _, want = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
     assert (lse - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_misaligned_bf16_views(dev, causal):
+    """bf16 q, k, v and dout that start 2 bytes past a 16-byte boundary
+    (the kernel copies rows in 16-byte chunks): the wrapper copies them,
+    and the gradients equal those of aligned copies bit for bit."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    rng = np.random.default_rng(17 + causal)
+
+    def shifted(shape):
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32))
+        t = flat.to(dev, torch.bfloat16)[1:].view(shape)
+        assert t.data_ptr() % 16 == 2
+        return t
+
+    q, k, v, dout = (shifted(s) for s in ((2, 130, 6, 64), (2, 130, 2, 64),
+                                          (2, 130, 2, 64), (2, 130, 6, 64)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    before = KB.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd(*(t.clone() for t in (q, k, v, out, lse,
+                                                     dout)), causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_flash_attention_bwd_rejects(dev):
