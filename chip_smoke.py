@@ -377,13 +377,13 @@ gate/up 4096 x 14336, down 14336 x 4096) and Whisper's encoder's (768 x
 6000), and the flash phase at their attention shapes: the VLM's causal
 self attention (4 x 1024, 32/8 heads of 128, G 4), its cross attention
 over 1601 patches in float32 (the forward) and bf16 (``prefill_vlm``) and
-at one query (decode), Whisper's encoder (1500 x 1500, non-causal),
-decoder (448 causal; the 64-token prompt) and cross attention (448, 64
-and one query against 1500 frames), each also within a relative
-Frobenius error of the plain version's float32 result (8e-3 bf16, 1e-4
-float32) that an unmasked last key tile exceeds: for each non-causal
-ragged case the plain version over keys zero-padded to a multiple of 64
-is shown failing that bound.
+at one query (decode, bf16 and float32), Whisper's encoder (1500 x 1500,
+non-causal), decoder (448 causal; the 64-token prompt) and cross
+attention (448, 64 and one query against 1500 frames), each also within a
+relative Frobenius error of the plain version's float32 result (8e-3
+bf16, 1e-4 float32) that an unmasked last key tile exceeds: for each
+non-causal ragged case the plain version over keys zero-padded to a
+multiple of 64 is shown failing that bound.
 
 Phases 3, 5-8, 10-18, 20, 21 and 23-34 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
@@ -441,10 +441,11 @@ from repro_torch.runtime.serving import (PrivateInferenceServer,  # noqa: E402
 
 BATCH = 4
 SEED = 0
-# H100 SXM published peaks (dense): int8 tensor cores, float32 outside the
-# tensor cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): int8, bf16 and TF32 tensor cores,
+# float32 outside the tensor cores, HBM3 bandwidth
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12
+TF32_OPS_S = 495e12
 F32_OPS_S = 67e12
 BYTES_S = 3.35e12
 REPLACES = {
@@ -2190,7 +2191,8 @@ FLASH_CASES = (
 # cross-attention families. Llama-3.2-Vision (32/8 heads of 128, G 4): its
 # causal self attention at 4 x 1024; its cross attention over 1601 patches
 # in float32 (the forward's float32 patches promote the bf16 queries), in
-# bf16 (``prefill_vlm``) and at one query (a decode step); Whisper (12/12
+# bf16 (``prefill_vlm``) and at one query (a decode step, in bf16 and in
+# float32: the float32-weight decode gate's call); Whisper (12/12
 # heads of 64): the encoder over 1500 frames, the decoder's causal self
 # attention at 448 (the infer phase) and 64 (the prompt pass), its cross
 # attention at 448, 64 and one query against 1500 frames. Besides the max
@@ -2205,6 +2207,8 @@ CROSS_FLASH_CASES = (
      False, 2e-2),
     ("vlm cross decode", 4, 1, 1601, 32, 8, 128, 128, torch.bfloat16, False,
      2e-2),
+    ("vlm cross decode float32", 4, 1, 1601, 32, 8, 128, 128, torch.float32,
+     False, 2e-5),
     ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 64, torch.bfloat16, False,
      2e-2),
     ("whisper decoder self", 4, 448, 448, 12, 12, 64, 64, torch.bfloat16,
@@ -2271,13 +2275,19 @@ def _unmasked_tail_rel(q, k, v, exact):
 
 
 def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False):
-    """(bound ms, "bytes" | "operations") of one attention call: q, k, v
-    read once and the output written once against 3.35 TB/s; 2 (D + Dv)
-    operations for every (query, key) pair the mask lets through (QK and
-    PV; causal: query i sees keys 0..i) against the dense peak of the
+    """(bound ms, "bytes" | "operations", {form: ms}) of one attention call:
+    q, k, v read once and the output written once against 3.35 TB/s; 2 (D +
+    Dv) operations for every (query, key) pair the mask lets through (QK
+    and PV; causal: query i sees keys 0..i) against the dense peak of the
     input type. ``backward``: q, k, v, the output, its gradient and the
     float32 lse read once, dq, dk and dv written once; 2 (3 D + 2 Dv)
-    operations a pair (S = QK^T, dP = dO V^T, dV, dQ, dK)."""
+    operations a pair (S = QK^T, dP = dO V^T, dV, dQ, dK).
+
+    A float32 forward can take either of two routes to the same result:
+    the CUDA cores at 67 TFLOP/s, or the tensor cores with each operand in
+    two tf32 parts, three products a multiply-add at TF32's 495 TFLOP/s
+    (the kernel's 3xTF32). The least time the card could take is the
+    smaller; the dict gives both (empty elsewhere)."""
     size = torch.tensor([], dtype=dtype).element_size()
     q_rows, kv_rows = B * Sq * H, B * Skv * KH
     nbytes = size * (q_rows * (D + Dv) + kv_rows * (D + Dv))
@@ -2290,20 +2300,38 @@ def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False):
     else:
         pairs = Sq * Skv
     ops = 2 * B * H * ((3 * D + 2 * Dv) if backward else (D + Dv)) * pairs
-    peak = BF16_OPS_S if dtype == torch.bfloat16 else F32_OPS_S
-    t_bytes, t_ops = nbytes / BYTES_S * 1e3, ops / peak * 1e3
+    forms = {}
+    if dtype == torch.bfloat16:
+        t_ops = ops / BF16_OPS_S * 1e3
+    elif backward:
+        t_ops = ops / F32_OPS_S * 1e3
+    else:
+        forms = {"CUDA cores": ops / F32_OPS_S * 1e3,
+                 "3xTF32": 3 * ops / TF32_OPS_S * 1e3}
+        t_ops = min(forms.values())
+    t_bytes = nbytes / BYTES_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), forms
 
 
 def phase_flash(dev):
-    """The flash-attention kernel against its plain version (float32
-    matmuls with TF32 off), timed beside the plain version and one
-    ``scaled_dot_product_attention`` call (a yardstick the port never
-    calls); returns the smollm prefill case's numbers."""
+    """The flash-attention forward cases, then the backward's
+    (``_flash_bwd_cases``); returns the smollm prefill case's numbers."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    main_case = _flash_fwd_cases(dev, gen)
+    torch.cuda.empty_cache()
+    main_case["bwd"] = _flash_bwd_cases(dev, gen)
+    return main_case
+
+
+def _flash_fwd_cases(dev, gen):
+    """The forward kernel against its plain version (float32 matmuls with
+    TF32 off) over ``FLASH_CASES`` and ``CROSS_FLASH_CASES``, two launches
+    bit-equal, timed beside the plain version and one
+    ``scaled_dot_product_attention`` call (a yardstick the port never
+    calls); returns the first case's numbers and the largest error."""
     main_case, err_max = None, 0.0
     cases = [(c[0], c[1], c[2], c[2]) + c[3:] for c in FLASH_CASES]
     n_plain = len(cases)
@@ -2352,24 +2380,24 @@ def phase_flash(dev):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-        bound, by = flash_bound(B, S, Skv, H, KH, D, Dv, dtype, causal)
+        bound, by, forms = flash_bound(B, S, Skv, H, KH, D, Dv, dtype,
+                                       causal)
         width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
         seq = f"S {S}" if Skv == S else f"Sq {S}, Skv {Skv}"
+        routes = "".join(f"; {form} {t:.4f}" for form, t in forms.items())
         print(f"flash_attention {label} (B {B}, {seq}, H {H}, KH {KH}, "
               f"{width}, {str(dtype)[6:]}, "
               f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
               f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
               f"ms (device {fmt_ms(sdpa_dms)}), bound "
-              f"{bound:.4f} ms ({by}); max abs err {err:.3g} (tol {tol})"
-              f"{rel_note}")
+              f"{bound:.4f} ms ({by}{routes}); max abs err {err:.3g} (tol "
+              f"{tol}){rel_note}")
         if main_case is None:
             main_case = {"ms": ms, "plain_ms": plain_ms,
                          "library_ms": sdpa_ms, "bound_ms": bound,
                          "bound_by": by}
         del q, k, v, got, want, qt, kt, vt
     main_case["err"] = err_max
-    torch.cuda.empty_cache()
-    main_case["bwd"] = _flash_bwd_cases(dev, gen)
     return main_case
 
 
@@ -2435,8 +2463,8 @@ def _flash_bwd_cases(dev, gen):
         dot = dout.transpose(1, 2)
         sdpa_ms, sdpa_dms = timed(lambda: torch.autograd.grad(
             ot, (qt, kt, vt), dot, retain_graph=True))
-        bound, by = flash_bound(B, S, Skv, H, KH, D, Dv, dtype, causal,
-                                backward=True)
+        bound, by, _ = flash_bound(B, S, Skv, H, KH, D, Dv, dtype, causal,
+                                   backward=True)
         width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
         seq = f"S {S}" if Skv == S else f"Sq {S}, Skv {Skv}"
         print(f"flash_attention_bwd {label} (B {B}, {seq}, H {H}, KH {KH}, "
@@ -3132,7 +3160,8 @@ def phase_adversary_parity(dev, card):
     """The reference test's adversary (smoke VGG-16 with the reference's
     seed-0 weights from ``init_params_keyed``, layer 1, 60 steps, batch
     8, n_eval 32, seed 0) on the card and on the CPU: the SSIM and the
-    final losses agree within the tests' tolerances."""
+    final losses agree within the tests' tolerances, and a second run on
+    the card gives the first's bit for bit."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import layers as L
     from repro_torch.privacy import reconstruct as R
@@ -3143,7 +3172,8 @@ def phase_adversary_parity(dev, card):
     params = L.init_params_keyed(PRNGKey(SEED), V.vgg_defs(cfg),
                                  torch.float32, "cpu")
     reps = []
-    for label, d in (("card", dev), ("CPU", torch.device("cpu"))):
+    for label, d in (("card", dev), ("card again", dev),
+                     ("CPU", torch.device("cpu"))):
         t = time.perf_counter()
         rep = R.train_adversary(params, cfg, device=d, **ADV_PARITY)
         wall = time.perf_counter() - t
@@ -3152,14 +3182,19 @@ def phase_adversary_parity(dev, card):
               f"{rep.g_loss:.5f}, D loss {rep.d_loss:.5f}; {rep.step_ms:.3f} "
               f"ms a step (D+G), collect_features {rep.collect_ms:.3f} ms a "
               f"step, {wall:.2f} s for the run")
+    again = [(getattr(reps[0], f), getattr(reps[1], f)) for f in ADV_TOL]
+    if any(a != b for a, b in again):
+        raise AssertionError(f"adversary parity: two card runs differ "
+                             f"{again} ({list(ADV_TOL)})")
     for field, tol in ADV_TOL.items():
-        a, b = getattr(reps[0], field), getattr(reps[1], field)
+        a, b = getattr(reps[0], field), getattr(reps[2], field)
         if not (np.isfinite(a) and abs(a - b) <= tol):
             raise AssertionError(f"adversary parity: {field} {a} on the "
                                  f"card, {b} on the CPU (tolerance {tol})")
     floor = float(ssim(torch.from_numpy(make_batch(0, 8)),
                        torch.from_numpy(make_batch(500, 8))))
-    print(f"{tag}: card == CPU within {ADV_TOL}; the reference test's "
+    print(f"{tag}: card == card again bit for bit, card == CPU within "
+          f"{ADV_TOL}; the reference test's "
           f"noise floor {floor:.5f} (it asks SSIM > floor + 0.1)")
 
 

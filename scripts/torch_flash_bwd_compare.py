@@ -1,7 +1,8 @@
-"""Time the flash-attention backward of one source tree on one NVIDIA GPU,
-over the cases and gates of this checkout's ``chip_smoke.py``.
+"""Time the flash-attention backward (or, with ``--forward``, the forward)
+of one source tree on one NVIDIA GPU, over the cases and gates of this
+checkout's ``chip_smoke.py``.
 
-``chip_smoke.py``'s flash phase times only its own tree's backward. To
+``chip_smoke.py``'s flash phase times only its own tree's kernels. To
 compare a change with its parent on one card, unpack the parent with
 ``git archive`` under ``.archive/`` and call this script once per tree in
 one command, parent, change, change, parent:
@@ -9,14 +10,20 @@ one command, parent, change, change, parent:
     for t in .archive/parent/src src src .archive/parent/src; do
         python3 scripts/torch_flash_bwd_compare.py --src $t; done
 
+``--forward`` runs the forward's cases instead: every case of
+``FLASH_CASES`` and ``CROSS_FLASH_CASES``, float32 and bf16, so one loop
+gives the float32 kernel's parent times and the bf16 cases' check that
+they did not move.
+
 ``--src`` (default: this checkout's ``src``) is the directory that holds
 the ``repro_torch`` package whose kernels are built (into that package's
 gitignored ``kernels/_build/``) and timed; its wrapper's interface must be
 this checkout's. Prints the card's name and power limit, the build and
 every kernel's registers and spill bytes, then one line per case of
-``BWD_CASES``, as ``chip_smoke.py`` prints them (device time by
-``torch.profiler``, the event time, the plain version, SDPA's backward,
-the bound; each case passes its gates or the script fails).
+``BWD_CASES`` (or of the forward's cases), as ``chip_smoke.py`` prints
+them (device time by ``torch.profiler``, the event time, the plain
+version, SDPA, the bound; each case passes its gates or the script
+fails).
 """
 import argparse
 import sys
@@ -30,7 +37,10 @@ def main():
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory holding the repro_torch package "
                          "to time")
-    src = Path(ap.parse_args().src).resolve()
+    ap.add_argument("--forward", action="store_true",
+                    help="time the forward's cases, not the backward's")
+    args = ap.parse_args()
+    src = Path(args.src).resolve()
     # import that tree's package first: chip_smoke's own imports then find
     # it in sys.modules, whatever it puts on sys.path
     sys.path.insert(0, str(src))
@@ -45,7 +55,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(C.SEED)
-    C._flash_bwd_cases(torch.device("cuda"), gen)
+    cases = C._flash_fwd_cases if args.forward else C._flash_bwd_cases
+    cases(torch.device("cuda"), gen)
 
 
 if __name__ == "__main__":

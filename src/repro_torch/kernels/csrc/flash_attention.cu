@@ -65,22 +65,16 @@
 // so each CTA streams its head's keys once per q block, mostly from L2.
 //
 // float32 (flash_attention_f32.cu, its own translation unit, which nvcc
-// compiles beside this one): the CUDA cores (its tolerance, 2e-5, rules out
-// bf16 and TF32 operands; at the prefill shape it takes 0.56 ms against 0.90 ms for
-// scaled_dot_product_attention in float32 on an H100 80GB HBM3 at 700 W).
-// One CTA per (q block of 64 rows, group of up to 4 query heads of
-// one KV head, batch); a thread owns one (row, head) pair with its q (D
-// floats) and f32 accumulator (Dv floats) in registers; each 64-key K/V tile
-// is staged once in dynamic shared memory for all heads (64 KB at D = 128,
-// past the 48 KB a static array may take); the online softmax advances in
-// chunks of 16 keys. At D = 128 the thread's q and accumulator (256 floats)
-// exceed the 255 registers a thread may hold, so they spill to local memory:
-// a sweep-only dtype, its spill bytes printed by the build line.
+// compiles beside this one): the tensor cores too, in this kernel's layout
+// of the work, every operand in two tf32 parts and each product three
+// mma.sync m16n8k8 tf32 products (3xTF32). One bf16 or TF32 part would miss
+// the float32 tolerance, 2e-5, and so would two bf16 parts; its header says
+// why and what the card measured.
 //
 // Training (flash_attention_bwd.cu) needs each row's log-sum-exp: when the
 // caller passes an lse pointer, both kernels also write, once a row after
 // its last reduction, m + log(max(l, 1e-30)) in the natural domain (the
-// reference's lse; the bf16 kernel's max is in the exp2 domain, times
+// reference's lse; both kernels keep the max in the exp2 domain, times
 // ln 2). The output is the same with or without it.
 //
 // Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
@@ -364,11 +358,11 @@ template <int D, int DV>
 int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
              Strides vs, float scale, cudaStream_t st) {
+  if (!flash::rows_aligned16(q, k, v, qs, ks, vs, dtype == 0 ? 4 : 2))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   if (dtype == 0)
     return flash::launch_f32(D, DV, causal, q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                              scale, st);
-  if (!flash::bf16_rows_aligned(q, k, v, qs, ks, vs))
-    return static_cast<int>(cudaErrorMisalignedAddress);
   return causal ? launch_bf16<D, DV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                                            scale, st)
                 : launch_bf16<D, DV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
@@ -378,9 +372,11 @@ int dispatch(int dtype, int causal, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 float32, 1 bf16. D is the width of q and k, Dv of v and the output;
-// (D, Dv) must be a built pair. Strides are in elements. ``lse``, when not
-// null, receives each row's float32 log-sum-exp (B, Sq, H), the residual of
-// the backward (flash_attention_bwd.cu); the output is the same either way.
+// (D, Dv) must be a built pair. Strides are in elements; the starts of q, k
+// and v and their (b, s, h) strides must be multiples of 16 bytes. ``lse``,
+// when not null, receives each row's float32 log-sum-exp (B, Sq, H), the
+// residual of the backward (flash_attention_bwd.cu); the output is the same
+// either way.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, void* lse, int dtype, int B, int Sq, int Skv,
                                      int H, int KH, int D, int Dv, int causal, long long qsb,

@@ -80,13 +80,14 @@
 // records each one's error).
 //
 // float32: the CUDA cores, the kernel's first design, kept for its 1e-5
-// tolerance (which rules out bf16 and TF32 operands): a CTA of 256 threads
-// is a 16 x 16 grid, each thread a 4 x 4 block of the 64 x 64 score tile
-// (rows tr + 16 i, keys tc + 16 j), its operands in shared memory rows
-// padded by one float (a warp's 16 key columns then fall in 16 banks),
-// tiles loaded synchronously. Each FMA reads half a shared-memory word, so
-// it runs at a fraction of the 67 TFLOP/s float32 peak; it is not
-// redesigned.
+// tolerance (which rules out bf16 and TF32 operands in one part; the
+// forward's two-part 3xTF32, flash_attention_f32.cu, is untried here): a
+// CTA of 256 threads is a 16 x 16 grid, each thread a 4 x 4 block of the
+// 64 x 64 score tile (rows tr + 16 i, keys tc + 16 j), its operands in
+// shared memory rows padded by one float (a warp's 16 key columns then
+// fall in 16 banks), tiles loaded synchronously. Each FMA reads half a
+// shared-memory word, so it runs at a fraction of the 67 TFLOP/s float32
+// peak; it is not redesigned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -920,7 +921,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   // bf16 dout is copied in 16-byte chunks of rows too (its rows are Dv wide)
-  if (dtype == 1 && !(flash::bf16_rows_aligned(q, k, v, qs, ks, vs) && flash::aligned16(dout)))
+  if (dtype == 1 && !(flash::rows_aligned16(q, k, v, qs, ks, vs, 2) && flash::aligned16(dout)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_BWD_PAIR(DQ, DVV)                                                     \

@@ -1,6 +1,6 @@
 // Shared by the translation units of the flash-attention kernels:
 // flash_attention.cu (the bf16 tensor-core kernel and the C entry point),
-// flash_attention_f32.cu (the float32 CUDA-core kernel) and
+// flash_attention_f32.cu (the float32 tensor-core kernel) and
 // flash_attention_bwd.cu (the backward), compiled by separate nvcc processes
 // in parallel.
 #pragma once
@@ -14,8 +14,8 @@
 
 namespace flash {
 
-constexpr int BQ = 64;         // query positions a CTA (both kernels)
-constexpr int BK = 64;         // keys a tile
+constexpr int BQ = 64;         // query positions a CTA (both forward kernels)
+constexpr int BK = 64;         // keys a tile of the bf16 forward
 constexpr float NEG = -1e30f;
 
 struct Strides {
@@ -24,13 +24,15 @@ struct Strides {
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The bf16 kernels copy q, k and v in 16-byte chunks of rows: their starts
-// and their (b, s, h) element strides must be multiples of 16 bytes.
-inline bool bf16_rows_aligned(const void* q, const void* k, const void* v, Strides qs,
-                              Strides ks, Strides vs) {
+// The tensor-core kernels copy q, k and v in 16-byte chunks of rows: their
+// starts and their (b, s, h) element strides must be multiples of 16 bytes
+// (`elem` bytes an element).
+inline bool rows_aligned16(const void* q, const void* k, const void* v, Strides qs,
+                           Strides ks, Strides vs, int elem) {
   const Strides all[3] = {qs, ks, vs};
+  const int n = 16 / elem;
   for (const Strides& s : all)
-    if (s.b % 8 || s.s % 8 || s.h % 8) return false;
+    if (s.b % n || s.s % n || s.h % n) return false;
   return aligned16(q) && aligned16(k) && aligned16(v);
 }
 

@@ -1,6 +1,7 @@
 // Building blocks of the tensor-core kernels (limb_mma.cuh, which
-// limb_matmul.cu and limb_fold.cu share, flash_attention.cu and
-// flash_attention_bwd.cu), as inline PTX for sm_90a:
+// limb_matmul.cu and limb_fold.cu share, flash_attention.cu,
+// flash_attention_f32.cu and flash_attention_bwd.cu), as inline PTX for
+// sm_90a:
 //
 //   cp_async16      one 16-byte global -> shared copy (cp.async.cg), with the
 //                   source size 0 when `valid` is false: the hardware then
@@ -13,13 +14,18 @@
 //   mma_s8_16832    D += A (16x32 s8, row) * B (32x8 s8, col), s32 sums that
 //                   wrap on overflow (no .satfinite);
 //   mma_bf16_16816  D += A (16x16 bf16, row) * B (16x8 bf16, col), f32 sums;
+//   mma_tf32_1688   D += A (16x8 tf32, row) * B (8x8 tf32, col), f32 sums;
 //   pack_bf16       two floats as one packed bf16 pair (an A fragment word);
 //   split_bf16      two floats as hi + lo, two packed bf16 pairs, lo the
-//                   rounding error of hi (16 significant bits together).
+//                   rounding error of hi (16 significant bits together);
+//   split_tf32      a float as big + small, two tf32 values (cvt.rna: 10
+//                   mantissa bits, to nearest, ties away from zero), small
+//                   the rounding of x - big: together x to ~2^-22 of |x|.
 //
-// Fragment layouts are PTX ISA's "Matrix Fragments for mma.m16n8k32" and
-// "... for mma.m16n8k16": a lane (group g = lane / 4, t = lane % 4) holds
-// rows g and g + 8 of A and of D, and column g of B.
+// Fragment layouts are PTX ISA's "Matrix Fragments for mma.m16n8k32",
+// "... for mma.m16n8k16" and "... for mma.m16n8k8": a lane (group g =
+// lane / 4, t = lane % 4) holds rows g and g + 8 of A and of D, and column
+// g of B; in m16n8k8 (tf32) a lane's A columns and B rows are t and t + 4.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,6 +95,15 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const unsigned a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_tf32_1688(float d[4], const unsigned a[4],
+                                              const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
@@ -99,6 +114,17 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsig
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const unsigned*>(&h);
   lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
 }
 
 }  // namespace tiles

@@ -13,9 +13,10 @@ kernel, takes a value width apart (MLA: q and k of 96, v of 64). The
 kernel is built for the pairs ``HEAD_DIMS`` and raises on any other.
 Layouts are the reference's; the kernel reads q, k and v through their
 strides, so the projections' views go in as they are (MLA's v is a view
-of the ``wkv_b`` projection). The last dim must be unit-stride, and for
-bf16 (copied in 16-byte rows) the start and the (b, s, h) strides must be
-multiples of 16 bytes: a view that is not is copied first.
+of the ``wkv_b`` projection). Both dtypes run on the tensor cores and copy
+their rows in 16-byte chunks: the last dim must be unit-stride and the
+start and the (b, s, h) strides multiples of 16 bytes, and a view that is
+not is copied first.
 Unlike the TPU kernel, no length has to divide a tile: the kernel masks
 ragged ``Sq`` and ``Skv`` itself.
 
@@ -27,9 +28,8 @@ backward of the reference's custom VJP (``repro/models/attention.py``,
 its gradient and the lse it recomputes each block's probabilities and
 returns (dq, dk, dv) in the inputs' dtypes, dk and dv summed over each KV
 head's query heads, with no atomics (bit-for-bit repeatable). It is
-built for the forward's ``HEAD_DIMS``; like the forward it copies bf16
-q, k, v (and dO) in 16-byte rows, so a view that does not start on 16
-bytes is copied first.
+built for the forward's ``HEAD_DIMS``; its bf16 kernels copy q, k, v
+(and dO) in 16-byte rows, so their views are fitted as the forward's.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 beside it (``flash_attention_plain``, ``flash_attention_bwd_plain``:
@@ -68,14 +68,6 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """Plain PyTorch version of the backward: the materialized float32
     formula (not autograd)."""
     return mha_bwd_ref(q, k, v, out, lse, dout, causal=causal)
-
-
-def _fit(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernels read it, else a copy: bf16 in 16-byte chunks of
-    rows (``KB.aligned16``), float32 with a unit-stride last dim."""
-    if t.dtype == torch.bfloat16:
-        return KB.aligned16(t)
-    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -119,7 +111,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal,
                                      return_lse=return_lse)
     B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
-    q, k, v = _fit(q), _fit(k), _fit(v)
+    q, k, v = (KB.aligned16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -150,7 +142,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, expected {dt} {shape} on "
                              f"{q.device}")
-    q, k, v, dout = _fit(q), _fit(k), _fit(v), _fit(dout.contiguous())
+    q, k, v, dout = (KB.aligned16(t) for t in (q, k, v, dout.contiguous()))
     out, lse = out.contiguous(), lse.contiguous()
     # every element is written by the kernel (zeros where no pair is seen)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

@@ -52,10 +52,20 @@ def generator_defs(feat_hw: int, feat_c: int, img_size: int = 32,
 def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``jax.image.resize(x, (B, h, w, C), "nearest")`` of NHWC ``x``:
     half-pixel centres, output index i reads input
-    floor((i + 0.5) * in / out), computed in float32 as jax computes it."""
+    floor((i + 0.5) * in / out), computed in float32 as jax computes it.
+    An upsampling by a whole factor k reads input i // k: it repeats each
+    row k times by ``expand``, whose backward is a plain sum (index_select's
+    is ``index_add_``, with atomics on the card: not repeatable)."""
     for dim, n in ((1, h), (2, w)):
         m = x.shape[dim]
         if m == n:
+            continue
+        if n % m == 0:
+            k = n // m
+            shape = list(x.shape)
+            x = x.unsqueeze(dim + 1).expand(*shape[:dim + 1], k,
+                                            *shape[dim + 1:])
+            x = x.flatten(dim, dim + 1)
             continue
         pos = (torch.arange(n, dtype=torch.float32, device=x.device)
                + 0.5) * m / n

@@ -15,10 +15,13 @@ The reference jits its training step; here each step runs eagerly, its
 gradients from autograd and its update from optim/adamw.py. The same seed
 gives the reference's initial adversary (``init_params_keyed``) and the
 probe's tokens (``prng.randint``). Entry points run on the card unless the
-caller passes ``device="cpu"``; on the card TF32 stays off.
+caller passes ``device="cpu"``; on the card TF32 stays off and the
+adversary's run repeats bit for bit (cuDNN's deterministic algorithms,
+upsampling without atomics), as the CPU's does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -91,6 +94,25 @@ def _value_and_grad(fn: Callable, params):
     return loss.detach(), tree_map(lambda _: next(grads), live)
 
 
+@contextlib.contextmanager
+def _repeatable(device: torch.device):
+    """cuDNN's deterministic algorithms on the card for the block: its
+    default may pick a convolution backward that sums with atomics, and
+    sixty GAN steps turn that rounding into another D loss each run."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
 class _Clock:
     """Marks on the device's timeline: CUDA events on the card (no
     synchronization until read), the host clock on the CPU."""
@@ -140,49 +162,51 @@ def train_adversary(model_params, cfg: ModelConfig, layer: int, *,
     the same batches."""
     dev = resolve_device(device)
     L.set_exact_float(dev)
-    model_params = params_to_device(model_params, dev)
-    img_size = cfg.image_size
-    probe = collect_features(
-        model_params, _images(0, 2, img_size, dev, image_cache), cfg, layer)
-    feat_hw, feat_c = probe.shape[1], probe.shape[-1]
+    with _repeatable(dev):
+        model_params = params_to_device(model_params, dev)
+        img_size = cfg.image_size
+        probe = collect_features(
+            model_params, _images(0, 2, img_size, dev, image_cache), cfg,
+            layer)
+        feat_hw, feat_c = probe.shape[1], probe.shape[-1]
 
-    g_defs, meta_g = cgan.generator_defs(feat_hw, feat_c, img_size)
-    d_defs, meta_d = cgan.discriminator_defs(feat_hw, feat_c, img_size)
-    kg, kd = prng.split(prng.PRNGKey(seed))
-    gp = L.init_params_keyed(kg, g_defs, torch.float32, dev)
-    dp = L.init_params_keyed(kd, d_defs, torch.float32, dev)
-    tcfg = TrainConfig(learning_rate=lr, warmup_steps=0, total_steps=steps,
-                       weight_decay=0.0, grad_clip=1.0, b1=0.5, b2=0.999)
-    g_opt = adamw.init(gp, tcfg)
-    d_opt = adamw.init(dp, tcfg)
+        g_defs, meta_g = cgan.generator_defs(feat_hw, feat_c, img_size)
+        d_defs, meta_d = cgan.discriminator_defs(feat_hw, feat_c, img_size)
+        kg, kd = prng.split(prng.PRNGKey(seed))
+        gp = L.init_params_keyed(kg, g_defs, torch.float32, dev)
+        dp = L.init_params_keyed(kd, d_defs, torch.float32, dev)
+        tcfg = TrainConfig(learning_rate=lr, warmup_steps=0, total_steps=steps,
+                           weight_decay=0.0, grad_clip=1.0, b1=0.5, b2=0.999)
+        g_opt = adamw.init(gp, tcfg)
+        d_opt = adamw.init(dp, tcfg)
 
-    clock = _Clock(dev)
-    marks = []                              # (collect, step, end) per step
-    gl = dl = torch.zeros((), device=dev)
-    for it in range(steps):
-        real = _images(100 + it * batch, batch, img_size, dev, image_cache)
-        m0 = clock.mark()
+        clock = _Clock(dev)
+        marks = []                              # (collect, step, end) per step
+        gl = dl = torch.zeros((), device=dev)
+        for it in range(steps):
+            real = _images(100 + it * batch, batch, img_size, dev, image_cache)
+            m0 = clock.mark()
+            feat = collect_features(model_params, real, cfg, layer)
+            m1 = clock.mark()
+            gp, dp, g_opt, d_opt, gl, dl = adversary_step(
+                gp, dp, g_opt, d_opt, feat, real, meta_g, meta_d, tcfg, lr)
+            marks.append((m0, m1, clock.mark()))
+            if log_every and (it + 1) % log_every == 0:
+                print(f"  layer {layer} step {it+1}: g={float(gl):.3f} "
+                      f"d={float(dl):.3f}")
+
+        # eval on held-out images
+        real = _images(10_000_000, n_eval, img_size, dev, image_cache)
         feat = collect_features(model_params, real, cfg, layer)
-        m1 = clock.mark()
-        gp, dp, g_opt, d_opt, gl, dl = adversary_step(
-            gp, dp, g_opt, d_opt, feat, real, meta_g, meta_d, tcfg, lr)
-        marks.append((m0, m1, clock.mark()))
-        if log_every and (it + 1) % log_every == 0:
-            print(f"  layer {layer} step {it+1}: g={float(gl):.3f} "
-                  f"d={float(dl):.3f}")
-
-    # eval on held-out images
-    real = _images(10_000_000, n_eval, img_size, dev, image_cache)
-    feat = collect_features(model_params, real, cfg, layer)
-    with torch.no_grad():
-        fake = cgan.generator_apply(gp, feat, meta_g)
-    s = float(ssim(fake, real))
-    n = max(steps, 1)
-    return AdversaryReport(
-        layer=layer, ssim=s, g_loss=float(gl), d_loss=float(dl),
-        steps=steps,
-        collect_ms=sum(clock.ms(a, b) for a, b, _ in marks) / n,
-        step_ms=sum(clock.ms(b, c) for _, b, c in marks) / n)
+        with torch.no_grad():
+            fake = cgan.generator_apply(gp, feat, meta_g)
+        s = float(ssim(fake, real))
+        n = max(steps, 1)
+        return AdversaryReport(
+            layer=layer, ssim=s, g_loss=float(gl), d_loss=float(dl),
+            steps=steps,
+            collect_ms=sum(clock.ms(a, b) for a, b, _ in marks) / n,
+            step_ms=sum(clock.ms(b, c) for _, b, c in marks) / n)
 
 
 def partition_search(model_params, cfg: ModelConfig, *,

@@ -127,6 +127,22 @@ def test_resize_nearest_matches_jax(size, out):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("size,out", [(4, 8), (1, 2), (3, 12), (5, 6)])
+def test_resize_nearest_gradient_matches_jax(size, out):
+    """The backward of the resize (a sum over each output's source, by
+    ``expand`` for whole factors) equals jax's, bit for bit."""
+    rng = np.random.default_rng(size * 13 + out)
+    x = rng.standard_normal((2, size, size, 3)).astype(np.float32)
+    g = rng.standard_normal((2, out, out, 3)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(TC.resize_nearest(xt, out, out),
+                                 xt, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, out, out, 3),
+                                                "nearest"), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # -- defs and metas -----------------------------------------------------------
 
 def _boundaries(cfg):

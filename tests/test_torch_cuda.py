@@ -219,11 +219,12 @@ def test_limb_matmul_unaligned_planes(dev):
 
 
 def test_tensor_core_kernels_in_sass(dev):
-    """The built library's SASS: the bf16 flash kernels (the forward and
-    the backward's dK/dV and dQ passes) issue HMMA/HGMMA and the limb
-    kernels (plain, fused, fold) IMMA/IGMMA with no IDP (dp4a), and all
-    copy their tiles with cp.async (LDGSTS) or TMA (UTMALDG), so none can
-    quietly go back to the CUDA cores."""
+    """The built library's SASS: the flash forward kernels (bf16 and
+    float32) and the bf16 backward's dK/dV and dQ passes issue HMMA/HGMMA
+    and the limb kernels (plain, fused, fold) IMMA/IGMMA with no IDP
+    (dp4a), and all copy their tiles with cp.async (LDGSTS) or TMA
+    (UTMALDG), so none can quietly go back to the CUDA cores; the float32
+    forward's CUDA-core kernel is gone."""
     import re
     import subprocess
     sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
@@ -232,7 +233,10 @@ def test_tensor_core_kernels_in_sass(dev):
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
-    flash = [b for n, b in bodies.items() if "flash_fwd_bf16_mma_kernel" in n]
+    flash = [b for n, b in bodies.items()
+             if any(k in n for k in ("flash_fwd_bf16_mma_kernel",
+                                     "flash_fwd_f32_mma_kernel"))]
+    assert not any("flash_fwd_f32_kernel" in n for n in bodies)
     bwd = [b for n, b in bodies.items()
            if any(k in n for k in ("flash_bwd_dkdv_mma_kernel",
                                    "flash_bwd_dq_mma_kernel"))]
@@ -241,9 +245,10 @@ def test_tensor_core_kernels_in_sass(dev):
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
     # flash: the (q/k, v) width pairs (32, 32), (64, 64), (128, 128),
-    # (96, 64) and (48, 32), causal and not, in the forward and in each of
-    # the backward's two passes; the fold has two tilings, one kernel each
-    assert len(flash) == 10 and len(bwd) == 20 and len(limb) == 4, \
+    # (96, 64) and (48, 32), causal and not, in the forward (bf16 and
+    # float32) and in each of the backward's two passes; the fold has two
+    # tilings, one kernel each
+    assert len(flash) == 20 and len(bwd) == 20 and len(limb) == 4, \
         sorted(bodies)
     for body in flash + bwd:
         assert re.search(r"\bHG?MMA\b", body)
@@ -442,6 +447,7 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     (4, 1024, 1024, 40, 8, 128, True),    # the Qwen2.5-14B prefill, G = 5
     (2, 1000, 1000, 40, 8, 128, False),   # G = 5 (one head a CTA), ragged
     (1, 200, 70, 5, 1, 128, True),        # G = 5, causal, Sq > Skv
+    (1, 1024, 1601, 32, 8, 128, False),   # the VLM's cross attention
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                        D, causal):
@@ -464,6 +470,41 @@ def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
     # deterministic: a second launch is bit-equal
     assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv,causal", [
+    (1, 1024, 1601, 32, 8, 128, 128, False),   # the VLM's cross attention
+    (4, 1, 1601, 32, 8, 128, 128, False),      # ... at one query (decode)
+    (2, 256, 256, 40, 40, 96, 64, True),       # MLA's (96, 64)
+    (1, 130, 70, 6, 2, 48, 32, True),          # its smoke widths, Sq > Skv
+    (2, 100, 100, 6, 3, 32, 32, True),         # D 32, ragged
+    (1, 37, 200, 8, 1, 64, 64, False),         # one KV head, Sq != Skv
+])
+def test_flash_attention_float32_lse_matches_plain(dev, B, Sq, Skv, H, KH, D,
+                                                   Dv, causal):
+    """The float32 kernel (3xTF32 on the tensor cores) with its lse: the
+    output within 2e-5 of the plain version (float32 matmuls, TF32 off)
+    and 1e-4 in relative Frobenius, the lse within 1e-5, the output the
+    same with and without the lse, two launches bit-equal."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + 3 * Skv + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dev) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                  (B, Skv, KH, Dv)))
+    before = KB.LAUNCHES["flash_attention"]
+    got, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention"] == before + 1
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+    assert (got - want).abs().max().item() <= 2e-5
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+    assert torch.equal(lse, flash_attention_fwd(q, k, v, causal=causal,
+                                                return_lse=True)[1])
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -1484,3 +1525,26 @@ def test_train_step_on_card_matches_cpu(dev):
     p_again, _, _ = step(gp, gopt, {"tokens": tokens.to(dev)})
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_card),
                                                  tree_leaves(p_again)))
+
+
+def test_train_adversary_repeats_on_card(dev):
+    """The c-GAN adversary on the card gives the same SSIM and losses on
+    every run (cuDNN's deterministic algorithms, upsampling without
+    atomics), and leaves cuDNN's flags as it found them."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import prng
+    from repro_torch.models import layers as L
+    from repro_torch.models import vgg as V
+    from repro_torch.privacy import reconstruct as R
+    cfg = get_smoke("vgg16")
+    params = L.init_params_keyed(prng.PRNGKey(0), V.vgg_defs(cfg),
+                                 torch.float32, "cpu")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    kw = dict(steps=12, batch=8, n_eval=16, device=dev)
+    a = R.train_adversary(params, cfg, 1, **kw)
+    b = R.train_adversary(params, cfg, 1, **kw)
+    assert (a.ssim, a.g_loss, a.d_loss) == (b.ssim, b.g_loss, b.d_loss)
+    assert np.isfinite([a.ssim, a.g_loss, a.d_loss]).all()
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == flags
