@@ -1,8 +1,9 @@
 // Shared by the translation units of the flash-attention kernels:
 // flash_attention.cu (the bf16 tensor-core kernel and the C entry point),
-// flash_attention_f32.cu (the float32 tensor-core kernel) and
-// flash_attention_bwd.cu (the backward), compiled by separate nvcc processes
-// in parallel.
+// flash_attention_f32.cu (the float32 tensor-core kernel),
+// flash_attention_bwd.cu (the backward's C entry and bf16 passes) and
+// flash_attention_bwd_f32.cu (its float32 passes), compiled by separate nvcc
+// processes in parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +14,15 @@
 #define REPRO_FLASH_PAIRS(X) X(32, 32) X(64, 64) X(128, 128) X(96, 64) X(48, 32)
 
 namespace flash {
+
+// Whether (D, Dv) is one of the built pairs.
+inline bool built_pair(int D, int Dv) {
+#define REPRO_FLASH_BUILT(DQ, DVV) \
+  if (D == DQ && Dv == DVV) return true;
+  REPRO_FLASH_PAIRS(REPRO_FLASH_BUILT)
+#undef REPRO_FLASH_BUILT
+  return false;
+}
 
 constexpr int BQ = 64;         // query positions a CTA (both forward kernels)
 constexpr int BK = 64;         // keys a tile of the bf16 forward
@@ -49,5 +59,13 @@ inline int heads_per_cta(int G, int most) {
 int launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
                void* out, float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs,
                Strides ks, Strides vs, float scale, cudaStream_t stream);
+
+// The backward's float32 dK/dV and dQ passes for the pair (D, Dv)
+// (flash_attention_bwd_f32.cu), after Drow; cudaErrorInvalidValue for a pair
+// they were not built for.
+int launch_bwd_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* drow, void* dq, void* dk,
+                   void* dv, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
+                   Strides vs, float scale, cudaStream_t stream);
 
 }  // namespace flash

@@ -1,7 +1,8 @@
 """Wrappers of the flash-attention kernels: the forward
 (``csrc/flash_attention.cu``; its float32 kernel is
 ``csrc/flash_attention_f32.cu``) and the backward
-(``csrc/flash_attention_bwd.cu``).
+(``csrc/flash_attention_bwd.cu``; its float32 passes are
+``csrc/flash_attention_bwd_f32.cu``).
 
 Port of ``repro/kernels/flash_attention/flash_attention.py``
 (``flash_attention_fwd``): causal or non-causal GQA softmax attention,
@@ -27,9 +28,13 @@ backward of the reference's custom VJP (``repro/models/attention.py``,
 ``_make_flash``): the Pallas kernel has none. From q, k, v, the output,
 its gradient and the lse it recomputes each block's probabilities and
 returns (dq, dk, dv) in the inputs' dtypes, dk and dv summed over each KV
-head's query heads, with no atomics (bit-for-bit repeatable). It is
-built for the forward's ``HEAD_DIMS``; its bf16 kernels copy q, k, v
-(and dO) in 16-byte rows, so their views are fitted as the forward's.
+head's query heads, with no atomics (bit-for-bit repeatable). Both dtypes
+run on the tensor cores: bf16 products with P and dS in two bf16 parts,
+and float32 in 3xTF32 (each operand as two tf32 parts, three products a
+multiply-add, every tensor-core sum in a short chain merged into float32),
+which holds the float32 gradients within 1e-5 of the plain version. It is
+built for the forward's ``HEAD_DIMS``; its kernels copy q, k, v and dO in
+16-byte rows, so their views are fitted as the forward's.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version
 beside it (``flash_attention_plain``, ``flash_attention_bwd_plain``:

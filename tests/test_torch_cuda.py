@@ -220,11 +220,11 @@ def test_limb_matmul_unaligned_planes(dev):
 
 def test_tensor_core_kernels_in_sass(dev):
     """The built library's SASS: the flash forward kernels (bf16 and
-    float32) and the bf16 backward's dK/dV and dQ passes issue HMMA/HGMMA
-    and the limb kernels (plain, fused, fold) IMMA/IGMMA with no IDP
-    (dp4a), and all copy their tiles with cp.async (LDGSTS) or TMA
-    (UTMALDG), so none can quietly go back to the CUDA cores; the float32
-    forward's CUDA-core kernel is gone."""
+    float32) and the backward's dK/dV and dQ passes (bf16 and float32)
+    issue HMMA/HGMMA and the limb kernels (plain, fused, fold) IMMA/IGMMA
+    with no IDP (dp4a), and all copy their tiles with cp.async (LDGSTS) or
+    TMA (UTMALDG), so none can quietly go back to the CUDA cores; the
+    float32 forward's and backward's CUDA-core kernels are gone."""
     import re
     import subprocess
     sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
@@ -236,19 +236,23 @@ def test_tensor_core_kernels_in_sass(dev):
     flash = [b for n, b in bodies.items()
              if any(k in n for k in ("flash_fwd_bf16_mma_kernel",
                                      "flash_fwd_f32_mma_kernel"))]
-    assert not any("flash_fwd_f32_kernel" in n for n in bodies)
+    assert not any(k in n for n in bodies
+                   for k in ("flash_fwd_f32_kernel", "flash_bwd_dkdv_kernel",
+                             "flash_bwd_dq_kernel"))
     bwd = [b for n, b in bodies.items()
            if any(k in n for k in ("flash_bwd_dkdv_mma_kernel",
-                                   "flash_bwd_dq_mma_kernel"))]
+                                   "flash_bwd_dq_mma_kernel",
+                                   "flash_bwd_dkdv_f32_mma_kernel",
+                                   "flash_bwd_dq_f32_mma_kernel"))]
     limb = [b for n, b in bodies.items()
             if any(k in n for k in ("limb_matmul_mma_kernel",
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
     # flash: the (q/k, v) width pairs (32, 32), (64, 64), (128, 128),
     # (96, 64) and (48, 32), causal and not, in the forward (bf16 and
-    # float32) and in each of the backward's two passes; the fold has two
-    # tilings, one kernel each
-    assert len(flash) == 20 and len(bwd) == 20 and len(limb) == 4, \
+    # float32) and in each of the backward's two passes (bf16 and float32);
+    # the fold has two tilings, one kernel each
+    assert len(flash) == 20 and len(bwd) == 40 and len(limb) == 4, \
         sorted(bodies)
     for body in flash + bwd:
         assert re.search(r"\bHG?MMA\b", body)
@@ -1422,6 +1426,65 @@ def test_flash_attention_bwd_matches_plain(dev, dtype, rel_tol, B, Sq, Skv,
         assert g.dtype == dtype and g.shape == t.shape
         assert _rel_frobenius(g, w) <= rel_tol
     again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv", [
+    (2, 200, 200, 6, 2, 64, 64),       # SmolLM's width, G 3, ragged
+    (1, 150, 150, 8, 4, 32, 32),
+    (1, 130, 150, 8, 2, 128, 128),     # D 128, Sq != Skv
+    (1, 100, 100, 4, 4, 96, 64),       # MLA (96, 64)
+    (1, 70, 90, 4, 4, 48, 32),         # the MLA smoke widths
+    (1, 37, 6, 3, 1, 64, 64),          # Sq > Skv, one partial key tile
+])
+def test_flash_attention_bwd_float32_matches_plain(dev, B, Sq, Skv, H, KH, D,
+                                                   Dv, causal):
+    """The float32 backward (3xTF32 on the tensor cores) at every built
+    pair, causal and not, ragged: each gradient within chip_smoke.py's
+    gates of the plain version (relative Frobenius 1e-5, max abs 1e-5 of
+    its largest magnitude), one launch a call, two launches bit-equal."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + 7 * Skv + D + causal)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(dev) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                        (B, Skv, KH, Dv), (B, Sq, H, Dv)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    before = KB.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel_frobenius(g, w) <= 1e-5
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_attention_bwd_float32_vlm_cross(dev):
+    """The float32 backward at the VLM's cross attention (1024 queries
+    against 1601 float32 patches, 32/8 heads of 128, non-causal) with
+    queries that hold bf16 values (bf16 queries promoted against the float32
+    patches): chip_smoke.py's gates, bit-equal relaunches."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1601)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(dev) for s in ((1, 1024, 32, 128), (1, 1601, 8, 128),
+                                        (1, 1601, 8, 128), (1, 1024, 32, 128)))
+    q = q.to(torch.bfloat16).float()
+    out, lse = flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False)
+    for g, w in zip(got, want):
+        assert _rel_frobenius(g, w) <= 1e-5
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
