@@ -386,7 +386,10 @@ attention (448, 64 and one query against 1500 frames), each also within a
 relative Frobenius error of the plain version's float32 result (8e-3
 bf16, 1e-4 float32) that an unmasked last key tile exceeds: for each
 non-causal ragged case the plain version over keys zero-padded to a
-multiple of 64 is shown failing that bound.
+multiple of 64 is shown failing that bound. One query at G 8, D 128
+(Yi's heads, 4 x 1 against 1024 keys) joins them: the bf16 calls at one
+query take the split-KV decode route (``flash_attention_decode.cu``,
+both passes timed as one call), and their lines print its split count.
 
 Phases 3, 5-8, 10-18, 20, 21 and 23-34 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
@@ -422,8 +425,8 @@ from repro_torch.kernels.blind.blind import (blind,  # noqa: E402
                                              blind_plain, unblind,
                                              unblind_plain)
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_plain)
+    decode_splits, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.limb_matmul import ops, ref  # noqa: E402
 from repro_torch.kernels.limb_matmul.fold import (  # noqa: E402
     limb_fold_planes, limb_fold_planes_plain)
@@ -2190,7 +2193,10 @@ FLASH_CASES = (
 # float32: the float32-weight decode gate's call); Whisper (12/12
 # heads of 64): the encoder over 1500 frames, the decoder's causal self
 # attention at 448 (the infer phase) and 64 (the prompt pass), its cross
-# attention at 448, 64 and one query against 1500 frames. Besides the max
+# attention at 448, 64 and one query against 1500 frames; and one query at
+# G 8, D 128 (Yi's 32/4 heads) against 1024 keys. The bf16 calls at one
+# query take the split-KV decode route; their lines give its split count.
+# Besides the max
 # abs tolerance, each is held within ``CROSS_REL_TOL`` (relative Frobenius)
 # of the plain version's float32 result
 CROSS_FLASH_CASES = (
@@ -2216,6 +2222,7 @@ CROSS_FLASH_CASES = (
      2e-2),
     ("whisper prompt cross", 4, 64, 1500, 12, 12, 64, 64, torch.bfloat16,
      False, 2e-2),
+    ("G 8 decode", 4, 1, 1024, 32, 4, 128, 128, torch.bfloat16, False, 2e-2),
 )
 # An absolute 2e-2 is half a typical output over ~1500 keys (std ~sqrt(e /
 # Skv) ~0.04 for scores of std 1), so a fault that scales every output by
@@ -2389,11 +2396,13 @@ def _flash_fwd_cases(dev, gen):
         width = f"D {D}" if Dv == D else f"D {D}, Dv {Dv}"
         seq = f"S {S}" if Skv == S else f"Sq {S}, Skv {Skv}"
         routes = "".join(f"; {form} {t:.4f}" for form, t in forms.items())
+        splits = decode_splits(B, S, Skv, H, KH, dtype)
+        route = f"; decode route, {splits} splits" if splits else ""
         print(f"flash_attention {label} (B {B}, {seq}, H {H}, KH {KH}, "
               f"{width}, {str(dtype)[6:]}, "
-              f"{'causal' if causal else 'non-causal'}): {ms:.4f} ms (device "
-              f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} "
-              f"ms (device {fmt_ms(sdpa_dms)}), bound "
+              f"{'causal' if causal else 'non-causal'}{route}): {ms:.4f} ms "
+              f"(device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa "
+              f"{sdpa_ms:.4f} ms (device {fmt_ms(sdpa_dms)}), bound "
               f"{bound:.4f} ms ({by}{routes}); max abs err {err:.3g} (tol "
               f"{tol}){rel_note}")
         if main_case is None:

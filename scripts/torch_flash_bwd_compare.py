@@ -13,7 +13,8 @@ one command, parent, change, change, parent:
 ``--forward`` runs the forward's cases instead: every case of
 ``FLASH_CASES`` and ``CROSS_FLASH_CASES``, float32 and bf16, so one loop
 gives the float32 kernel's parent times and the bf16 cases' check that
-they did not move.
+they did not move. ``--case LABEL`` (repeatable) keeps only the cases of
+those labels, e.g. ``--forward --case "vlm cross decode"``.
 
 ``--src`` (default: this checkout's ``src``) is the directory that holds
 the ``repro_torch`` package whose kernels are built (into that package's
@@ -39,12 +40,19 @@ def main():
                          "to time")
     ap.add_argument("--forward", action="store_true",
                     help="time the forward's cases, not the backward's")
+    ap.add_argument("--case", action="append", default=[],
+                    help="keep only the cases of this label (repeatable)")
     args = ap.parse_args()
     src = Path(args.src).resolve()
     # import that tree's package first: chip_smoke's own imports then find
     # it in sys.modules, whatever it puts on sys.path
     sys.path.insert(0, str(src))
     import repro_torch
+    from repro_torch.kernels.flash_attention import flash_attention as FA
+    if not hasattr(FA, "decode_splits"):
+        # a tree from before the decode route: every call takes the
+        # prefill kernel (the flash lines print no split count)
+        FA.decode_splits = lambda *shape: 0
     sys.path.insert(0, str(ROOT))
     import torch
     if not torch.cuda.is_available():
@@ -55,6 +63,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(C.SEED)
+    if args.case:
+        names = ("FLASH_CASES", "CROSS_FLASH_CASES") if args.forward \
+            else ("BWD_CASES",)
+        for name in names:
+            setattr(C, name, tuple(c for c in getattr(C, name)
+                                   if c[0] in args.case))
+        kept = sum(len(getattr(C, name)) for name in names)
+        if kept != len(set(args.case)):
+            sys.exit(f"torch_flash_bwd_compare: {kept} cases match "
+                     f"{args.case}")
     cases = C._flash_fwd_cases if args.forward else C._flash_bwd_cases
     cases(torch.device("cuda"), gen)
 

@@ -71,6 +71,13 @@
 // the float32 tolerance, 2e-5, and so would two bf16 parts; its header says
 // why and what the card measured.
 //
+// bf16 calls with at most flash::DECODE_ROWS (16) query rows a KV head
+// (Sq * G: a decode step's cross attention) take the split-KV decode route
+// instead (flash_attention_decode.cu, its own translation unit): at one
+// query this kernel keeps one warp a CTA busy and leaves most SMs idle. The
+// wrapper decides the route and the split count from the shapes and passes
+// the route's float32 workspace; the entry below checks that the two agree.
+//
 // Training (flash_attention_bwd.cu) needs each row's log-sum-exp: when the
 // caller passes an lse pointer, both kernels also write, once a row after
 // its last reduction, m + log(max(l, 1e-30)) in the natural domain (the
@@ -356,13 +363,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
 
 template <int D, int DV>
 int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
-             float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
-             Strides vs, float scale, cudaStream_t st) {
+             float* lse, float* ws, int B, int Sq, int Skv, int H, int KH, int splits,
+             Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
   if (!flash::rows_aligned16(q, k, v, qs, ks, vs, dtype == 0 ? 4 : 2))
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (dtype == 0)
     return flash::launch_f32(D, DV, causal, q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                              scale, st);
+  if (splits > 0)
+    return flash::launch_decode(D, DV, causal, q, k, v, out, lse, ws, B, Sq, Skv, H, KH,
+                                splits, qs, ks, vs, scale, st);
   return causal ? launch_bf16<D, DV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
                                            scale, st)
                 : launch_bf16<D, DV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
@@ -376,23 +386,31 @@ int dispatch(int dtype, int causal, const void* q, const void* k, const void* v,
 // and v and their (b, s, h) strides must be multiples of 16 bytes. ``lse``,
 // when not null, receives each row's float32 log-sum-exp (B, Sq, H), the
 // residual of the backward (flash_attention_bwd.cu); the output is the same
-// either way.
+// either way. A bf16 call with Sq * (H / KH) <= flash::DECODE_ROWS takes the
+// decode route and must come with ``splits`` > 0 and the float32 workspace
+// ``ws`` of B KH splits Sq (H / KH) (Dv + 2) floats; every other call with
+// 0 and null.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* out, void* lse, int dtype, int B, int Sq, int Skv,
-                                     int H, int KH, int D, int Dv, int causal, long long qsb,
-                                     long long qss, long long qsh, long long ksb,
-                                     long long kss, long long ksh, long long vsb,
-                                     long long vss, long long vsh, float scale,
+                                     void* out, void* lse, void* ws, int dtype, int B, int Sq,
+                                     int Skv, int H, int KH, int D, int Dv, int causal,
+                                     int splits, long long qsb, long long qss, long long qsh,
+                                     long long ksb, long long kss, long long ksh,
+                                     long long vsb, long long vss, long long vsh, float scale,
                                      void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool decode =
+      dtype == 1 && static_cast<long long>(Sq) * (H / KH) <= flash::DECODE_ROWS;
+  if (decode != (splits > 0) || (splits > 0) != (ws != nullptr) || splits < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_PAIR(DQ, DVV)                                                           \
   if (D == DQ && Dv == DVV)                                                               \
-    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, static_cast<float*>(lse), B, Sq, \
-                             Skv, H, KH, qs, ks, vs, scale, st);
+    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, static_cast<float*>(lse),       \
+                             static_cast<float*>(ws), B, Sq, Skv, H, KH, splits, qs, ks, vs, \
+                             scale, st);
   REPRO_FLASH_PAIRS(REPRO_FLASH_PAIR)
 #undef REPRO_FLASH_PAIR
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,7 @@
 // Shared by the translation units of the flash-attention kernels:
 // flash_attention.cu (the bf16 tensor-core kernel and the C entry point),
 // flash_attention_f32.cu (the float32 tensor-core kernel),
+// flash_attention_decode.cu (the bf16 split-KV route for few query rows),
 // flash_attention_bwd.cu (the backward's C entry and bf16 passes) and
 // flash_attention_bwd_f32.cu (its float32 passes), compiled by separate nvcc
 // processes in parallel.
@@ -27,6 +28,10 @@ inline bool built_pair(int D, int Dv) {
 constexpr int BQ = 64;         // query positions a CTA (both forward kernels)
 constexpr int BK = 64;         // keys a tile of the bf16 forward
 constexpr float NEG = -1e30f;
+// A bf16 call with at most this many query rows a KV head (Sq * G) takes the
+// split-KV decode route (flash_attention_decode.cu); the wrapper's
+// DECODE_ROWS is the same number.
+constexpr int DECODE_ROWS = 16;
 
 struct Strides {
   long long b, s, h;
@@ -59,6 +64,16 @@ inline int heads_per_cta(int G, int most) {
 int launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
                void* out, float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs,
                Strides ks, Strides vs, float scale, cudaStream_t stream);
+
+// The decode route for the pair (D, Dv) (flash_attention_decode.cu): the
+// split pass over `splits` key splits into the float32 workspace `ws`
+// (B KH splits Sq G rows of Dv + 2 floats), then the combine pass into `out`
+// (and `lse` when not null); cudaErrorInvalidValue for a pair it was not
+// built for.
+int launch_decode(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
+                  void* out, float* lse, float* ws, int B, int Sq, int Skv, int H, int KH,
+                  int splits, Strides qs, Strides ks, Strides vs, float scale,
+                  cudaStream_t stream);
 
 // The backward's float32 dK/dV and dQ passes for the pair (D, Dv)
 // (flash_attention_bwd_f32.cu), after Drow; cudaErrorInvalidValue for a pair

@@ -21,6 +21,13 @@ not is copied first.
 Unlike the TPU kernel, no length has to divide a tile: the kernel masks
 ragged ``Sq`` and ``Skv`` itself.
 
+A bf16 call with at most ``DECODE_ROWS`` query rows a KV head (Sq * G: a
+decode step's cross attention) takes the split-KV decode route
+(``csrc/flash_attention_decode.cu``): a split pass over ``decode_splits``
+key splits into a float32 workspace the wrapper allocates, then a combine
+pass that merges the splits in order. Either route is one call of the C
+entry and counts one ``flash_attention`` launch.
+
 The forward also gives, when asked (``return_lse``), each row's float32
 log-sum-exp (B, Sq, H), the residual of the backward; its output is the
 same either way. ``flash_attention_bwd`` is the port's kernel for the
@@ -55,6 +62,31 @@ from repro_torch.kernels.flash_attention.ref import (mha_bwd_ref, mha_ref,
 # smoke widths (48, 32)
 HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (96, 64), (48, 32))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the decode route (csrc/flash_attention_decode.cu): bf16 calls with at most
+# DECODE_ROWS query rows a KV head (the C entry's flash::DECODE_ROWS); its
+# split count keeps the split CTAs within DECODE_CTAS, one wave of the split
+# pass at two CTAs an SM of an H100's 132 (D 128 holds two an SM), with at
+# least DECODE_MIN_KEYS keys a split. A constant, not the card's SM count,
+# so a call gives the same bits on any card.
+DECODE_ROWS = 16
+DECODE_CTAS = 264
+DECODE_MIN_KEYS = 64
+
+
+def decode_splits(B: int, Sq: int, Skv: int, H: int, KH: int,
+                  dtype: torch.dtype) -> int:
+    """The decode route's key-split count for a call of these shapes, or
+    0 for the prefill route (float32, or more than ``DECODE_ROWS`` query
+    rows a KV head). Split s holds keys [s c, min((s + 1) c, Skv)) with c =
+    ceil(Skv / splits); every split, the last included, holds a key."""
+    if dtype != torch.bfloat16 or Sq * (H // KH) > DECODE_ROWS:
+        return 0
+    if Skv <= 0:
+        return 1
+    splits = max(1, min(DECODE_CTAS // max(B * KH, 1),
+                        Skv // DECODE_MIN_KEYS))
+    chunk = -(-Skv // splits)
+    return -(-Skv // chunk)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,10 +154,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
+    splits = decode_splits(B, Sq, Skv, H, KH, q.dtype)
+    # the decode route's (m, l, acc) of every row and split, float32
+    ws = (torch.empty(B * KH * splits * Sq * (H // KH) * (Dv + 2),
+                      dtype=torch.float32, device=q.device)
+          if splits else None)
     KB.launch("flash_attention", q,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               None if lse is None else lse.data_ptr(),
-              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal),
+              None if ws is None else ws.data_ptr(),
+              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal), splits,
               *_strides(q, k, v), 1.0 / math.sqrt(D))
     return (out, lse) if return_lse else out
 

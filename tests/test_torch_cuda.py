@@ -224,7 +224,10 @@ def test_tensor_core_kernels_in_sass(dev):
     issue HMMA/HGMMA and the limb kernels (plain, fused, fold) IMMA/IGMMA
     with no IDP (dp4a), and all copy their tiles with cp.async (LDGSTS) or
     TMA (UTMALDG), so none can quietly go back to the CUDA cores; the
-    float32 forward's and backward's CUDA-core kernels are gone."""
+    float32 forward's and backward's CUDA-core kernels are gone. The bf16
+    decode route's split pass (every pair, causal and not; HMMA and
+    cp.async) and combine pass (every value width) exist, use no local
+    memory (no LDL/STL) and load with 128-bit LDG or cp.async."""
     import re
     import subprocess
     sass = subprocess.run([KB.cuda_tool("cuobjdump"), "-sass", str(KB.build())],
@@ -261,6 +264,18 @@ def test_tensor_core_kernels_in_sass(dev):
         assert re.search(r"\bIG?MMA\b", body)
         assert re.search(r"\b(LDGSTS|UTMALDG)\b", body)
         assert not re.search(r"\bIDP", body)
+    split = [b for n, b in bodies.items()
+             if "flash_fwd_decode_split_kernel" in n]
+    combine = [b for n, b in bodies.items()
+               if "flash_fwd_decode_combine_kernel" in n]
+    # the five (q/k, v) pairs, causal and not; the value widths 32, 64, 128
+    assert len(split) == 10 and len(combine) == 3, sorted(bodies)
+    for body in split + combine:
+        assert not re.search(r"\b(LDL|STL)\b", body)
+        assert re.search(r"\bLDG(\.\w+)*\.128\b|\bLDGSTS\b", body)
+    for body in split:
+        assert re.search(r"\bLDGSTS\b", body)
+        assert re.search(r"\bHG?MMA\b", body)
 
 
 @pytest.mark.parametrize("M,K,N", [(300, 72, 8), (200, 27, 64),
@@ -452,11 +467,19 @@ def test_unfused_blinded_dense_on_card_matches_cpu(dev):
     (2, 1000, 1000, 40, 8, 128, False),   # G = 5 (one head a CTA), ragged
     (1, 200, 70, 5, 1, 128, True),        # G = 5, causal, Sq > Skv
     (1, 1024, 1601, 32, 8, 128, False),   # the VLM's cross attention
+    # the bf16 decode route (Sq * G <= 16 rows a KV head)
+    (4, 1, 1601, 32, 8, 128, False),      # the VLM's cross decode, G 4
+    (4, 1, 1500, 12, 12, 64, False),      # Whisper's cross decode, G 1
+    (2, 4, 300, 16, 4, 64, False),        # Sq 4 at G 4: the route's edge
+    (2, 4, 300, 16, 4, 128, True),        # ... causal
+    (2, 5, 300, 16, 4, 64, False),        # Sq 5 at G 4: past it (prefill)
+    (3, 1, 1, 8, 2, 64, False),           # one key
 ])
 def test_flash_attention_matches_plain(dev, dtype, tol, B, Sq, Skv, H, KH,
                                        D, causal):
     """The kernel against its plain version (float32 matmuls, TF32 off) on
-    the card: 2e-5 in float32, 2e-2 in bf16 (the reference's tolerances)."""
+    the card: 2e-5 in float32, 2e-2 in bf16 (the reference's tolerances);
+    bf16 calls of at most 16 query rows a KV head take the decode route."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_fwd, flash_attention_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -521,6 +544,7 @@ def test_flash_attention_float32_lse_matches_plain(dev, B, Sq, Skv, H, KH, D,
     (1, 1000, 1000, 8, 8, True),          # ragged
     (2, 130, 70, 6, 2, True),             # GQA, causal, Sq > Skv
     (2, 1, 50, 4, 4, True),               # Sq = 1
+    (4, 1, 161, 16, 4, False),            # Sq = 1 at G 4, ragged
 ])
 def test_flash_attention_value_width_matches_plain(dev, dtype, tol, D, Dv, B,
                                                    Sq, Skv, H, KH, causal):
@@ -573,6 +597,113 @@ def test_flash_attention_mla_split_kv_views(dev, dtype, tol, nope, rope, dv):
                                flash_attention_plain(q, k, v).float().cpu()
                                .numpy(), rtol=tol, atol=tol)
     assert torch.equal(got, flash_attention_fwd(q, k, v.contiguous()))
+
+
+# (B, Sq, Skv, H, KH, D, Dv, causal) of bf16 decode-route calls
+DECODE_CASES = [
+    (4, 1, 1601, 32, 8, 128, 128, False),    # the VLM's cross decode
+    (4, 1, 1500, 12, 12, 64, 64, False),     # Whisper's
+    (4, 1, 1024, 32, 4, 128, 128, False),    # G 8 at D 128 (Yi's heads)
+    (2, 1, 161, 16, 4, 96, 64, False),       # MLA's widths, ragged
+    (2, 1, 70, 8, 8, 48, 32, True),          # its smoke widths, causal
+    (2, 2, 300, 24, 3, 32, 32, True),        # Sq 2 at G 8, causal
+]
+
+
+def _decode_inputs(dev, case, seed):
+    B, Sq, Skv, H, KH, D, Dv, _ = case
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(dev, torch.bfloat16)
+                 for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, Dv)))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_attention_decode_lse_matches_plain(dev, case):
+    """The decode route with its lse: the output within 2e-2 of the plain
+    version and 8e-3 relative Frobenius of the float32 result, the lse
+    within 1e-5 (chip_smoke.py's gates), the output the same with and
+    without the lse, two launches bit-equal, one launch counted."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    causal = case[-1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _decode_inputs(dev, case, case[2] + case[4])
+    n, (got, lse) = _counted(lambda: flash_attention_fwd(
+        q, k, v, causal=causal, return_lse=True))
+    assert n["flash_attention"] == 1 and sum(n.values()) == 1, n
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+    exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                  causal=causal)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert ((got.float() - exact).norm() / exact.norm()).item() <= 8e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    assert torch.equal(got, flash_attention_fwd(q, k, v, causal=causal))
+    assert torch.equal(lse, flash_attention_fwd(q, k, v, causal=causal,
+                                                return_lse=True)[1])
+
+
+def test_flash_attention_routes_by_rows_a_kv_head(dev):
+    """The profiler's kernel names: bf16 calls of at most 16 query rows a
+    KV head run the decode route's split and combine passes and nothing
+    else; past 16 rows, and in float32, the prefill kernels run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    decode = {"flash_fwd_decode_split_kernel",
+              "flash_fwd_decode_combine_kernel"}
+    for case, dtype, want in (
+            ((4, 1, 1601, 32, 8, 128, 128, False), torch.bfloat16, decode),
+            ((2, 4, 300, 16, 4, 64, 64, True), torch.bfloat16, decode),
+            ((2, 5, 300, 16, 4, 64, 64, False), torch.bfloat16,
+             {"flash_fwd_bf16_mma_kernel"}),
+            ((2, 1, 300, 40, 2, 64, 64, False), torch.bfloat16,
+             {"flash_fwd_bf16_mma_kernel"}),
+            ((4, 1, 1601, 32, 8, 128, 128, False), torch.float32,
+             {"flash_fwd_f32_mma_kernel"})):
+        q, k, v = (t.to(dtype) for t in _decode_inputs(dev, case, 5))
+        flash_attention_fwd(q, k, v, causal=case[-1])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_fwd(q, k, v, causal=case[-1])
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()}
+        ran = {w for w in ("flash_fwd_decode_split_kernel",
+                           "flash_fwd_decode_combine_kernel",
+                           "flash_fwd_bf16_mma_kernel",
+                           "flash_fwd_f32_mma_kernel")
+               if any(w in name for name in names)}
+        assert ran == want, (case, dtype, sorted(names))
+
+
+def test_flash_attention_decode_replays_in_a_graph(dev):
+    """A decode call captured in a CUDA graph (its workspace from the
+    graph's pool) replays bit-equal to the eager call, and on new queries
+    copied into the captured input to the eager call on them."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    case = DECODE_CASES[0]
+    q, k, v = _decode_inputs(dev, case, 11)
+    q2 = _decode_inputs(dev, case, 12)[0]
+    eager, eager2 = (flash_attention_fwd(t, k, v, causal=False)
+                     for t in (q, q2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_fwd(q, k, v, causal=False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    q.copy_(q2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager2)
 
 
 def test_flash_attention_rejects_unbuilt_width_pairs(dev):
