@@ -10,9 +10,9 @@ token generation and Qwen2.5-14B (QKV biases) through the LM forward, and
 the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
 generation and (Zamba2) the engine, and the cross-attention
 Llama-3.2-Vision-11B and Whisper-small through the private LM forward,
-the prompt pass and decode, and SmolLM-135M's training through the
-trainer — and hold every kernel of them against its plain PyTorch
-version.
+the prompt pass and decode, and the training of SmolLM-135M, MiniCPM3-4B
+and Zamba2-1.2B through the trainer — and hold every kernel of them
+against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -79,7 +79,8 @@ Phases (any failure is fatal and exits non-zero):
    plain version (the materialized float32 formula) on the same
    residuals at SmolLM-135M's training shape (8 x 1024, 9/3 heads of 64,
    bf16, causal) and a sweep (float32, non-causal, G 1, ragged 1000 and
-   6, D 128 at G 8, MLA's (96, 64), float32 (48, 32), the VLM's cross
+   6, D 128 at G 8, MLA's (96, 64) at 2 x 1024 and at MiniCPM3-4B's
+   training shape, 8 x 1024, float32 (48, 32), the VLM's cross
    attention: 1024 queries against 1601 keys, non-causal, D 128 at G 4):
    dq, dk and dv each within a relative Frobenius 8e-3 (bf16) / 1e-5
    (float32) and 2e-2 / 1e-5 of its largest magnitude, two launches
@@ -359,9 +360,22 @@ Phases (any failure is fatal and exits non-zero):
    attention's gradient printed; (d) 4 steps straight against 2, an
    ``AsyncCheckpointer`` save and a resume to 4: parameters and
    optimizer state bit-equal; (e) one step at 2 microbatches: its loss
-   within 5e-2 of the step at 1; then one step under ``torch.profiler``:
-   its device-busy share beside the median step time of (b), the flash
-   backward's device ms and the top device ops, printed.
+   within 5e-2 of the step at 1; after (b), one step under
+   ``torch.profiler``: its device-busy share beside the median step time
+   of (b), the flash backward's device ms and the top device ops, printed;
+35. train families (after 34) — MiniCPM3-4B (MLA; bf16 AdamW moments,
+   the reference's choice for very large models) and Zamba2-1.2B (Mamba2
+   blocks, whose chunked scan's backward runs through autograd, and the
+   shared attention block; float32 moments) at every width and depth, each
+   through 34's (b) and (c) with 5 steps, and (c)'s gradients at 2 x 1024:
+   the loss falling by more than 0.2, exactly 124 flash and 62
+   flash_attention_bwd launches a step for MiniCPM3 (62 blocks under
+   remat) and 6 and 6 for Zamba2 (its shared block after each of 6 groups,
+   outside remat), and no other kernel; the keyed init's seconds and
+   peak, the run's peak memory, the busy share and top device ops
+   printed; float32 gradients within 1e-4 of the plain attention's, every
+   bf16 backward call within 8e-3 of the plain backward, two bf16
+   gradients bit-equal. The resume and microbatch checks are 34's alone.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -391,9 +405,10 @@ multiple of 64 is shown failing that bound. One query at G 8, D 128
 query take the split-KV decode route (``flash_attention_decode.cu``,
 both passes timed as one call), and their lines print its split count.
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-34 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-35 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
-kernels and no other (22 launches none); only 34 launches the backward.
+kernels and no other (22 launches none); only 34 and 35 launch the
+backward.
 
 Prints the findings, then a JSON line of the kernels, then as its last
 line ``{"ok": true, "device": {...}}``.
@@ -418,6 +433,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.integrity import IntegrityPolicy  # noqa: E402
 from repro_torch.core.prng import PRNGKey  # noqa: E402
+from repro_torch.core.tree import tree_map  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.core.origami import OrigamiExecutor  # noqa: E402
 from repro_torch.kernels.blind.blind import (blind,  # noqa: E402
@@ -2237,7 +2253,8 @@ KEY_TILE = 64
 # (label, B, Sq, Skv, H, KH, D, Dv, dtype, causal, q in bf16 values): the
 # backward kernel at SmolLM-135M's training shape (the train phase's 8 x
 # 1024, 9/3 heads of 64), and a sweep: float32, non-causal, G 1, ragged 1000
-# and 6, D 128 at G 8 (Yi's heads), MLA's (96, 64) and its smoke widths, and
+# and 6, D 128 at G 8 (Yi's heads), MLA's (96, 64) and its smoke widths,
+# MiniCPM3-4B's training shape (8 x 1024, 40/40 heads of (96, 64)), and
 # the VLM's cross attention (1024 queries against 1601 patches, G 4 at D
 # 128) in bf16 and in float32, its bf16 queries promoted against the float32
 # patches (the call a VLM train step would make)
@@ -2254,6 +2271,8 @@ BWD_CASES = (
     ("D 128 G 8", 2, 1024, 1024, 32, 4, 128, 128, torch.bfloat16, True,
      False),
     ("MLA (96, 64)", 2, 1024, 1024, 40, 40, 96, 64, torch.bfloat16, True,
+     False),
+    ("MLA train", 8, 1024, 1024, 40, 40, 96, 64, torch.bfloat16, True,
      False),
     ("float32 (48, 32)", 2, 130, 130, 4, 4, 48, 32, torch.float32, False,
      False),
@@ -4390,15 +4409,32 @@ RESUME_STEPS = (4, 2)                   # straight, and where the save is
 GRAD_REL_TOL = 1e-4                     # float32, kernels vs plain
 MICRO_LOSS_TOL = 5e-2                   # the reference test's bound
 TRAIN_PATH = ("flash_attention", "flash_attention_bwd")
+# the families trained after SmolLM, through the same gates but the resume
+# and microbatch checks (family-agnostic; SmolLM's phase keeps them):
+# (arch, its TrainConfig). At TRAIN_TCFG's 1e-3 both losses swung by
+# several nats a step and ended above where they began; Zamba2-1.2B takes
+# the reference CLI's rate, 3e-4, in that schedule; MiniCPM3-4B swung there
+# too, and under the CLI's 10 warm-up steps, so it takes the reference's
+# default TrainConfig() (3e-4 over 100 warm-up steps of 1000):
+# scripts/torch_train_schedules.py prints the four curves of each. Its
+# 4.26 B parameters take the reference's bf16 moments ("for very large
+# models"): with float32 ones the update's old and new state (~95 GB) would
+# not fit the card
+FAMILY_TRAIN = (("minicpm3_4b", dict(moment_dtype="bfloat16")),
+                ("zamba2_1_2b", dict(TRAIN_TCFG, learning_rate=3e-4)))
+FAMILY_TRAIN_STEPS = 5
+FAMILY_GRAD_SHAPE = (2, 1024)           # (batch, tokens) of their gradients
 
 
 class _StepRecorder:
     """A ``StepWatchdog`` for ``train`` that also keeps each step's launch
-    counts (read after the step's loss, which waits for its kernels)."""
+    counts (read after the step's loss, which waits for its kernels), and
+    the seconds and peak device memory of the trainer's keyed init."""
 
     def __init__(self):
         from repro_torch.runtime.straggler import StepWatchdog
         self.watchdog, self.launches = StepWatchdog(), []
+        self.init_s = self.init_peak = None
 
     def __getattr__(self, name):
         return getattr(self.watchdog, name)
@@ -4412,19 +4448,33 @@ class _StepRecorder:
                               for k in KB.KERNELS})
         return self.watchdog.end_step()
 
+    def timed(self, init):
+        """``init`` (``init_train_state``), its seconds and peak kept."""
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = init(*args, **kw)
+            torch.cuda.synchronize()
+            self.init_s = time.perf_counter() - t
+            self.init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            return out
+        return run
+
 
 def _train(cfg, tcfg, steps, dev, recorder=None, **kw):
     """``launch/train.py:train`` at ``TRAIN_SHAPE`` on ``dev``; with
-    ``recorder`` its watchdog."""
+    ``recorder`` its watchdog, which also times the keyed init."""
     from repro_torch.launch import train as TR
-    made = TR.StepWatchdog
+    made, init = TR.StepWatchdog, TR.init_train_state
     if recorder is not None:
         TR.StepWatchdog = lambda: recorder
+        TR.init_train_state = recorder.timed(init)
     try:
         return TR.train(cfg, tcfg, batch=TRAIN_SHAPE[0], seq=TRAIN_SHAPE[1],
                         steps=steps, log_every=0, device=dev, **kw)
     finally:
-        TR.StepWatchdog = made
+        TR.StepWatchdog, TR.init_train_state = made, init
 
 
 class _PlainAttention:
@@ -4488,103 +4538,172 @@ def _leaf_gaps(a, b):
     return gaps[worst], worst
 
 
-def phase_train(dev, card):
-    """SmolLM-135M at every width and depth trained through
-    ``launch/train.py:train`` on the pipeline's batches of 8 x 1024
-    tokens: (b) 10 steps, the loss falling by more than the reference
-    test's margin, exactly 60 flash forward (remat: two a block) and 30
-    backward launches a step and no other kernel; (c) one step's
-    gradients with the kernels against the plain attention, in float32
-    weights with TF32 off, and in bf16 every backward call against the
-    plain backward on its own inputs; (d) 4 steps straight against 2, an
-    ``AsyncCheckpointer`` save and a resume to 4, bit-equal; (e) one step
-    at 2 microbatches against 1; one step's device-busy share and top
-    device ops printed. Returns (b)'s launch counts."""
-    import dataclasses
-    from repro_torch.configs.base import TrainConfig
+def _train_flash_launches(cfg):
+    """(flash forward, flash backward) launches of one train step of
+    ``cfg``, from the port's training forward (``models/model.py``): a
+    block under remat runs its forward twice, once in the forward and once
+    in the backward's recompute; Zamba2's shared attention block, after
+    each complete group of ``hybrid_attn_every`` Mamba2 blocks, runs
+    outside remat, as in the reference."""
+    if cfg.family == "hybrid":
+        n = cfg.num_layers // cfg.hybrid_attn_every
+        return n, n
+    assert cfg.family in ("dense", "moe"), cfg.family
+    return (1 if cfg.remat == "none" else 2) * cfg.num_layers, cfg.num_layers
+
+
+def _keyed_params(cfg, seed, dev):
+    """The trainer's parameters (the reference's keyed init), without its
+    moments."""
+    from repro_torch.core import prng
+    from repro_torch.models import layers as L
+    return L.init_params_keyed(prng.PRNGKey(seed), M.model_defs(cfg),
+                               M.torch_dtype(cfg.dtype), device=dev)
+
+
+def _pipeline_batch(cfg, shape, seed, dev):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, shape[1], shape[0],
+                                    seed=seed))
+    return {"tokens": torch.from_numpy(pipe.batch(0)["tokens"]).to(dev)}
+
+
+def _train_gates(cfg, tcfg, steps, grad_shape, dev):
+    """One family trained at every width and depth, from the reference's
+    keyed init: (b) ``steps`` steps through ``launch/train.py:train`` on
+    the pipeline's batches of ``TRAIN_SHAPE``, every loss finite and the
+    last below the first by more than ``TRAIN_MARGIN``, exactly
+    ``_train_flash_launches(cfg)`` flash forward and backward launches a
+    step and no other kernel; the init's seconds and peak, each step's
+    time and the peak memory printed; one more step under
+    ``torch.profiler``: its device-busy share and top device ops; (c) one
+    batch of ``grad_shape``: its gradients with the kernels against the
+    plain attention's, in float32 weights with TF32 off, each leaf within
+    ``GRAD_REL_TOL``; in bf16 every backward call within ``BWD_REL_TOL``
+    of the plain backward on its own inputs and two gradients bit-equal.
+    Returns ((b)'s launch counts, a batch of ``TRAIN_SHAPE``)."""
     from repro_torch.launch import steps as S
-    from repro_torch.launch import train as TR
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH)
-    n_layers = cfg.num_layers
-    tcfg = TrainConfig(**TRAIN_TCFG)
+    n_fwd, n_bwd = _train_flash_launches(cfg)
+    tag = f"train {cfg.name}"
 
     # (b) training
     rec = _StepRecorder()
-    torch.cuda.reset_peak_memory_stats()
     launches, wall, (params, opt, losses) = counted(
-        lambda: _train(cfg, tcfg, TRAIN_STEPS, dev, rec))
+        lambda: _train(cfg, tcfg, steps, dev, rec))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_launches(launches, TRAIN_PATH, "train phase")
-    want = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    check_launches(launches, TRAIN_PATH, f"{tag} phase")
+    want = {"flash_attention": n_fwd, "flash_attention_bwd": n_bwd}
     for i, got in enumerate(rec.launches):
         for name in KB.KERNELS:
             if got[name] != want.get(name, 0):
-                raise AssertionError(f"train step {i + 1}: {got[name]} "
+                raise AssertionError(f"{tag} step {i + 1}: {got[name]} "
                                      f"{name} launches, expected "
                                      f"{want.get(name, 0)}")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
     if not losses[-1] < losses[0] - TRAIN_MARGIN:
-        raise AssertionError(f"train: the loss fell from {losses[0]} to "
-                             f"{losses[-1]}, not by {TRAIN_MARGIN}")
+        raise AssertionError(f"{tag}: the loss fell from {losses[0]} to "
+                             f"{losses[-1]}, not by {TRAIN_MARGIN}; losses "
+                             f"{losses}")
     step_ms = [t * 1e3 for t in rec.watchdog.history]
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"train {cfg.name} (every width and depth, {n_params} params, "
-          f"bf16, seed {tcfg.seed}; batch {TRAIN_SHAPE[0]} x "
-          f"{TRAIN_SHAPE[1]} tokens, {TRAIN_STEPS} steps, lr "
+    print(f"{tag} (every width and depth, {n_params} params, {cfg.dtype}, "
+          f"{tcfg.moment_dtype} moments, seed {tcfg.seed}; batch "
+          f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} tokens, {steps} steps, lr "
           f"{tcfg.learning_rate}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"(margin {losses[0] - losses[-1] - TRAIN_MARGIN:.4f}); "
-          f"{want['flash_attention']} flash and {n_layers} flash_bwd "
-          f"launches a step, no other kernel; step {_spread(step_ms[1:])} "
-          f"after the first ({step_ms[0]:.2f} ms), wall {wall:.1f} ms "
-          f"with the set-up; peak device memory {peak:.2f} GiB")
+          f"(margin {losses[0] - losses[-1] - TRAIN_MARGIN:.4f}); {n_fwd} "
+          f"flash and {n_bwd} flash_bwd launches a step, no other kernel; "
+          f"step {_spread(step_ms[1:])} after the first ({step_ms[0]:.2f} "
+          f"ms), wall {wall:.1f} ms with the set-up; the keyed init "
+          f"{rec.init_s:.2f} s, peak {rec.init_peak:.2f} GiB; peak device "
+          f"memory {peak:.2f} GiB of the card's {card_gib:.2f}")
     print("  losses: " + " ".join(f"{x:.4f}" for x in losses))
     print("  step ms: " + " ".join(f"{x:.2f}" for x in step_ms))
-    del params, opt
+    batch = _pipeline_batch(cfg, TRAIN_SHAPE, tcfg.seed, dev)
+    step = S.make_train_step(cfg, tcfg)
+    busy, ops = _busy_share(lambda: step(params, opt, batch), top=None)
+    bwd = {part: sum(ms for n, ms, _ in ops if f"flash_bwd_{part}" in n)
+           for part in ("rowdot", "dkdv", "dq")}
+    print(f"{tag} step under torch.profiler: device-busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'} at "
+          f"{statistics.median(step_ms[1:]):.2f} ms a step (the {steps}"
+          f"-step run's median after the first); the flash backward's "
+          f"kernels {sum(bwd.values()):.2f} ms of device time a step (Drow "
+          f"{bwd['rowdot']:.2f}, dK/dV {bwd['dkdv']:.2f}, dQ "
+          f"{bwd['dq']:.2f}); top device ops: "
+          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops[:8]))
+    del params, opt, step
     _free()
 
     # (c) gradients: kernels against the plain attention
-    pipe = TokenPipeline(DataConfig(cfg.vocab_size, TRAIN_SHAPE[1],
-                                    TRAIN_SHAPE[0], seed=tcfg.seed))
-    batch = {"tokens": torch.from_numpy(pipe.batch(0)["tokens"]).to(dev)}
+    grad_batch = _pipeline_batch(cfg, grad_shape, tcfg.seed, dev)
+    shape = f"{grad_shape[0]} x {grad_shape[1]}"
     f32 = cfg.replace(dtype="float32")
-    params32 = TR.init_train_state(f32, tcfg, dev)[0]
-    g_kernel, ce_kernel = S.loss_grads(params32, batch, f32)
+    params32 = _keyed_params(f32, tcfg.seed, dev)
+    g_kernel, ce_kernel = S.loss_grads(params32, grad_batch, f32)
     with _PlainAttention():
-        g_plain, ce_plain = S.loss_grads(params32, batch, f32)
+        g_plain, ce_plain = S.loss_grads(params32, grad_batch, f32)
     gap, leaf = _leaf_gaps(g_kernel, g_plain)
     if not gap <= GRAD_REL_TOL:
-        raise AssertionError(f"train float32 gradients: {leaf} lies {gap} "
+        raise AssertionError(f"{tag} float32 gradients: {leaf} lies {gap} "
                              f"(relative Frobenius) from the plain "
                              f"attention's, bound {GRAD_REL_TOL}")
-    print(f"train gradients, float32 weights, TF32 off: every leaf within "
-          f"{gap:.3g} (relative Frobenius, the largest at {leaf}; bound "
-          f"{GRAD_REL_TOL:g}) of the plain attention's; ce "
+    print(f"{tag} gradients at {shape}, float32 weights, TF32 off: every "
+          f"leaf within {gap:.3g} (relative Frobenius, the largest at "
+          f"{leaf}; bound {GRAD_REL_TOL:g}) of the plain attention's; ce "
           f"{float(ce_kernel):.6f} vs {float(ce_plain):.6f}")
-    del params32, g_kernel, g_plain
-    params16 = TR.init_train_state(cfg, tcfg, dev)[0]
-    again = S.loss_grads(params16, batch, cfg)[0]
+    del g_kernel, g_plain
+    # the keyed init in cfg's dtype: each leaf is (normal x scale) cast to
+    # its dtype, so the float32 draw cast gives the same bits
+    # (tests/test_torch_train_families.py) without drawing again
+    dtype = M.torch_dtype(cfg.dtype)
+    params16 = tree_map(lambda t, d: t.to(d.dtype or dtype), params32,
+                        M.model_defs(cfg))
+    del params32
+    _free()
+    again = S.loss_grads(params16, grad_batch, cfg)[0]
     with _BwdCheck() as chk:
-        g16, _ = S.loss_grads(params16, batch, cfg)
+        g16, _ = S.loss_grads(params16, grad_batch, cfg)
     repeat = all(torch.equal(a, b) for a, b in zip(_leaves(g16),
                                                    _leaves(again)))
-    if chk.calls != n_layers or not chk.rel <= BWD_REL_TOL[torch.bfloat16]:
-        raise AssertionError(f"train bf16: {chk.calls} backward calls, the "
-                             f"largest {chk.rel} from the plain backward")
+    if chk.calls != n_bwd or not chk.rel <= BWD_REL_TOL[torch.bfloat16]:
+        raise AssertionError(f"{tag} bf16: {chk.calls} backward calls "
+                             f"(expected {n_bwd}), the largest {chk.rel} "
+                             f"from the plain backward")
     if not repeat:
-        raise AssertionError("train bf16: two gradients of one batch differ")
+        diff = [k for (k, a), b in zip(_named_leaves(g16), _leaves(again))
+                if not torch.equal(a, b)]
+        raise AssertionError(f"{tag} bf16: two gradients of one batch "
+                             f"differ at {diff}")
+    del again
     with _PlainAttention():
-        g16_plain, _ = S.loss_grads(params16, batch, cfg)
+        g16_plain, _ = S.loss_grads(params16, grad_batch, cfg)
     gap16, leaf16 = _leaf_gaps(g16, g16_plain)
-    print(f"train gradients, bf16: each of the {chk.calls} backward calls "
-          f"within {chk.rel:.3g} of the plain backward on its inputs (bound "
-          f"{BWD_REL_TOL[torch.bfloat16]:g}); two gradients bit-equal; the "
-          f"gap to the plain attention's gradient {gap16:.3g} (largest at "
-          f"{leaf16}; not gated)")
-    del params16, g16, again, g16_plain
+    print(f"{tag} gradients at {shape}, bf16: each of the {chk.calls} "
+          f"backward calls within {chk.rel:.3g} of the plain backward on its "
+          f"inputs (bound {BWD_REL_TOL[torch.bfloat16]:g}); two gradients "
+          f"bit-equal; the gap to the plain attention's gradient "
+          f"{gap16:.3g} (largest at {leaf16}; not gated)")
+    del params16, g16, g16_plain
+    _free()
+    return launches, batch
 
+
+def phase_train(dev, card):
+    """SmolLM-135M at every width and depth through ``_train_gates``:
+    ``TRAIN_STEPS`` steps of ``TRAIN_TCFG``, the gradients at
+    ``TRAIN_SHAPE``; then (d) 4 steps straight against 2, an
+    ``AsyncCheckpointer`` save and a resume to 4, bit-equal; (e) one step
+    at 2 microbatches against 1. Returns (b)'s launch counts."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    launches, batch = _train_gates(cfg, tcfg, TRAIN_STEPS, TRAIN_SHAPE, dev)
     # (d) resume
     rtcfg = TrainConfig(**RESUME_TCFG)
     straight, half = RESUME_STEPS
@@ -4626,21 +4745,23 @@ def phase_train(dev, card):
                              f"{loss[1]}")
     print(f"train microbatches: loss at 2 {loss[2]:.6f} against 1 "
           f"{loss[1]:.6f} (bound {MICRO_LOSS_TOL})")
-    step = S.make_train_step(cfg, tcfg)
-    busy, ops = _busy_share(lambda: step(params, opt, batch), top=None)
-    bwd = {part: sum(ms for n, ms, _ in ops if f"flash_bwd_{part}" in n)
-           for part in ("rowdot", "dkdv", "dq")}
-    print(f"train step under torch.profiler: device-busy share "
-          f"{'not measured' if busy is None else f'{busy:.4f}'} at "
-          f"{statistics.median(step_ms[1:]):.2f} ms a step (the {TRAIN_STEPS}"
-          f"-step run's median after the first); the flash backward's "
-          f"kernels {sum(bwd.values()):.2f} ms of device time a step (Drow "
-          f"{bwd['rowdot']:.2f}, dK/dV {bwd['dkdv']:.2f}, dQ "
-          f"{bwd['dq']:.2f}); top device ops: "
-          + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops[:8]))
     del params, opt
     _free()
     return launches
+
+
+def phase_train_families(dev, card):
+    """``FAMILY_TRAIN``'s families at every width and depth through
+    ``_train_gates``: ``FAMILY_TRAIN_STEPS`` steps of each family's
+    ``TrainConfig``, the gradients at ``FAMILY_GRAD_SHAPE``. Returns
+    {arch: (b)'s launch counts}."""
+    from repro_torch.configs.base import TrainConfig
+    out = {}
+    for arch, kw in FAMILY_TRAIN:
+        out[arch] = _train_gates(get_config(arch), TrainConfig(**kw),
+                                 FAMILY_TRAIN_STEPS, FAMILY_GRAD_SHAPE,
+                                 dev)[0]
+    return out
 
 
 def main():
@@ -4740,6 +4861,8 @@ def main():
     mark("whisper infer, whisper generate")
     train_launches = phase_train(dev, card)
     mark("train")
+    phase_train_families(dev, card)
+    mark("train " + ", ".join(arch for arch, _ in FAMILY_TRAIN))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

@@ -14,6 +14,12 @@ checkpointed blocks and the flash backward kernel), the data
 over a mesh; on one device they change nothing, and the port's meshes are
 ROADMAP 12f.
 
+The audio and vlm families are refused up front: their forward reads
+frames or patches beside the tokens, and the reference's trainer hands
+its step only the pipeline's tokens, so it raises on them (``KeyError``
+on 'frames', ``AttributeError`` on the missing patches). ``loss_fn`` and
+``make_train_step`` train them on a batch that carries its memory.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_135m \
         --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
@@ -53,6 +59,13 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
           log_every: int = 10, resume: bool = True):
     """Train ``steps`` steps (from the latest checkpoint's step when
     resuming) -> (params, opt_state, the losses of the steps run)."""
+    if cfg.family in M.MEMORY_KEYS:
+        raise NotImplementedError(
+            f"{cfg.family}: train is refused, as the reference cannot run "
+            f"it: its trainer feeds the step only the pipeline's tokens, and "
+            f"the forward reads {M.MEMORY_KEYS[cfg.family]!r} beside them; "
+            f"train on batches that carry it through launch/steps.py:"
+            f"make_train_step")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device "

@@ -328,6 +328,11 @@ def layer_program(cfg: ModelConfig):
     return prologue, segment, epilogue
 
 
+# the memory a cross-attention family's forward and prompt pass read from
+# the batch beside the tokens
+MEMORY_KEYS = {"audio": "frames", "vlm": "patches"}
+
+
 def forward(params, batch, cfg: ModelConfig, *,
             train: bool = False) -> T.LMOutputs:
     """Teacher-forced logits at every position: {"tokens"} and, for the

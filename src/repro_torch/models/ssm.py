@@ -19,6 +19,16 @@ closed form here: ``m_t = F_t + max(m_0, cummax_{s<=t}(i_s - F_s))`` with
 ``F = cumsum(f)``, one ``torch.cumsum`` and one ``torch.cummax``; it
 equals the reference's to float32 rounding, not bit for bit (XLA sums a
 tree). ``softplus`` and ``log_sigmoid`` follow jax.nn's formulas.
+Within a chunk the decay between positions s < t, the sum of log a over
+(s, t], is summed directly (``_segment_sums``), where the reference takes
+it as a difference of two inclusive cumsums. The two are equal in exact
+arithmetic, but a 256-step chunk's cumsum reaches ~-200 at Zamba2's
+initial decays, where a float32 ulp is 1.5e-5, and the backward of the
+difference sums opposite terms of that size: Zamba2's full-size float32
+gradients moved by 1.03e-4 (relative Frobenius, at ``dt_bias``) when its
+attention rounded apart by ~1e-6, and by 7.65e-5 with segment sums, which
+cost one more pass over the chunk's (t, s) tensor
+(``scripts/torch_ssm_scan_forms.py`` runs both forms).
 Projections go through ``layers.dense``, so in tier-1 they run blinded
 (Mamba2's ``in_proj``/``out_proj``, the mLSTM's ``w_up``, gates and
 ``w_down``, the sLSTM's ``w_gates``, ``w_up`` and ``w_down``); the
@@ -54,6 +64,18 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 # Generic chunked gated linear recurrence
 # ----------------------------------------------------------------------------
 
+def _segment_sums(la: torch.Tensor) -> torch.Tensor:
+    """la: (..., L) -> (..., t, s): the sum of la over (s, t] for s <= t (0
+    on the diagonal), -inf above it. Each sum starts at its own segment, so
+    it is as exact as its own size allows."""
+    Lc = la.shape[-1]
+    ones = torch.ones((Lc, Lc), dtype=torch.bool, device=la.device)
+    x = la[..., :, None].expand(*la.shape, Lc).masked_fill(
+        ~torch.tril(ones, -1), 0.0)                  # [r, s] = la_r, r > s
+    seg = torch.cumsum(x, dim=-2)                    # sum over r in (s, t]
+    return seg.masked_fill(~torch.tril(ones), float("-inf"))
+
+
 def chunked_linear_recurrence(q, k, v, log_a, b, *, chunk: int,
                               init_state=None, normalize=False,
                               den_floor=None):
@@ -81,17 +103,14 @@ def chunked_linear_recurrence(q, k, v, log_a, b, *, chunk: int,
     else:
         C, n = init_state
 
-    # s <= t
-    tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=q.device))
     ys, dens = [], []
     for c in range(nc):
         qb, kb, vb, Lab, bb = qc[:, c], kc[:, c], vc[:, c], La[:, c], bc[:, c]
         # intra-chunk: S[t,s] = exp(La_t - La_s) * b_s * (q_t . k_s)
         qk = torch.einsum("bthd,bshd->bhts", qb, kb)
-        # mask BEFORE exp: for t < s the exponent is positive and overflows
-        ldiff = Lab[:, :, None, :] - Lab[:, None, :, :]          # (B,t,s,H)
-        ldiff = ldiff.masked_fill(~tri[None, :, :, None], float("-inf"))
-        decay = torch.exp(ldiff).permute(0, 3, 1, 2)
+        # La_t - La_s as a segment sum, -inf for t < s (masked before exp)
+        seg = _segment_sums(lac[:, c].permute(0, 2, 1))          # (B,H,t,s)
+        decay = torch.exp(seg)
         scores = qk * decay * bb.permute(0, 2, 1)[:, :, None, :]
         y_intra = torch.einsum("bhts,bshd->bthd", scores, vb)
         den_intra = torch.sum(scores, dim=-1)                    # (B,H,t)
@@ -100,7 +119,8 @@ def chunked_linear_recurrence(q, k, v, log_a, b, *, chunk: int,
         y_inter = torch.einsum("bthd,bhde->bthe", qb, C) * Aq[..., None]
         den_inter = torch.einsum("bthd,bhd->bth", qb, n) * Aq    # (B,Lc,H)
         # carry update
-        tail = torch.exp(Lab[:, -1:, :] - Lab) * bb              # (B,Lc,H)
+        # exp(La_last - La_s) b_s
+        tail = torch.exp(seg[:, :, -1]).permute(0, 2, 1) * bb   # (B,Lc,H)
         kw = kb * tail[..., None]
         chunk_decay = torch.exp(Lab[:, -1])                      # (B,H)
         C = (C * chunk_decay[..., None, None]

@@ -51,6 +51,7 @@ from repro_torch.core.blinding import BlindingSpec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models.model import MEMORY_KEYS
 from repro_torch.runtime import aot as AOT
 from repro_torch.runtime.sessions import TokenSlotRing
 
@@ -82,8 +83,6 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm")
 ORIGAMI_FAMILIES = ("dense", "moe")         # generate_origami's
 # the families whose state is built by stepping through the prompt
 RECURRENT = ("hybrid", "ssm")
-# the memory a cross-attention family's prompt pass needs beside the tokens
-MEMORY_KEYS = {"audio": "frames", "vlm": "patches"}
 
 
 def _family_in(cfg: ModelConfig, families) -> None:

@@ -174,3 +174,27 @@ def test_global_norm_matches_reference():
     got = float(TA.global_norm(_to_torch(tree)))
     want = float(JA.global_norm(_to_jax(tree)))
     np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 7, 40])
+def test_update_in_slices_bit_equal_to_one_slice(chunk, moment_dtype,
+                                                 monkeypatch):
+    """A leaf larger than ``UPDATE_CHUNK`` is updated slice by slice into
+    its new tensors: the same bits as the update of the whole leaf at
+    once."""
+    tcfg = TrainConfig(learning_rate=1e-2, moment_dtype=moment_dtype)
+    rng = np.random.default_rng(chunk)
+    params = _to_torch(_tree(rng, SHAPES))
+    state = TA.init(params, tcfg)
+    for step in range(3):
+        grads = _to_torch(_tree(rng, SHAPES, 5.0))
+        monkeypatch.setattr(TA, "UPDATE_CHUNK", 1 << 40)
+        whole = TA.update(grads, state, params, tcfg, 1e-2)
+        monkeypatch.setattr(TA, "UPDATE_CHUNK", chunk)
+        sliced = TA.update(grads, state, params, tcfg, 1e-2)
+        for a, b in ((whole[0], sliced[0]), (whole[1].mu, sliced[1].mu),
+                     (whole[1].nu, sliced[1].nu)):
+            for k, v in _flat(a).items():
+                np.testing.assert_array_equal(_flat(b)[k], v, err_msg=k)
+        params, state = sliced[0], sliced[1]

@@ -153,3 +153,19 @@ def test_categorical_matches_jax(temperature, shape, axis):
                                                  axis=axis))
         got = prng.categorical(tk, torch.from_numpy(scaled), axis=axis)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,chunk", [
+    ((100_003,), 8192), ((7, 5, 300), 333), ((62, 40, 96), 40_000),
+    ((), 3)])
+def test_normal_in_counter_ranges_bit_equal_to_one_draw(shape, chunk,
+                                                        monkeypatch):
+    """``normal`` draws a large leaf in counter ranges: the same bits as one
+    draw over the whole stream, whatever the range's size."""
+    for _, tk in _keys():
+        monkeypatch.setattr(prng, "NORMAL_CHUNK", 1 << 40)
+        whole = prng.normal(tk, shape)
+        monkeypatch.setattr(prng, "NORMAL_CHUNK", chunk)
+        got = prng.normal(tk, shape)
+        assert got.shape == whole.shape
+        assert torch.equal(got, whole)
