@@ -11,7 +11,8 @@ the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
 generation and (Zamba2) the engine, and the cross-attention
 Llama-3.2-Vision-11B and Whisper-small through the private LM forward,
 the prompt pass and decode, and the training of SmolLM-135M, MiniCPM3-4B
-and Zamba2-1.2B through the trainer — and hold every kernel of them
+and Zamba2-1.2B through the trainer, and SmolLM-135M through the
+trainer on a device mesh — and hold every kernel of them
 against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
@@ -376,6 +377,24 @@ Phases (any failure is fatal and exits non-zero):
    printed; float32 gradients within 1e-4 of the plain attention's, every
    bf16 backward call within 8e-3 of the plain backward, two bf16
    gradients bit-equal. The resume and microbatch checks are 34's alone.
+36. train mesh (after 35) — SmolLM-135M at every width and depth through
+   ``train(mesh=make_host_mesh(1, 1))``: the mesh starts a one-rank NCCL
+   process group (never gloo on the card), destroyed at the phase's end;
+   parameters, AdamW state and batches are DTensors laid out by the
+   reference's train plan, and attention runs the flash kernels on each
+   rank's local shards through ``local_map``. (a) 4 steps of 8 x 1024
+   under 34's ``TrainConfig``, against the same 4 steps through
+   ``train(device="cuda")``: losses, parameters and optimizer state
+   bit-equal, exactly 60 flash and 30 flash_attention_bwd launches a step
+   and no other kernel; each run's ms a step and one step's device-busy
+   share printed side by side; (b) ``compressed_psum`` over the mesh's
+   "data" group on NCCL of a (4096, 4096) float32 tensor from a numpy
+   seed, bit-equal to ``compress_decompress`` of it, no kernel launched;
+   (c) a 2-step mesh run saved by ``AsyncCheckpointer`` (the state of
+   (a) at step 2), reloaded by the trainer's resume with ``load(...,
+   shardings=)`` of the plan over ``remesh(plan_degraded_mesh(1))`` and
+   resumed to step 4: losses, parameters and optimizer state bit-equal
+   to (a)'s straight run.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -405,9 +424,9 @@ multiple of 64 is shown failing that bound. One query at G 8, D 128
 query take the split-KV decode route (``flash_attention_decode.cu``,
 both passes timed as one call), and their lines print its split count.
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-35 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21 and 23-36 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
-kernels and no other (22 launches none); only 34 and 35 launch the
+kernels and no other (22 launches none); only 34-36 launch the
 backward.
 
 Prints the findings, then a JSON line of the kernels, then as its last
@@ -4764,6 +4783,146 @@ def phase_train_families(dev, card):
     return out
 
 
+MESH_TRAIN_STEPS = 4                    # (a)'s runs; (c) saves at half
+PSUM_SHAPE = (4096, 4096)
+
+
+def _same_state(a, b):
+    """Whether two (params, AdamWState) pairs, DTensors or tensors, are
+    bit-equal leaf for leaf (a 1 x 1 mesh's local shard is the whole
+    leaf)."""
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+    (pa, oa), (pb, ob) = a, b
+    pairs = [(oa.step, ob.step)] + [
+        (x, y) for ta, tb in ((pa, pb), (oa.mu, ob.mu), (oa.nu, ob.nu))
+        for x, y in zip(_leaves(ta), _leaves(tb))]
+    return all(torch.equal(local(x), local(y)) for x, y in pairs)
+
+
+def phase_train_mesh(dev, card):
+    """SmolLM-135M trained through ``train(mesh=make_host_mesh(1, 1))`` on
+    a one-rank NCCL group: (a) bit-equal to the mesh-less trainer with
+    exact launch counts, ms a step and busy shares side by side; (b)
+    ``compressed_psum`` over "data" bit-equal to ``compress_decompress``;
+    (c) a sharded reload onto ``remesh(plan_degraded_mesh(1))`` resumed
+    bit-equal. The group is destroyed at the end, pass or fail."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.parallel import compression as GC
+    from repro_torch.parallel.sharding import distribute, make_plan
+    from repro_torch.runtime.elastic import plan_degraded_mesh, remesh
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    n_fwd, n_bwd = _train_flash_launches(cfg)
+    steps, tag = MESH_TRAIN_STEPS, "train mesh"
+    if dist.is_initialized():
+        raise AssertionError(f"{tag}: a process group is already running")
+    t_phase = time.perf_counter()
+    try:
+        # (a) the mesh-less run, then the same steps through the mesh
+        plain = _StepRecorder()
+        _, _, (p0, o0, l0) = counted(lambda: _train(cfg, tcfg, steps, dev,
+                                                    plain))
+        mesh = LM.make_host_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError(f"{tag}: the mesh runs {dist.get_backend()} "
+                                 f"on {mesh.device_type}, not NCCL on cuda")
+        rec = _StepRecorder()
+        launches, wall, (p1, o1, l1) = counted(
+            lambda: _train(cfg, tcfg, steps, dev, rec, mesh=mesh))
+        check_launches(launches, TRAIN_PATH, f"{tag} phase")
+        want = {"flash_attention": n_fwd, "flash_attention_bwd": n_bwd}
+        for i, got in enumerate(rec.launches):
+            for name in KB.KERNELS:
+                if got[name] != want.get(name, 0):
+                    raise AssertionError(f"{tag} step {i + 1}: {got[name]} "
+                                         f"{name} launches, expected "
+                                         f"{want.get(name, 0)}")
+        if l1 != l0 or not _same_state((p0, o0), (p1, o1)):
+            raise AssertionError(f"{tag}: the mesh run differs from the "
+                                 f"mesh-less one; losses {l1} vs {l0}")
+        kinds = sorted({str(t.placements) for t in _leaves(p1)})
+        ms0 = [t * 1e3 for t in plain.watchdog.history]
+        ms1 = [t * 1e3 for t in rec.watchdog.history]
+        batch = _pipeline_batch(cfg, TRAIN_SHAPE, tcfg.seed, dev)
+        step = S.make_train_step(cfg, tcfg)
+        busy0, _ = _busy_share(lambda: step(p0, o0, batch))
+        plan = make_plan(cfg, ShapeConfig("custom", "train", TRAIN_SHAPE[1],
+                                          TRAIN_SHAPE[0]),
+                         mesh, MeshConfig(), "train")
+        dbatch = distribute(batch, plan.batch_shardings(cfg, "train"))
+
+        def mesh_step():
+            with TR._mesh_scope(plan, mesh):
+                step(p1, o1, dbatch)
+        busy1, top1 = _busy_share(mesh_step)
+
+        def busy(b):
+            return "not measured" if b is None else f"{b:.4f}"
+        print(f"{tag} (every width and depth, bf16, {steps} steps of "
+              f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]}, lr "
+              f"{tcfg.learning_rate}; a 1 x 1 mesh over a one-rank NCCL "
+              f"group, parameter placements {kinds}): losses "
+              + " ".join(f"{x:.4f}" for x in l1)
+              + f" bit-equal to the mesh-less run's, parameters and AdamW "
+              f"state bit-equal; {n_fwd} flash and {n_bwd} flash_bwd "
+              f"launches a step, no other kernel; ms a step through the "
+              f"mesh {_spread(ms1[1:])} (first {ms1[0]:.2f}) against "
+              f"mesh-less {_spread(ms0[1:])} (first {ms0[0]:.2f}); one "
+              f"step's device-busy share {busy(busy1)} through the mesh, "
+              f"{busy(busy0)} mesh-less; wall {wall:.1f} ms with the "
+              f"set-up; top device ops through the mesh: "
+              + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in top1[:4]))
+        del p0, o0, step
+        _free()
+
+        # (b) the int8 all-reduce over the mesh's "data" group
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            PSUM_SHAPE, dtype=np.float32)).to(dev)
+        launches, ms, got = counted(
+            lambda: GC.compressed_psum(x, "data", mesh=mesh))
+        check_launches(launches, (), f"{tag} compressed_psum")
+        want_x = GC.compress_decompress(x)
+        if not torch.equal(got, want_x):
+            raise AssertionError(f"{tag}: compressed_psum differs from "
+                                 f"compress_decompress by "
+                                 f"{(got - want_x).abs().max().item()}")
+        print(f"{tag} compressed_psum over \"data\" (NCCL, "
+              f"{mesh['data'].size()} rank) of a {PSUM_SHAPE} float32 "
+              f"tensor: bit-equal to compress_decompress; {ms:.2f} ms with "
+              f"its first NCCL call")
+        del x, got, want_x
+
+        # (c) a save at half, a sharded reload onto a degraded mesh, resume
+        half = steps // 2
+        with tempfile.TemporaryDirectory() as d:
+            _train(cfg, tcfg, half, dev, mesh=mesh, ckpt_dir=d,
+                   ckpt_every=half)
+            mesh2 = remesh(plan_degraded_mesh(1))
+            t0 = time.perf_counter()
+            p2, o2, l2 = _train(cfg, tcfg, steps, dev, mesh=mesh2,
+                                ckpt_dir=d, ckpt_every=100)
+            resume_ms = (time.perf_counter() - t0) * 1e3
+        if l2 != l1[half:] or not _same_state((p1, o1), (p2, o2)):
+            raise AssertionError(f"{tag}: the resumed run differs from the "
+                                 f"straight one; losses {l2} vs {l1[half:]}")
+        print(f"{tag} resume: {half} steps through the mesh, an "
+              f"AsyncCheckpointer save, load(..., shardings=) of the plan "
+              f"over remesh(plan_degraded_mesh(1)) {tuple(mesh2.shape)} "
+              f"{mesh2.mesh_dim_names} and {steps - half} steps: losses, "
+              f"parameters and AdamW state bit-equal to (a)'s straight run; "
+              f"the resumed half {resume_ms:.0f} ms with its load and save; "
+              f"the phase {time.perf_counter() - t_phase:.1f} s")
+        del p1, o1, p2, o2
+    finally:
+        LM.end_local_group()
+    _free()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4863,6 +5022,8 @@ def main():
     mark("train")
     phase_train_families(dev, card)
     mark("train " + ", ".join(arch for arch, _ in FAMILY_TRAIN))
+    phase_train_mesh(dev, card)
+    mark("train mesh")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

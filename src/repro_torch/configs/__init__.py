@@ -5,14 +5,20 @@ xLSTM, and the cross-attention families: Llama-3.2-Vision (gated image
 blocks over patch embeddings) and the encoder-decoder Whisper.
 
 ``get_config(name)`` returns the published configuration;
-``get_smoke(name)`` a reduced same-family one for CPU tests.
+``get_smoke(name)`` a reduced same-family one for CPU tests;
+``applicable_shapes(name)`` the shape cells of an arch and
+``SKIPPED_CELLS`` those left out by design, as the reference's (the
+dry-run, launch/dryrun.py, walks them).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      OrigamiConfig, SSMConfig)
+from typing import List
+
+from repro_torch.configs.base import (SHAPES, MLAConfig, MeshConfig,
+                                      ModelConfig, MoEConfig, OrigamiConfig,
+                                      ShapeConfig, SSMConfig, TrainConfig)
 
 PAPER_MODELS = ("vgg16", "vgg19")
 ARCHS = ("qwen2_5_14b", "yi_9b", "minicpm3_4b", "smollm_135m",
@@ -44,5 +50,23 @@ def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "PAPER_MODELS", "MLAConfig", "ModelConfig", "MoEConfig",
-           "OrigamiConfig", "SSMConfig", "get_config", "get_smoke"]
+def applicable_shapes(name: str) -> List[str]:
+    """The shape cells of an arch: long_500k only for the sub-quadratic
+    (SSM and hybrid) families."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_config(name).family in ("ssm", "hybrid"):
+        shapes.append("long_500k")
+    return shapes
+
+
+SKIPPED_CELLS = [
+    (a, "long_500k", "pure full-attention arch; no sub-quadratic variant in "
+     "published config")
+    for a in ARCHS
+    if get_config(a).family not in ("ssm", "hybrid")
+]
+
+__all__ = ["ARCHS", "PAPER_MODELS", "SHAPES", "SKIPPED_CELLS", "MLAConfig",
+           "MeshConfig", "ModelConfig", "MoEConfig", "OrigamiConfig",
+           "SSMConfig", "ShapeConfig", "TrainConfig", "applicable_shapes",
+           "get_config", "get_smoke"]

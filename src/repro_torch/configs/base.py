@@ -12,7 +12,9 @@ properties (``resolved_head_dim``, ``padded_vocab``) are not fields, so
 they do not enter the JSON. ``TrainConfig`` is the reference's, verbatim: AdamW
 (optim/adamw.py) reads it. ``ShapeConfig`` and ``SHAPES`` are the
 reference's, verbatim: the train, prefill and decode steps take a shape
-(launch/steps.py).
+(launch/steps.py). ``MeshConfig`` is the reference's, verbatim: the
+production meshes (launch/mesh.py) and the sharding plans
+(parallel/sharding.py) read it.
 """
 from __future__ import annotations
 
@@ -158,3 +160,17 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    pipeline_over_pod: bool = False
+
+    @property
+    def shape(self):
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self):
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")

@@ -9,9 +9,11 @@ with ``torch.autograd.grad``, accumulates microbatches in float32 as
 (optim/adamw.py) at ``lr_schedule``'s rate. With ``grad_compression`` the
 gradient goes through int8 error feedback first
 (parallel/compression.py). Microbatching cuts stored activations by the
-microbatch factor; the reference also overlaps each microbatch's
-reduce-scatter with the next one's backward, which needs a process group
-(ROADMAP 12f).
+microbatch factor. On a mesh (DTensor batches) each rank cuts its own
+rows into the m microbatches, as data-parallel accumulation does; the
+gradient is the same mean. The reference's overlap of each microbatch's
+reduce-scatter with the next one's backward is not ported: eager DTensor
+reduces when the gradient is read.
 """
 from __future__ import annotations
 
@@ -42,14 +44,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     compression of the gradient before the update."""
     m = tcfg.microbatches
 
+    def split(v):
+        """(m, B / m, ...): the batch cut into microbatches; a DTensor's
+        local rows cut on each rank."""
+        from torch.distributed.tensor import DTensor
+        if not isinstance(v, DTensor):
+            return v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+        local = v.to_local()
+        local = local.reshape((m, local.shape[0] // m)
+                              + tuple(local.shape[1:]))
+        shape = (v.shape[0] // m,) + tuple(v.shape[1:])
+        return [DTensor.from_local(part, v.device_mesh, v.placements,
+                                   run_check=False, shape=shape,
+                                   stride=torch.empty(shape,
+                                                      device="meta").stride())
+                for part in local]
+
     def _grads_and_ce(params, batch):
         if m > 1:
             B = batch["tokens"].shape[0]
             assert B % m == 0, (B, m)
-            micro = {k: v.reshape((m, B // m) + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
+            micro = {k: split(v) for k, v in batch.items()}
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params)
             ces = []
             for i in range(m):
                 g, ce = loss_grads(params, {k: v[i] for k, v in micro.items()},

@@ -1,18 +1,24 @@
 """End-to-end trainer: data pipeline -> train loop with
 checkpoint/resume, async saves and a straggler watchdog.
 
-Port of ``repro/launch/train.py`` on one device: ``device="cuda"`` (the
-default; the CPU only when asked for, never as a fallback) takes the
-place of the reference's mesh. Parameters come from
+Port of ``repro/launch/train.py``. Without a mesh the trainer runs on one
+device, ``device="cuda"`` (the default; the CPU only when asked for, never
+as a fallback). With ``mesh=`` (a ``DeviceMesh``, launch/mesh.py) it runs
+the reference's mesh path: ``make_plan(..., "train")`` under the
+reference's ``MeshConfig()``, the parameters, the optimizer state and
+each batch laid out as DTensors by the plan (parallel/sharding.py), and
+the step under ``activation_rules(plan.act_rules)``, where a plain tensor
+the model makes (positions, masks) counts as replicated, as GSPMD
+replicates it. Attention runs the kernels on each rank's local shards
+(models/attention.py), AdamW updates local shards (optim/adamw.py) and
+checkpoints gather and reshard (runtime/checkpoint.py). On a 1 x 1 mesh
+the run is bit-equal to the mesh-less one. Parameters come from
 ``layers.init_params_keyed`` with the reference's key, so they are the
 reference's ``M.init_params(cfg, PRNGKey(seed))``; the step is
 ``launch/steps.py:make_train_step`` (a training forward with
 checkpointed blocks and the flash backward kernel), the data
 ``data/pipeline.py``'s counter-based batches, checkpoints
-``runtime/checkpoint.py``'s format. The reference's ``make_host_mesh``,
-``make_plan`` and ``activation_rules`` lay parameters and activations out
-over a mesh; on one device they change nothing, and the port's meshes are
-ROADMAP 12f.
+``runtime/checkpoint.py``'s format.
 
 The audio and vlm families are refused up front: their forward reads
 frames or patches beside the tokens, and the reference's trainer hands
@@ -30,18 +36,22 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import time
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
 from repro_torch.core import prng
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel.act_sharding import activation_rules, is_dtensor
+from repro_torch.parallel.sharding import distribute, make_plan
 from repro_torch.runtime.checkpoint import AsyncCheckpointer, latest_step, load
 from repro_torch.runtime.straggler import StepWatchdog
 
@@ -54,11 +64,32 @@ def init_train_state(cfg, tcfg: TrainConfig, device="cuda"):
     return params, adamw.init(params, tcfg)
 
 
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+@contextlib.contextmanager
+def _mesh_scope(plan, mesh):
+    """A step on ``mesh``: the plan's activation rules, and plain tensors
+    mixed with DTensors taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with activation_rules(plan.act_rules, mesh=mesh), implicit_replication():
+        yield
+
+
+def _value(x) -> float:
+    """A 0-dim tensor's value (a DTensor's reduced over its mesh)."""
+    return float(x.full_tensor() if is_dtensor(x) else x)
+
+
 def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
           ckpt_dir: str = None, ckpt_every: int = 50, device="cuda",
-          log_every: int = 10, resume: bool = True):
+          mesh=None, log_every: int = 10, resume: bool = True):
     """Train ``steps`` steps (from the latest checkpoint's step when
-    resuming) -> (params, opt_state, the losses of the steps run)."""
+    resuming) -> (params, opt_state, the losses of the steps run); with
+    ``mesh`` the state comes back as DTensors laid out by the plan."""
     if cfg.family in M.MEMORY_KEYS:
         raise NotImplementedError(
             f"{cfg.family}: train is refused, as the reference cannot run "
@@ -66,11 +97,21 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
             f"the forward reads {M.MEMORY_KEYS[cfg.family]!r} beside them; "
             f"train on batches that carry it through launch/steps.py:"
             f"make_train_step")
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else _mesh_device(mesh)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device "
                            "cpu) to train on the CPU")
     params, opt_state = init_train_state(cfg, tcfg, device)
+    shardings = None
+    if mesh is not None:
+        plan = make_plan(cfg, ShapeConfig("custom", "train", seq, batch),
+                         mesh, MeshConfig(), "train")
+        shardings = (plan.param_shardings(cfg), plan.opt_shardings(cfg))
+        params, opt_state = distribute((params, opt_state), shardings)
+        batch_sh = plan.batch_shardings(cfg, "train")
+        scope = functools.partial(_mesh_scope, plan, mesh)
+    else:
+        scope = contextlib.nullcontext
     start_step = 0
 
     ckpt = None
@@ -79,7 +120,7 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
         last = latest_step(ckpt_dir)
         if resume and last is not None:
             (params, opt_state), manifest = load(
-                ckpt_dir, (params, opt_state))
+                ckpt_dir, (params, opt_state), shardings=shardings)
             start_step = manifest["step"]
             print(f"[train] resumed from step {start_step}")
 
@@ -92,14 +133,17 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     for step in range(start_step, steps):
         tokens = {k: torch.from_numpy(v).to(device)
                   for k, v in pipe.batch(step).items()}
+        if mesh is not None:
+            tokens = distribute(tokens, batch_sh)
         watchdog.start_step()
-        params, opt_state, metrics = step_fn(params, opt_state, tokens)
-        loss = float(metrics["loss"])        # waits for the step's kernels
+        with scope():
+            params, opt_state, metrics = step_fn(params, opt_state, tokens)
+        loss = _value(metrics["loss"])       # waits for the step's kernels
         slow = watchdog.end_step()
         losses.append(loss)
         if log_every and (step + 1) % log_every == 0:
             print(f"[train] step {step+1}: loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"gnorm={_value(metrics['grad_norm']):.3f} "
                   f"p50={watchdog.p50 and round(watchdog.p50, 3)}s"
                   + (" SLOW" if slow else ""))
         if ckpt and (step + 1) % ckpt_every == 0:

@@ -30,6 +30,17 @@ the same kernel, which also saves each row's log-sum-exp, and its
 backward is ``flash_attention_bwd`` (the kernel on the card, its plain
 version on the CPU), the port of the reference's custom VJP. Every
 inference path calls the forward kernel alone, as before.
+On a device mesh (q, k and v DTensors, launch/train.py's ``mesh=``)
+``sdpa`` pins them at the reference's points (``act_sharding.constrain``)
+and runs ``_flash`` through ``local_map``: batch over the active rules'
+batch axes and the KV heads over "model" when it divides them (replicated
+there otherwise), so the kernel and ``FlashAttention``'s backward kernel
+run on each rank's local q, k and v and never see a DTensor. The query
+is pinned to the batch axes only: the reference's context-parallel
+layout ("flash_seq", the query sequence over "model") needs a query
+offset that the kernel does not take, and pinning it there only to
+gather it back left the backward's gradients sequence-sharded, which
+DTensor's matmul propagation rejects under fake tensors.
 ``decode_sdpa`` (one query against the cache) has no kernel in the
 reference and stays plain PyTorch, as do MLA's absorbed decode einsums,
 which read ``wkv_b``'s weight directly (not through ``layers.dense``): in
@@ -51,6 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.models import layers as L
+from repro_torch.parallel import act_sharding as ash
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -122,6 +134,38 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal=causal)
 
 
+def _local_flash(q, k, v, causal):
+    if k.dtype == q.dtype and v.dtype == q.dtype:
+        return _flash(q, k, v, causal)
+    # mixed dtypes: the kernel of the promoted dtype, the output in q's
+    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
+    return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
+
+
+def _sharded_flash(q, k, v, causal: bool):
+    """``sdpa`` of DTensors q (B,Sq,H,D), k, v (B,Skv,KH,*): each rank's
+    batch rows (the rules' batch axes) and, when "model" divides KH, its
+    KV heads with their query heads, through ``_flash`` on local tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    q = ash.constrain(q, "batch", None, None, None)
+    k = ash.constrain(k, "batch", None, None, None)
+    v = ash.constrain(v, "batch", None, None, None)
+    mesh = q.device_mesh
+    rules = ash.current_rules() or {}
+    batch = L._mesh_axes(rules.get("batch"))
+    names = mesh.mesh_dim_names
+    heads = ("model" in names
+             and k.shape[2] % mesh.shape[names.index("model")] == 0)
+    place = tuple(Shard(0) if n in batch else
+                  Shard(2) if n == "model" and heads else Replicate()
+                  for n in names)
+    return local_map(_local_flash, out_placements=(place,),
+                     in_placements=(place, place, place, None),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, causal)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
          q_offset=0, window=0) -> torch.Tensor:
     """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
@@ -134,11 +178,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
         raise NotImplementedError(
             f"sdpa with window={window}, q_offset={q_offset} is not ported "
             f"({_ROADMAP})")
-    if k.dtype == q.dtype and v.dtype == q.dtype:
-        return _flash(q, k, v, causal)
-    # mixed dtypes: the kernel of the promoted dtype, the output in q's
-    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
-    return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
+    if ash.is_dtensor(q):
+        return _sharded_flash(q, k, v, causal)
+    return _local_flash(q, k, v, causal)
 
 
 def position(pos, device) -> torch.Tensor:
@@ -158,6 +200,9 @@ def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     0-dim tensor; and inside the window) are seen."""
     B, _, H, D = q.shape
     S, KH = cache_k.shape[1], cache_k.shape[2]
+    # on a mesh the cache's sequence takes "model": the query's heads are
+    # gathered there before they split into KV heads and groups
+    q = ash.constrain(q, "batch", None, None, None)
     qr = q.reshape(B, KH, H // KH, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qr.to(torch.float32),
                      cache_k.to(torch.float32)) / math.sqrt(D)
@@ -168,16 +213,36 @@ def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     s = s.masked_fill(~mask[None, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, cache_v.to(torch.float32))
+    # on a mesh: summed over the sequence shards and laid out by batch
+    # alone before the heads merge (a view cannot merge split head shards)
+    out = ash.constrain(out, "batch", None, None, None)
     return out.reshape(B, 1, H, out.shape[-1]).to(q.dtype)
+
+
+def _split_heads(t: torch.Tensor, B: int, S: int, H: int) -> torch.Tensor:
+    """(B, S, H * D) -> (B, S, H, D). A DTensor whose flat dim is sharded
+    over mesh dims that do not divide H (SmolLM's 3 KV heads over 2 ranks)
+    is first replicated over them: a view cannot split a shard."""
+    if ash.is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.dim() - 1
+        mesh = t.device_mesh
+        over = [i for i, pl in enumerate(t.placements) if pl == Shard(last)]
+        n = 1
+        for i in over:
+            n *= mesh.shape[i]
+        if H % n:
+            t = t.redistribute(mesh, [Replicate() if i in over else pl
+                                      for i, pl in enumerate(t.placements)])
+    return t.reshape(B, S, H, -1)
 
 
 def gqa_project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor):
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = L.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
-    k = L.dense(p["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    v = L.dense(p["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    q = _split_heads(L.dense(p["wq"], x), B, S, cfg.num_heads)
+    k = _split_heads(L.dense(p["wk"], x), B, S, cfg.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], x), B, S, cfg.num_kv_heads)
     if cfg.rope_theta > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -346,10 +411,9 @@ def cross_attn_defs(cfg: ModelConfig) -> Dict[str, object]:
 def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
     """The cross-attention K/V (B, M, KH, D) of a memory (B, M, d), in the
     memory's dtype."""
-    B = memory.shape[0]
-    hd = cfg.resolved_head_dim
-    k = L.dense(p["wk"], memory).reshape(B, -1, cfg.num_kv_heads, hd)
-    v = L.dense(p["wv"], memory).reshape(B, -1, cfg.num_kv_heads, hd)
+    B, M = memory.shape[:2]
+    k = _split_heads(L.dense(p["wk"], memory), B, M, cfg.num_kv_heads)
+    v = _split_heads(L.dense(p["wv"], memory), B, M, cfg.num_kv_heads)
     return k, v
 
 

@@ -4,7 +4,9 @@ Port of ``repro/models/layers.py``: the dense / conv / pool part the CNN
 path runs and the LM part (RMS/layer norm in float32, embedding, the
 activations, rotary and sinusoidal position embeddings), the
 cross-entropy loss, ``param_count`` and ``init_params_keyed``, the
-reference's initializer driven by a jax-style key. The stacking axes
+reference's initializer driven by a jax-style key, and ``param_specs``,
+which turns the same definition tree into a ``PartitionSpec`` tree by
+logical-to-mesh rules (parallel/sharding.py). The stacking axes
 ("layers", and "experts" of a MoE bank) stay out of a leaf's fan-in, and
 a leaf's own dtype (the float32 norms, MoE router and Mamba2 ``A_log``,
 ``D`` and ``dt_bias``) survives the model dtype. ``conv2d`` pads as XLA's
@@ -101,6 +103,59 @@ def init_params_keyed(key, defs, dtype: torch.dtype = torch.float32,
     return tree_map(build, defs)
 
 
+class PartitionSpec(tuple):
+    """The mesh axes of each dim of a tensor: a mesh axis name, a tuple of
+    them (the dim sharded over both, the first major) or None
+    (replicated). A tuple, so it equals the reference's
+    ``jax.sharding.PartitionSpec`` of the same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _mesh_axes(m) -> Tuple[str, ...]:
+    """A rule's or spec entry's mesh axes as a tuple."""
+    return tuple(m) if isinstance(m, (tuple, list)) else (m,) if m else ()
+
+
+def resolve_spec(shape, logical, rules, axis_sizes=None) -> PartitionSpec:
+    """The spec of a tensor of ``shape`` whose dims carry the ``logical``
+    axis names, under logical->mesh ``rules``: a mesh axis goes to the
+    first dim that asks for it, and with ``axis_sizes`` given a dim its
+    axes do not divide stays replicated."""
+    used = set()
+    out = []
+    for dim, a in zip(shape, logical):
+        m = rules.get(a) if a else None
+        ms = _mesh_axes(m)
+        if any(x in used for x in ms):
+            out.append(None)
+            continue
+        if axis_sizes is not None and ms:
+            total = math.prod(axis_sizes.get(x, 1) for x in ms)
+            if total == 0 or dim % total != 0:
+                out.append(None)
+                continue
+        used.update(ms)
+        out.append(m)
+    return PartitionSpec(*out)
+
+
+def param_specs(defs, rules: Dict[str, Any],
+                axis_sizes: Optional[Dict[str, int]] = None):
+    """ParamDef tree -> PartitionSpec tree under logical->mesh ``rules``
+    (the reference's conflict rules, ``resolve_spec``): when two logical
+    axes of one leaf map to one mesh axis (a MoE bank's ("experts",
+    "embed", "ffn") with experts and ffn on "model"), the first keeps it;
+    a dim its mesh axes do not divide (xLSTM's 4/3 projections) is
+    replicated."""
+    return tree_map(lambda d: resolve_spec(d.shape, d.axes, rules,
+                                           axis_sizes), defs)
+
+
 def param_count(defs) -> int:
     """Elements of every leaf of a definition tree (nothing allocated)."""
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
@@ -146,10 +201,30 @@ def conv_impl(fn):
         _CONV_IMPL = prev
 
 
+def gather_for(w, x):
+    """A weight DTensor ``w`` laid out for its product with the activation
+    DTensor ``x``: gathered over each mesh dim on which ``x`` is sharded
+    along a dim other than its last (the batch: fully sharded data
+    parallel), so a product keeps the batch's layout and the weight's
+    tensor-parallel shards; ``w`` as it is otherwise. DTensor picks each
+    op's layout alone, and left to itself it shards the contraction and
+    reduces the partial sums over the sequence."""
+    if getattr(w, "placements", None) is None \
+            or getattr(x, "placements", None) is None:
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    want = [Replicate() if isinstance(xp, Shard) and xp.dim != last else wp
+            for xp, wp in zip(x.placements, w.placements)]
+    if want == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     if _DENSE_IMPL is not None:
         return _DENSE_IMPL(p, x)
-    y = x @ p["w"].to(x.dtype)
+    y = x @ gather_for(p["w"], x).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -189,10 +264,24 @@ def norm_def(dim: int, kind: str) -> Dict[str, ParamDef]:
     return d
 
 
+def reduced(x):
+    """A DTensor holding partial sums (a row-parallel product's output)
+    with them summed over the mesh; anything else as it is. DTensor keeps
+    partial sums through linear ops; a norm reduces its input first, once,
+    where DTensor would reduce a copy for the statistics and carry the
+    partial sums on into the next product."""
+    pl = getattr(x, "placements", None)
+    if pl is None or not any(q.is_partial() for q in pl):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if q.is_partial()
+                                          else q for q in pl])
+
+
 def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
     """RMS or layer norm over the last dim, computed in float32 and cast
     back to ``x.dtype``."""
-    xf = x.to(torch.float32)
+    xf = reduced(x).to(torch.float32)
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     else:
@@ -210,7 +299,7 @@ def embed_def(vocab: int, dim: int) -> Dict[str, ParamDef]:
 
 
 def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    return gather_for(p["table"], ids)[ids]
 
 
 def activation(name: str):

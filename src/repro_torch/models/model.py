@@ -67,6 +67,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import lm_defs  # noqa: F401 re-export
+from repro_torch.parallel import act_sharding as act
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int32": torch.int32}
@@ -90,6 +91,14 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda"):
     gen.manual_seed(seed)
     return L.init_params(model_defs(cfg), gen, device=device,
                          dtype=torch_dtype(cfg.dtype))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as tensors on the ``meta`` device: each leaf's
+    shape and dtype, nothing allocated (the dry-run's input)."""
+    dtype = torch_dtype(cfg.dtype)
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype or dtype,
+                                          device="meta"), model_defs(cfg))
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
@@ -147,7 +156,7 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
         pe = L.sinusoidal_positions(tokens.shape[-1], cfg.d_model,
                                     device=x.device)
         x = x + pe.to(x.dtype)
-    return x
+    return act.constrain(x, "batch", "seq", "embed_act")
 
 
 def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
@@ -169,8 +178,10 @@ def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
 def head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].to(x.dtype).T
-    return L.dense(params["lm_head"], x)
+        logits = x @ L.gather_for(params["embed"]["table"], x).to(x.dtype).T
+    else:
+        logits = L.dense(params["lm_head"], x)
+    return act.constrain(logits, "batch", "seq", "vocab")
 
 
 def _block(stacked, *index):

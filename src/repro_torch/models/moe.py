@@ -37,8 +37,8 @@ Where the port departs from the reference's code, not its function:
 - Nothing reads a value back to the host (no ``.item()``, ``nonzero`` or
   boolean indexing; ``one_hot`` is a comparison with an ``arange``), so
   the layer runs inside a CUDA graph capture.
-- ``act_sharding.constrain`` is a no-op without a mesh; the port, on one
-  card, leaves it out.
+- ``act_sharding.constrain`` pins the groups over the batch axes at the
+  reference's two points; it is a no-op without a mesh.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import act_sharding as ash
 
 
 def moe_defs(cfg: ModelConfig) -> Dict[str, object]:
@@ -208,8 +209,10 @@ def _dispatch_sorted_grouped(p, x: torch.Tensor, cfg: ModelConfig,
     groups, each sorted on its own; the aux loss is the groups' mean."""
     T, d = x.shape
     groups = token_groups(T, groups)
-    y, aux = _dispatch_groups(p, x.reshape(groups, T // groups, d), cfg)
-    return y.reshape(T, d), torch.mean(aux)
+    xg = ash.constrain(x.reshape(groups, T // groups, d), "batch", None, None)
+    y, aux = _dispatch_groups(p, xg, cfg)
+    return (ash.constrain(y, "batch", None, None).reshape(T, d),
+            torch.mean(aux))
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig):

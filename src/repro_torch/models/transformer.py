@@ -32,6 +32,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.parallel import act_sharding as ash
 
 # (family, attention) pairs the port runs
 SUPPORTED = (("dense", "gqa"), ("moe", "gqa"), ("dense", "mla"),
@@ -67,6 +68,7 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = act(L.dense(p["w_gate"], x)) * L.dense(p["w_up"], x)
     else:
         h = act(L.dense(p["w_up"], x))
+    h = ash.constrain(h, "batch", "seq", "ffn_act")
     return L.dense(p["w_down"], h)
 
 
@@ -111,7 +113,7 @@ def _ffn(p, x: torch.Tensor, cfg: ModelConfig):
 def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
     h = x + _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
     y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
-    return h + y, aux
+    return ash.constrain(h + y, "batch", "seq", "embed_act"), aux
 
 
 def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):

@@ -9,8 +9,11 @@ SGD/Adam convergence unchanged to first order (Karimireddy et al. 2019).
 Per-tensor absmax scales travel beside them. The arithmetic is the
 reference's, operation for operation, so the results are bit-equal.
 
-``compressed_psum`` needs a process group, which the port has not yet
-(ROADMAP 12f): it raises.
+``compressed_psum`` is the int8 all-reduce over one axis of a device
+mesh (launch/mesh.py): each rank quantizes its own tensor, the int8
+values are summed as int32 and the scales reduced by max over that
+axis's process group, and the sum is dequantized with the max scale, the
+reference's ``psum``/``pmax`` inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.core.tree import tree_map
+from repro_torch.parallel import act_sharding as ash
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,9 +61,21 @@ def init_residual(grads_like: Any) -> Any:
                                           device=g.device), grads_like)
 
 
-def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """int8 all-reduce over a mesh axis: not ported until the port has a
-    process group (ROADMAP 12f)."""
-    raise NotImplementedError(
-        f"compressed_psum over {axis_name!r} needs a process group, which "
-        f"the port does not have yet (ROADMAP 12f)")
+def compressed_psum(x: torch.Tensor, axis_name: str,
+                    mesh=None) -> torch.Tensor:
+    """int8 all-reduce of each rank's ``x`` over mesh axis ``axis_name``
+    of ``mesh`` (default: the mesh of the active ``activation_rules``):
+    quantize locally, sum int32, dequantize with the max scale
+    (conservative)."""
+    import torch.distributed as dist
+    mesh = mesh if mesh is not None else ash.current_mesh()
+    if mesh is None:
+        raise ValueError("compressed_psum needs a mesh: pass mesh= or run "
+                         "under activation_rules(..., mesh=)")
+    group = mesh.get_group(axis_name)
+    q, s = quantize_int8(x)
+    total = q.to(torch.int32)
+    smax = s.clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    return total.to(torch.float32) * smax

@@ -15,8 +15,13 @@ stores ml_dtypes' bf16; the manifest's ``treedef`` follows the reference's
 ``PyTreeDef`` string. ``AsyncCheckpointer`` copies the tree to the host
 and serializes it on a worker thread while the next step runs.
 
-``load(..., shardings=...)``, the reference's reshard-on-load onto
-another mesh, needs the port's device meshes (ROADMAP 12f): it raises.
+DTensor leaves (a state laid out over a device mesh, launch/train.py's
+``mesh=``) are gathered whole (``full_tensor``, a collective every rank
+joins) and written by rank 0 alone, in the same format, so a checkpoint
+saved over 4 ranks loads over 2, or into the reference.
+``load(..., shardings=...)`` is the reference's reshard-on-load: each
+leaf is read whole on every rank and laid out by the NamedSharding at its
+place (parallel/sharding.py) on that sharding's mesh.
 """
 from __future__ import annotations
 
@@ -103,12 +108,26 @@ def _treedef(tree) -> str:
     return f"PyTreeDef({node(tree)})"
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (gathered over its mesh); a tensor as it
+    is."""
+    from repro_torch.parallel.act_sharding import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a running
+    process group, or a process without one."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, Optional[str]]:
     """(array npz can hold, the true dtype's name when it is a view: bf16,
     which numpy lacks, as its uint16 bits)."""
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf), None
-    t = leaf.detach().cpu()
+    t = _whole(leaf.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), None
@@ -119,7 +138,7 @@ def _host(tree):
     kids = _children(tree)
     if kids is None:
         if isinstance(tree, torch.Tensor):
-            return tree.detach().to("cpu", copy=True)
+            return _whole(tree.detach()).to("cpu", copy=True)
         return tree
     leaves = {k: _host(v) for k, v in _flatten(tree).items()}
     return _rebuild(tree, leaves)
@@ -127,10 +146,17 @@ def _host(tree):
 
 def save(ckpt_dir: str | Path, step: int, tree, *, meta: Optional[dict] = None,
          keep: int = 3) -> Path:
-    """Atomic synchronous save. Returns the checkpoint path."""
+    """Atomic synchronous save. Returns the checkpoint path. Every rank
+    of a process group calls it (DTensor leaves are gathered); rank 0
+    writes."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:010d}"
+    if not _writer():
+        for leaf in _flatten(tree).values():
+            if isinstance(leaf, torch.Tensor):
+                _whole(leaf)
+        return final
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_"))
     try:
         arrays, dtypes = {}, {}
@@ -185,11 +211,8 @@ def load(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None,
          shardings=None):
     """Restore into the structure of ``tree_like`` -> (tree, manifest);
     each leaf lands on the device of the tensor it replaces (the host for
-    any other leaf)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "load(..., shardings=) reshards onto a device mesh, which the "
-            "port does not have yet (ROADMAP 12f)")
+    any other leaf), or, where ``shardings`` (a tree of ``tree_like``'s
+    structure) holds a NamedSharding, is laid out by it as a DTensor."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -201,20 +224,37 @@ def load(ckpt_dir: str | Path, tree_like, *, step: Optional[int] = None,
     flat_like = _flatten(tree_like)
     assert set(flat_like.keys()) == set(manifest["keys"]), (
         "checkpoint/tree structure mismatch")
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     dtypes = manifest.get("dtypes", {})
     leaves = {}
     for key, like in flat_like.items():
         t = _from_numpy(data[key], dtypes.get(key))
+        sh = flat_sh.get(key)
+        if sh is not None:
+            leaves[key] = _distribute(t, sh)
+            continue
         device = like.device if isinstance(like, torch.Tensor) else "cpu"
         leaves[key] = t.to(device)
     return _rebuild(tree_like, leaves), manifest
+
+
+def _distribute(t: torch.Tensor, sharding):
+    """A whole leaf as a DTensor laid out by ``sharding`` on its mesh's
+    device (every rank holds the whole leaf, so no rank sends)."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = sharding.mesh
+    if mesh.device_type == "cuda":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    return distribute_tensor(t, mesh, sharding.placements,
+                             src_data_rank=None)
 
 
 class AsyncCheckpointer:
     """Background-thread checkpoint writer (single in-flight save).
 
     ``save`` copies the tensors to the host synchronously (cheap against a
-    step) and serializes on the worker thread; ``wait`` joins before exit
+    step; DTensor leaves gathered, every rank joining) and serializes on
+    the worker thread (rank 0's); ``wait`` joins before exit
     or the next save. A failure in the worker is raised by the next call.
     """
 

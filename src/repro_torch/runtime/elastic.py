@@ -10,16 +10,16 @@ Port of ``repro/runtime/elastic.py``. The pattern is checkpoint-restart:
     3. the job restarts from the latest checkpoint (runtime/checkpoint.py)
        and rescales the batch (``rescale_batch``).
 
-``remesh`` returns the chosen devices laid out in the candidate's shape;
-building a ``DeviceMesh`` over them, and loading a checkpoint sharded onto
-it, is ROADMAP 12f.
+``remesh`` returns a ``DeviceMesh`` over the first ``devices_needed``
+surviving ranks in the candidate's shape and axes; ``checkpoint.load(...,
+shardings=plan.param_shardings(cfg))`` on a plan over it reshards the
+checkpoint onto it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 
@@ -48,20 +48,22 @@ def plan_degraded_mesh(healthy_devices: int,
                          devices_needed=data * model)
 
 
-def remesh(candidate: MeshCandidate,
-           devices: Optional[Sequence] = None) -> np.ndarray:
-    """The first ``devices_needed`` of ``devices`` (default: every CUDA
-    device) as an object array of the candidate's shape."""
+def remesh(candidate: MeshCandidate, devices: Optional[Sequence[int]] = None,
+           device_type: str = "cuda"):
+    """A ``DeviceMesh`` of the candidate's shape and axes over the first
+    ``devices_needed`` of ``devices``, ranks of the running process group
+    (default: every rank)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devs = list(devices)[: candidate.devices_needed]
-    if len(devs) < candidate.devices_needed:
+        devices = range(dist.get_world_size())
+    ranks = [int(r) for r in devices][: candidate.devices_needed]
+    if len(ranks) < candidate.devices_needed:
         raise ValueError(f"{candidate} needs {candidate.devices_needed} "
-                         f"devices, got {len(devs)}")
-    arr = np.empty(len(devs), dtype=object)
-    arr[:] = devs
-    return arr.reshape(candidate.shape)
+                         f"ranks, got {len(ranks)}")
+    return DeviceMesh(device_type,
+                      torch.tensor(ranks).reshape(candidate.shape),
+                      mesh_dim_names=candidate.axes)
 
 
 def rescale_batch(global_batch: int, old_data: int, new_data: int) -> int:

@@ -66,7 +66,9 @@ def test_port_files_exist():
                    "configs/whisper_small.py", "data/pipeline.py",
                    "parallel/compression.py", "launch/steps.py",
                    "launch/train.py", "runtime/checkpoint.py",
-                   "runtime/elastic.py"):
+                   "runtime/elastic.py", "launch/mesh.py", "launch/specs.py",
+                   "launch/dryrun.py", "parallel/sharding.py",
+                   "parallel/act_sharding.py", "parallel/hlo_analysis.py"):
         assert f"repro_torch/{module}" in names, module
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     for src in ("blind_encode.cu", "limb_matmul.cu", "limb_fold.cu",

@@ -4,17 +4,19 @@ gradient compression.
 
 - the reference's checkpoint tests on the port (round trip, latest step
   and garbage collection, no partial checkpoint on a failed write, a
-  structure mismatch refused, the async writer and its error); the
-  four-device reshard-on-load needs the port's meshes (ROADMAP 12f) and
-  ``load(..., shardings=)`` raises;
+  structure mismatch refused, the async writer and its error); a None
+  sharding loads as no sharding (the reshard onto a mesh is
+  tests/test_torch_mesh.py's);
 - a checkpoint of a training state (parameters with bf16 leaves, the
   AdamW state) written by the reference loads in the port, and one
   written by the port loads in the reference: the same manifest keys and
   tree string, every array bit-equal, bf16 included;
 - ``TokenPipeline`` batches equal to the reference's;
 - ``plan_degraded_mesh`` and ``rescale_batch`` equal to the reference's
-  over a grid, ``remesh`` laying the chosen devices out in its shape;
-- the compression functions bit-equal to the reference's.
+  over a grid, ``remesh`` laying the chosen ranks out in its shape and
+  axes (over a one-rank group here; over eight in test_torch_mesh.py);
+- the compression functions bit-equal to the reference's, and
+  ``compressed_psum`` asking for a mesh when none is given or active.
 """
 from pathlib import Path
 
@@ -116,9 +118,14 @@ def test_async_error_propagates(tmp_path):
 
 
 def test_reshard_on_load_is_not_ported(tmp_path):
+    # a None sharding (the reference's default device) loads the leaf as
+    # load without shardings does; a NamedSharding reshards onto its mesh
+    # (tests/test_torch_mesh.py)
     C.save(tmp_path, 1, _tree())
-    with pytest.raises(NotImplementedError, match="12f"):
-        C.load(tmp_path, _zeros_like(_tree()), shardings={"w": None})
+    plain, _ = C.load(tmp_path, _zeros_like(_tree()))
+    loaded, _ = C.load(tmp_path, _zeros_like(_tree()), shardings={"w": None})
+    for a, b in zip(tree_leaves(loaded), tree_leaves(plain)):
+        assert torch.equal(a, b)
 
 
 def _train_states(seed=0):
@@ -229,13 +236,20 @@ def test_degraded_mesh_and_rescale_equal_reference():
 
 
 def test_remesh_lays_out_the_chosen_devices():
-    devs = [torch.device("cpu")] * 6 + ["spare"]
-    cand = E.plan_degraded_mesh(6, prefer_model=2)
-    mesh = E.remesh(cand, devices=devs)
-    assert mesh.shape == cand.shape == (3, 2)
-    assert list(mesh.flat) == devs[:6]
-    with pytest.raises(ValueError):
-        E.remesh(E.plan_degraded_mesh(8), devices=devs)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import end_local_group, start_local_group
+    start_local_group("cpu")
+    try:
+        cand = E.plan_degraded_mesh(1, prefer_model=2)
+        mesh = E.remesh(cand, device_type="cpu")
+        assert mesh.shape == cand.shape == (1, 1)
+        assert mesh.mesh_dim_names == cand.axes == ("data", "model")
+        assert mesh.mesh.flatten().tolist() == [0]
+        with pytest.raises(ValueError):
+            E.remesh(E.plan_degraded_mesh(8), device_type="cpu")
+    finally:
+        end_local_group()
+    assert not dist.is_initialized()
     with pytest.raises(Exception):
         cand.shape = (2, 2)
 
@@ -273,5 +287,5 @@ def test_compression_bit_equal_reference(dtype):
                                           np.asarray(b, np.float32))
         for a, b in zip(tree_leaves(res), jax.tree.leaves(jres)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="12f"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         GC.compressed_psum(xt, "pod")
