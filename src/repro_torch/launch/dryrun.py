@@ -26,8 +26,8 @@ shards of parameters, optimizer state, batch and caches) and the traced
 peak of the tensors the step makes; ``cost_analysis`` and
 ``hlo_analysis`` come from the analysis. Keys with no counterpart are
 listed under ``no_counterpart`` with the reason. A cell whose trace fails
-(or passes ``--time-limit``) is written with ``"status": "error"`` and
-its error, as the reference does, and keeps its argument bytes.
+is written with ``"status": "error"`` and its error, as the reference
+does, and keeps its argument bytes.
 """
 from __future__ import annotations
 
@@ -122,7 +122,7 @@ def _fake_dtensors(args, shardings):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: Path, overrides: dict = None,
-             microbatches: int = 0, time_limit: float = None) -> dict:
+             microbatches: int = 0) -> dict:
     t_start = time.time()
     cfg = get_config(arch)
     if overrides:
@@ -173,7 +173,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             t0 = time.time()
             with activation_rules(plan.act_rules, plan.axis_sizes, mesh), \
                     implicit_replication():
-                st = analyze_step(step, *dargs, time_limit=time_limit)
+                st = analyze_step(step, *dargs)
             record["lower_s"] = round(time.time() - t0, 2)
         record["memory_analysis"]["peak_traced_bytes"] = st.peak_bytes
         record["cost_analysis"] = {"flops": st.dot_flops,
@@ -214,9 +214,6 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--microbatches", type=int, default=0)
-    ap.add_argument("--time-limit", type=float, default=None,
-                    help="seconds a cell's trace may take before it is "
-                         "recorded as an error (default: none)")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     args = ap.parse_args(argv)
     out = Path(args.out)
@@ -240,8 +237,7 @@ def main(argv=None):
             if prev.get("status") == "ok":
                 skipped += 1
                 continue
-        rec = run_cell(arch, shape, mp, out, microbatches=args.microbatches,
-                       time_limit=args.time_limit)
+        rec = run_cell(arch, shape, mp, out, microbatches=args.microbatches)
         ok += rec["status"] == "ok"
         failed += rec["status"] != "ok"
     print(f"[dryrun] done: {ok} ok, {failed} failed, {skipped} skipped; "

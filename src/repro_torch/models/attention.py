@@ -63,6 +63,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.models import layers as L
 from repro_torch.parallel import act_sharding as ash
+from repro_torch.parallel.hlo_analysis import flash_region
 
 _ROADMAP = "ROADMAP Queue 1"
 
@@ -135,11 +136,13 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _local_flash(q, k, v, causal):
-    if k.dtype == q.dtype and v.dtype == q.dtype:
-        return _flash(q, k, v, causal)
-    # mixed dtypes: the kernel of the promoted dtype, the output in q's
-    dt = torch.promote_types(q.dtype, torch.promote_types(k.dtype, v.dtype))
-    return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
+    with flash_region():
+        if k.dtype == q.dtype and v.dtype == q.dtype:
+            return _flash(q, k, v, causal)
+        # mixed dtypes: the kernel of the promoted dtype, the output in q's
+        dt = torch.promote_types(q.dtype,
+                                 torch.promote_types(k.dtype, v.dtype))
+        return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
 
 
 def _sharded_flash(q, k, v, causal: bool):

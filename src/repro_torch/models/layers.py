@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.parallel import act_sharding as ash
 
 # stacking axes: not part of a leaf's fan-in
 _STACK_AXES = ("layers", "experts")
@@ -201,30 +202,10 @@ def conv_impl(fn):
         _CONV_IMPL = prev
 
 
-def gather_for(w, x):
-    """A weight DTensor ``w`` laid out for its product with the activation
-    DTensor ``x``: gathered over each mesh dim on which ``x`` is sharded
-    along a dim other than its last (the batch: fully sharded data
-    parallel), so a product keeps the batch's layout and the weight's
-    tensor-parallel shards; ``w`` as it is otherwise. DTensor picks each
-    op's layout alone, and left to itself it shards the contraction and
-    reduces the partial sums over the sequence."""
-    if getattr(w, "placements", None) is None \
-            or getattr(x, "placements", None) is None:
-        return w
-    from torch.distributed.tensor import Replicate, Shard
-    last = x.dim() - 1
-    want = [Replicate() if isinstance(xp, Shard) and xp.dim != last else wp
-            for xp, wp in zip(x.placements, w.placements)]
-    if want == list(w.placements):
-        return w
-    return w.redistribute(w.device_mesh, want)
-
-
 def dense(p, x: torch.Tensor) -> torch.Tensor:
     if _DENSE_IMPL is not None:
         return _DENSE_IMPL(p, x)
-    y = x @ gather_for(p["w"], x).to(x.dtype)
+    y = x @ ash.for_product(p["w"]).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -264,24 +245,10 @@ def norm_def(dim: int, kind: str) -> Dict[str, ParamDef]:
     return d
 
 
-def reduced(x):
-    """A DTensor holding partial sums (a row-parallel product's output)
-    with them summed over the mesh; anything else as it is. DTensor keeps
-    partial sums through linear ops; a norm reduces its input first, once,
-    where DTensor would reduce a copy for the statistics and carry the
-    partial sums on into the next product."""
-    pl = getattr(x, "placements", None)
-    if pl is None or not any(q.is_partial() for q in pl):
-        return x
-    from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [Replicate() if q.is_partial()
-                                          else q for q in pl])
-
-
 def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6):
     """RMS or layer norm over the last dim, computed in float32 and cast
     back to ``x.dtype``."""
-    xf = reduced(x).to(torch.float32)
+    xf = ash.complete(x).to(torch.float32)
     if kind == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     else:
@@ -299,7 +266,7 @@ def embed_def(vocab: int, dim: int) -> Dict[str, ParamDef]:
 
 
 def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
-    return gather_for(p["table"], ids)[ids]
+    return ash.for_product(p["table"])[ids]
 
 
 def activation(name: str):

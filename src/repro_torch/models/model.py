@@ -178,7 +178,7 @@ def embed_tokens_at(params, token: torch.Tensor, pos, cfg: ModelConfig):
 def head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
-        logits = x @ L.gather_for(params["embed"]["table"], x).to(x.dtype).T
+        logits = x @ act.for_product(params["embed"]["table"]).to(x.dtype).T
     else:
         logits = L.dense(params["lm_head"], x)
     return act.constrain(logits, "batch", "seq", "vocab")

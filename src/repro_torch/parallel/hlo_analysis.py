@@ -29,18 +29,24 @@ shards and the mode sees what one rank executes) and counts:
 
 DTensor derives each op's global output shape by running the op on fake
 global-shape tensors; those runs are not the rank's work and are not
-counted. Python loops execute every layer, so there is no loop body
-counted once and ``trip_counts`` has no counterpart: it stays empty. The
-reference's ``_shape_bytes``/``_shape_dims`` parse HLO text types and have
+counted. They are told apart by wrapping the one place DTensor makes
+them, ``ShardingPropagator._propagate_tensor_meta_non_cached``
+(``torch.distributed.tensor._sharding_prop``): a private name of
+PyTorch, which a release may rename; the analysis then fails with an
+``AttributeError`` naming it. The attention's local call marks itself
+with ``flash_region()`` (models/attention.py), which counts its made
+tensors as ``flash_bytes``.
+
+Python loops execute every layer, so there is no loop body counted once
+and ``trip_counts`` has no counterpart: it stays empty. The reference's ``_shape_bytes``/``_shape_dims`` parse HLO text types and have
 no counterpart either: the mode reads each tensor's shape and dtype.
 """
 from __future__ import annotations
 
 import contextlib
-import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -90,12 +96,10 @@ def _nbytes(t: torch.Tensor) -> int:
 class _Counter(TorchDispatchMode):
     """Counts one rank's local ops into ``stats`` (module docstring)."""
 
-    def __init__(self, stats: HLOStats, deadline: Optional[float]):
+    def __init__(self, stats: HLOStats):
         super().__init__()
         self.stats = stats
-        self.deadline = deadline
         self.shadow = 0            # inside DTensor's global-shape inference
-        self.flash = 0             # inside the attention's local call
         self.live = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -108,9 +112,6 @@ class _Counter(TorchDispatchMode):
             return out
         st = self.stats
         st.ops += 1
-        if self.deadline is not None and st.ops % 256 == 0 \
-                and time.monotonic() > self.deadline:
-            raise TimeoutError("the step's trace passed its time limit")
         name = func._overloadpacket.__name__
         ns = func.namespace
         if ns == "_c10d_functional" or ns == "_dtensor":
@@ -129,7 +130,7 @@ class _Counter(TorchDispatchMode):
         made = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         n = sum(_nbytes(t) for t in made)
         st.hbm_bytes += 2.0 * n
-        if self.flash:
+        if _FLASH_DEPTH[0]:
             st.flash_bytes += 2.0 * n
         for t in made:
             self._track(t)
@@ -147,47 +148,42 @@ class _Counter(TorchDispatchMode):
         weakref.finalize(t, free)
 
 
+_FLASH_DEPTH = [0]               # open flash_region() contexts
+
+
 @contextlib.contextmanager
-def _patched(obj, name, wrap):
-    old = getattr(obj, name)
-    setattr(obj, name, wrap(old))
+def flash_region():
+    """Marks the attention's local call: what ``analyze_step`` sees made
+    inside it counts also as ``flash_bytes``. Costs one increment when no
+    analysis runs."""
+    _FLASH_DEPTH[0] += 1
     try:
         yield
     finally:
-        setattr(obj, name, old)
+        _FLASH_DEPTH[0] -= 1
 
 
-def analyze_step(fn, *args, time_limit: Optional[float] = None,
-                 **kwargs) -> HLOStats:
+def analyze_step(fn, *args, **kwargs) -> HLOStats:
     """Run ``fn(*args, **kwargs)`` once and count what one rank executes
-    (module docstring). ``time_limit``: seconds after which the trace
-    raises ``TimeoutError``. The result of ``fn`` is dropped."""
+    (module docstring). The result of ``fn`` is dropped."""
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    from repro_torch.models import attention as A
     stats = HLOStats()
-    counter = _Counter(stats, None if time_limit is None
-                       else time.monotonic() + time_limit)
+    counter = _Counter(stats)
+    name = "_propagate_tensor_meta_non_cached"
+    inner = getattr(ShardingPropagator, name)
 
-    def shadowed(inner):
-        def run(*a, **k):
-            counter.shadow += 1
-            try:
-                return inner(*a, **k)
-            finally:
-                counter.shadow -= 1
-        return run
+    def shadowed(*a, **k):
+        counter.shadow += 1
+        try:
+            return inner(*a, **k)
+        finally:
+            counter.shadow -= 1
 
-    def flashed(inner):
-        def run(*a, **k):
-            counter.flash += 1
-            try:
-                return inner(*a, **k)
-            finally:
-                counter.flash -= 1
-        return run
-
-    with _patched(ShardingPropagator, "_propagate_tensor_meta_non_cached",
-                  shadowed), _patched(A, "_local_flash", flashed), counter:
-        out = fn(*args, **kwargs)
-        del out
+    setattr(ShardingPropagator, name, shadowed)
+    try:
+        with counter:
+            out = fn(*args, **kwargs)
+            del out
+    finally:
+        setattr(ShardingPropagator, name, inner)
     return stats

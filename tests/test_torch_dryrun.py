@@ -168,6 +168,8 @@ def _param_bytes(arch, overrides, shape_name, multi_pod):
 def test_dryrun_cells_trace_on_the_production_meshes(tmp_path):
     sm = get_smoke("smollm_135m")
     overrides = {k: getattr(sm, k) for k in SMOKE_KEYS}
+    moe = get_smoke("qwen3_moe_235b")
+    moe_overrides = {k: getattr(moe, k) for k in SMOKE_KEYS}
     out = _run(f"""
         import json
         from pathlib import Path
@@ -176,10 +178,11 @@ def test_dryrun_cells_trace_on_the_production_meshes(tmp_path):
         for shape, mp in {CELLS!r}:
             D.run_cell("smollm_135m", shape, mp, out,
                        overrides={overrides!r})
-        # a cell whose trace fails (here: past its time limit) is written
-        # as an error, as the reference writes one
-        D.run_cell("smollm_135m", "train_4k", False, out / "bad",
-                   overrides={overrides!r}, time_limit=0.0)
+        # a cell whose trace fails (the MoE's sorted dispatch: DTensor has
+        # no sharding strategy for searchsorted) is written as an error,
+        # as the reference writes one
+        D.run_cell("qwen3_moe_235b", "train_4k", False, out / "bad",
+                   overrides={moe_overrides!r})
     """, timeout=600)
     assert out.count(": OK") == 3 and out.count(": FAILED") == 1, out
     for shape, mp in CELLS:
@@ -201,11 +204,12 @@ def test_dryrun_cells_trace_on_the_production_meshes(tmp_path):
         if shape == "decode_32k":
             assert rec["memory_analysis"]["caches_bytes"] > 0
     bad = json.loads((tmp_path / "bad" /
-                      "smollm_135m__train_4k__pod1.json").read_text())
+                      "qwen3_moe_235b__train_4k__pod1.json").read_text())
     assert bad["status"] == "error"
-    assert bad["error"].startswith("TimeoutError"), bad["error"]
+    assert bad["error"].startswith("NotImplementedError"), bad["error"]
+    assert "searchsorted" in bad["error"], bad["error"]
     assert bad["memory_analysis"]["params_bytes"] == _param_bytes(
-        "smollm_135m", overrides, "train_4k", False)
+        "qwen3_moe_235b", moe_overrides, "train_4k", False)
 
 
 def test_dryrun_cli_writes_a_cell(tmp_path):

@@ -45,6 +45,7 @@ from tests._subproc import check  # noqa: E402
 
 SRC = str(Path(__file__).resolve().parent.parent / "src")
 REL = 1e-5
+REL_REF = 1e-5                   # against the reference's mesh run
 SHAPE = (16, 32)                 # (batch, tokens): 16 rows shard over "data"
 TCFG = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
 
@@ -71,7 +72,10 @@ def run_ranks(code: str, world: int, tmp_path: Path, init: bool = True,
     script = tmp_path / f"ranks_{tag}.py"
     script.write_text(PRELUDE + (INIT if init else "")
                       + textwrap.dedent(code)
+                      # no rank tears its group down while a peer may
+                      # still be finishing a collective with it
                       + "\nif dist.is_initialized():\n"
+                        "    dist.barrier()\n"
                         "    dist.destroy_process_group()\n")
     out = tmp_path / f"out_{tag}"
     out.mkdir()
@@ -141,9 +145,48 @@ if RANK == 0:
 """
 
 
-def test_sharded_training_matches_one_rank(tmp_path):
-    out = run_ranks(SHARDED_TRAIN, 4, tmp_path)
-    got = torch.load(out / "mesh.pt")
+REF_SHARDED_TRAIN = f"""
+import pickle
+import jax, numpy as np
+from repro.configs import get_smoke
+from repro.configs.base import MeshConfig, ShapeConfig, TrainConfig
+from repro.data.pipeline import DataConfig, TokenPipeline
+from repro.launch import train as JT
+from repro.launch.mesh import make_host_mesh
+from repro.models import model as M
+from repro.parallel.act_sharding import activation_rules
+from repro.parallel.sharding import make_plan
+cfg = get_smoke("smollm_135m").replace(dtype="float32")
+tcfg = TrainConfig(**{TCFG!r})
+B, L = {SHAPE!r}
+mesh = make_host_mesh(2, 2)
+_, _, losses = JT.train(cfg, tcfg, batch=B, seq=L, steps=3, mesh=mesh,
+                        log_every=0)
+plan = make_plan(cfg, ShapeConfig("custom", "train", L, B), mesh,
+                 MeshConfig(), "train")
+params = jax.device_put(M.init_params(cfg, jax.random.PRNGKey(tcfg.seed)),
+                        plan.param_shardings(cfg))
+pipe = TokenPipeline(DataConfig(cfg.vocab_size, L, B, seed=0))
+batch = jax.device_put({{"tokens": pipe.batch(0)["tokens"]}},
+                       plan.batch_shardings(cfg, "train"))
+with mesh, activation_rules(plan.act_rules):
+    g = jax.jit(jax.grad(lambda p, b: M.loss_fn(p, b, cfg)[0]))(params, batch)
+with open(sys.argv[1], "wb") as f:
+    pickle.dump({{"losses": losses,
+                 "grads": jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                       g)}}, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def sharded_run(tmp_path_factory):
+    """The (2, 2) gloo ranks' losses, first-step gradients and layouts."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    return torch.load(run_ranks(SHARDED_TRAIN, 4, tmp) / "mesh.pt")
+
+
+def test_sharded_training_matches_one_rank(sharded_run):
+    got = sharded_run
     # the plan shards the batch over "data" and parameters over both axes
     assert got["batch_axes"] == ("data",)
     assert got["tokens"] == "(Shard(dim=0), Replicate())"
@@ -160,6 +203,26 @@ def test_sharded_training_matches_one_rank(tmp_path):
     gaps = [_rel(a, b) for a, b in zip(tree_leaves(got["grads"]),
                                        tree_leaves(g))]
     assert max(gaps) <= REL, gaps
+
+
+def test_sharded_training_matches_reference_mesh(sharded_run, tmp_path):
+    """The same run against the reference's ``train(mesh=)`` and its
+    first-step gradients on a (2, 2) mesh of four fake XLA devices."""
+    import pickle
+    from repro_torch.models import model as M
+    ref = tmp_path / "ref.pkl"
+    check("import sys\nsys.argv[1:] = [" + repr(str(ref)) + "]\n"
+          + REF_SHARDED_TRAIN, n_devices=4)
+    with open(ref, "rb") as f:
+        want = pickle.load(f)
+    got = sharded_run
+    for a, b in zip(got["losses"], want["losses"]):
+        assert abs(a - b) <= REL_REF * abs(b), (got["losses"],
+                                                want["losses"])
+    g = M.params_from_numpy(want["grads"], _smoke(), device="cpu")
+    gaps = [_rel(a, b) for a, b in zip(tree_leaves(got["grads"]),
+                                       tree_leaves(g))]
+    assert max(gaps) <= REL_REF, gaps
 
 
 ONE_BY_ONE = f"""
@@ -347,6 +410,11 @@ def test_remesh_on_fake_ranks(tmp_path):
         assert set(mesh.mesh.flatten().tolist()) == set(healthy)
         full = remesh(plan_degraded_mesh(len(ranks)), device_type="cpu")
         assert full.shape == (1, 8)
+        # the first six of seven survivors, laid out (3, 2)
+        six = plan_degraded_mesh(6, prefer_model=2)
+        laid = remesh(six, devices=[0, 1, 2, 3, 4, 5, 7], device_type="cpu")
+        assert laid.shape == six.shape == (3, 2)
+        assert laid.mesh.flatten().tolist() == [0, 1, 2, 3, 4, 5]
         try:
             remesh(plan_degraded_mesh(8), devices=healthy,
                    device_type="cpu")

@@ -118,9 +118,11 @@ def test_async_error_propagates(tmp_path):
 
 
 def test_reshard_on_load_is_not_ported(tmp_path):
-    # a None sharding (the reference's default device) loads the leaf as
-    # load without shardings does; a NamedSharding reshards onto its mesh
-    # (tests/test_torch_mesh.py)
+    """Reshard on load is ported now; the name is the test's earlier one.
+    What stays here: a None sharding (the reference's default device)
+    loads the leaf as load without shardings does. A NamedSharding
+    reshards onto its mesh in tests/test_torch_mesh.py
+    (test_checkpoint_saved_over_four_ranks_loads_over_two)."""
     C.save(tmp_path, 1, _tree())
     plain, _ = C.load(tmp_path, _zeros_like(_tree()))
     loaded, _ = C.load(tmp_path, _zeros_like(_tree()), shardings={"w": None})
@@ -236,6 +238,8 @@ def test_degraded_mesh_and_rescale_equal_reference():
 
 
 def test_remesh_lays_out_the_chosen_devices():
+    """remesh over the one rank of a gloo group; the (3, 2) layout over 6
+    of 7 ranks is tests/test_torch_mesh.py::test_remesh_on_fake_ranks."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import end_local_group, start_local_group
     start_local_group("cpu")
