@@ -11,8 +11,9 @@ the recurrent Zamba2-1.2B and xLSTM-1.3B through the LM forward, open
 generation and (Zamba2) the engine, and the cross-attention
 Llama-3.2-Vision-11B and Whisper-small through the private LM forward,
 the prompt pass and decode, and the training of SmolLM-135M, MiniCPM3-4B
-and Zamba2-1.2B through the trainer, and SmolLM-135M through the
-trainer on a device mesh — and hold every kernel of them
+and Zamba2-1.2B through the trainer, and SmolLM-135M and Qwen3-MoE
+(2 blocks at every width) through the trainer on a device mesh — and
+hold every kernel of them
 against its plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
@@ -395,6 +396,24 @@ Phases (any failure is fatal and exits non-zero):
    shardings=)`` of the plan over ``remesh(plan_degraded_mesh(1))`` and
    resumed to step 4: losses, parameters and optimizer state bit-equal
    to (a)'s straight run.
+37. train moe mesh (after 36) — Qwen3-MoE-235B-A22B at every width (d
+   4096, 64/4 heads of 128, 128 experts of d_ff 1536, top-8,
+   ``sorted_grouped``) and 2 of its 94 blocks (6.22 B parameters), random
+   bf16 weights from the keyed init, bf16 AdamW moments, the reference's
+   default ``TrainConfig()``, the pipeline's 8 x 1024 batches: 3 steps
+   through the mesh-less trainer, its state copied to the host and freed,
+   then the same 3 steps through ``train(mesh=make_host_mesh(1, 1))`` on
+   a one-rank NCCL group (the dispatch's gather and combine on local
+   tensors through ``local_map``, the experts' products as DTensor ops):
+   losses, parameters and moments bit-equal, exactly 4 flash and 2
+   flash_attention_bwd launches a step (2 blocks under remat) and no
+   other kernel, the last loss below the first; ms a step both ways, one
+   more step's device-busy share each way, peak memory and the keyed
+   init's seconds printed; the group destroyed at the end, pass or fail.
+   The trainer donates its state (``adamw.update(donate=True)``): the
+   old and new parameters and moments would not fit the card together.
+   The flash phase's backward sweep holds this shape (G 16 at D 128)
+   against the plain backward at the bf16 gates.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -2273,7 +2292,8 @@ KEY_TILE = 64
 # backward kernel at SmolLM-135M's training shape (the train phase's 8 x
 # 1024, 9/3 heads of 64), and a sweep: float32, non-causal, G 1, ragged 1000
 # and 6, D 128 at G 8 (Yi's heads), MLA's (96, 64) and its smoke widths,
-# MiniCPM3-4B's training shape (8 x 1024, 40/40 heads of (96, 64)), and
+# MiniCPM3-4B's training shape (8 x 1024, 40/40 heads of (96, 64)),
+# Qwen3-MoE's (8 x 1024, 64/4 heads of 128: G 16 at D 128), and
 # the VLM's cross attention (1024 queries against 1601 patches, G 4 at D
 # 128) in bf16 and in float32, its bf16 queries promoted against the float32
 # patches (the call a VLM train step would make)
@@ -2293,6 +2313,8 @@ BWD_CASES = (
      False),
     ("MLA train", 8, 1024, 1024, 40, 40, 96, 64, torch.bfloat16, True,
      False),
+    ("Qwen3-MoE train", 8, 1024, 1024, 64, 4, 128, 128, torch.bfloat16,
+     True, False),
     ("float32 (48, 32)", 2, 130, 130, 4, 4, 48, 32, torch.float32, False,
      False),
     ("VLM cross", 1, 1024, 1601, 32, 8, 128, 128, torch.bfloat16, False,
@@ -4923,6 +4945,151 @@ def phase_train_mesh(dev, card):
     _free()
 
 
+MOE_TRAIN_ARCH = "qwen3_moe_235b"
+MOE_TRAIN_BLOCKS = 2                    # of 94, every width
+MOE_TRAIN_STEPS = 3
+
+
+def _host_copy(state):
+    """(params, AdamWState) leaves and step copied to the host, in order."""
+    p, o = state
+    return [t.detach().to("cpu", copy=True)
+            for t in (o.step, *_leaves(p), *_leaves(o.mu), *_leaves(o.nu))]
+
+
+def _equal_to_host(state, host, dev):
+    """Whether a state (DTensors on a 1 x 1 mesh, or tensors) is bit-equal
+    to ``_host_copy``'s leaves, one leaf on the card at a time."""
+    p, o = state
+    leaves = [o.step, *_leaves(p), *_leaves(o.mu), *_leaves(o.nu)]
+    if len(leaves) != len(host):
+        return False
+    for t, h in zip(leaves, host):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        if not torch.equal(t, h.to(dev)):
+            return False
+    return True
+
+
+def phase_train_moe_mesh(dev, card):
+    """Qwen3-MoE-235B-A22B at every width, ``MOE_TRAIN_BLOCKS`` blocks
+    (``sorted_grouped`` dispatch, all 128 experts), bf16 AdamW moments,
+    the reference's default ``TrainConfig()``, the pipeline's 8 x 1024
+    batches: ``MOE_TRAIN_STEPS`` steps through the mesh-less trainer, the
+    state copied to the host and freed, then the same steps through
+    ``train(mesh=make_host_mesh(1, 1))`` on a one-rank NCCL group (the
+    dispatch's gather and combine through ``local_map``, the experts'
+    products as DTensor ops): losses, parameters and moments bit-equal,
+    exactly ``_train_flash_launches`` flash forward and backward launches
+    each step and no other kernel, the last loss below the first; ms a
+    step both ways, one more step's busy share each way, peak memory and
+    the keyed init's seconds printed. The group is destroyed at the end,
+    pass or fail."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.parallel.sharding import distribute, make_plan
+    cfg = get_config(MOE_TRAIN_ARCH).replace(num_layers=MOE_TRAIN_BLOCKS)
+    if cfg.moe.dispatch != "sorted_grouped":
+        raise AssertionError(f"{cfg.name}: dispatch {cfg.moe.dispatch}")
+    tcfg = TrainConfig(moment_dtype="bfloat16")
+    n_fwd, n_bwd = _train_flash_launches(cfg)
+    want = {"flash_attention": n_fwd, "flash_attention_bwd": n_bwd}
+    steps, tag = MOE_TRAIN_STEPS, f"train moe mesh on {card}"
+    if dist.is_initialized():
+        raise AssertionError(f"{tag}: a process group is already running")
+    t_phase = time.perf_counter()
+
+    def run(mesh=None):
+        torch.cuda.reset_peak_memory_stats()
+        rec = _StepRecorder()
+        launches, wall, out = counted(
+            lambda: _train(cfg, tcfg, steps, dev, rec, mesh=mesh))
+        where = "through the mesh" if mesh is not None else "mesh-less"
+        check_launches(launches, TRAIN_PATH, f"{tag} {where}")
+        for i, got in enumerate(rec.launches):
+            for name in KB.KERNELS:
+                if got[name] != want.get(name, 0):
+                    raise AssertionError(f"{tag} {where} step {i + 1}: "
+                                         f"{got[name]} {name} launches, "
+                                         f"expected {want.get(name, 0)}")
+        losses = out[2]
+        if (len(losses) != steps or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"{tag} {where}: losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, rec, peak
+
+    def busy(b):
+        return "not measured" if b is None else f"{b:.4f}"
+
+    try:
+        # the mesh-less run; its state kept on the host, then freed
+        (p0, o0, l0), rec0, peak0 = run()
+        n_params = sum(t.numel() for t in _leaves(p0))
+        t0 = time.perf_counter()
+        host = _host_copy((p0, o0))
+        copy_s = time.perf_counter() - t0
+        batch = _pipeline_batch(cfg, TRAIN_SHAPE, tcfg.seed, dev)
+        step = S.make_train_step(cfg, tcfg, donate=True)
+        busy0, _ = _busy_share(lambda: step(p0, o0, batch))
+        del p0, o0
+        _free()
+
+        # the same steps through a 1 x 1 mesh
+        mesh = LM.make_host_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError(f"{tag}: the mesh runs {dist.get_backend()} "
+                                 f"on {mesh.device_type}, not NCCL on cuda")
+        (p1, o1, l1), rec1, peak1 = run(mesh)
+        if l1 != l0 or not _equal_to_host((p1, o1), host, dev):
+            raise AssertionError(f"{tag}: the mesh run differs from the "
+                                 f"mesh-less one; losses {l1} vs {l0}")
+        del host
+        plan = make_plan(cfg, ShapeConfig("custom", "train", TRAIN_SHAPE[1],
+                                          TRAIN_SHAPE[0]),
+                         mesh, MeshConfig(), "train")
+        dbatch = distribute(batch, plan.batch_shardings(cfg, "train"))
+
+        def mesh_step():
+            with TR._mesh_scope(plan, mesh):
+                step(p1, o1, dbatch)
+        busy1, top1 = _busy_share(mesh_step)
+        ms0 = [t * 1e3 for t in rec0.watchdog.history]
+        ms1 = [t * 1e3 for t in rec1.watchdog.history]
+        card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        print(f"{tag} ({cfg.name}, {MOE_TRAIN_BLOCKS} of 94 blocks at every "
+              f"width, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+              f"{cfg.moe.dispatch}; {n_params} params, {cfg.dtype}, "
+              f"{tcfg.moment_dtype} moments, TrainConfig() lr "
+              f"{tcfg.learning_rate} over {tcfg.warmup_steps} warm-up steps; "
+              f"{steps} steps of {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]}; a 1 x 1 "
+              f"mesh over a one-rank NCCL group): losses "
+              + " ".join(f"{x:.4f}" for x in l1)
+              + f" bit-equal to the mesh-less run's, parameters and AdamW "
+              f"state bit-equal; {n_fwd} flash and {n_bwd} flash_bwd "
+              f"launches a step, no other kernel; ms a step through the mesh "
+              f"{_spread(ms1[1:])} (first {ms1[0]:.2f}) against mesh-less "
+              f"{_spread(ms0[1:])} (first {ms0[0]:.2f}); one more step's "
+              f"device-busy share {busy(busy1)} through the mesh, "
+              f"{busy(busy0)} mesh-less; peak device memory {peak1:.2f} / "
+              f"{peak0:.2f} GiB of the card's {card_gib:.2f}; the keyed init "
+              f"{rec1.init_s:.2f} / {rec0.init_s:.2f} s (peak "
+              f"{rec1.init_peak:.2f} / {rec0.init_peak:.2f} GiB); the state's "
+              f"host copy {copy_s:.1f} s; top device ops through the mesh: "
+              + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in top1[:4]))
+        print("  step ms through the mesh: "
+              + " ".join(f"{x:.2f}" for x in ms1) + "; mesh-less: "
+              + " ".join(f"{x:.2f}" for x in ms0)
+              + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+        del p1, o1, step, batch, dbatch
+    finally:
+        LM.end_local_group()
+    _free()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5024,6 +5191,8 @@ def main():
     mark("train " + ", ".join(arch for arch, _ in FAMILY_TRAIN))
     phase_train_mesh(dev, card)
     mark("train mesh")
+    phase_train_moe_mesh(dev, card)
+    mark("train moe mesh")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

@@ -5,10 +5,15 @@ config in float32, 3 steps of 16 x 32 on four gloo ranks of the CPU), the
 port's one-rank run and the JAX reference's ``train(mesh=)`` on four fake
 XLA devices, and prints the largest relative loss gap and the largest
 per-leaf relative Frobenius gap of the first step's gradients against
-each; the tests gate both at 1e-5.
+each; the tests gate both at 1e-5. With ``--families`` it does the same
+for ``tests/test_torch_mesh_families.py``'s runs (the sorted_grouped
+Qwen3-MoE and the xLSTM smoke configs, 2 steps), and also prints each
+config's one-rank gradients against the reference's.
 
 Usage:
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_mesh_train_gaps.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_mesh_train_gaps.py \
+        --families
 """
 from __future__ import annotations
 
@@ -36,7 +41,39 @@ def gaps(got, losses, grads):
     return loss, grad
 
 
+def families():
+    import numpy as np
+    import tests.test_torch_mesh_families as f
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        np.save(tmp / "logsig.npy", f._logsig_input())
+        out = t.run_ranks(f.SHARDED_TRAIN, 4, tmp, timeout=600)
+        ranks = torch.load(out / "mesh0.pt", weights_only=False)
+        ref = tmp / "ref.pkl"
+        t.check("import sys\nsys.argv[1:] = [" + repr(str(ref)) + "]\n"
+                + f.REF_SHARDED_TRAIN, n_devices=4, timeout=600)
+        with open(ref, "rb") as fh:
+            want = pickle.load(fh)
+    tcfg = TrainConfig(**f.TCFG)
+    for arch in f.ARCHS:
+        cfg = f._config(arch)
+        got = ranks[arch]
+        gr = M.params_from_numpy(want[arch]["grads"], cfg, device="cpu")
+        params, _ = T.init_train_state(cfg, tcfg, "cpu")
+        g1, _ = S.loss_grads(params, t._batch(cfg), cfg)
+        one = max(t._rel(a, b) for a, b in zip(t.tree_leaves(g1),
+                                               t.tree_leaves(gr)))
+        print("%s: (2, 2) gloo against the reference's (2, 2) mesh: loss "
+              "%.3g, gradients %.3g" % ((arch,) + gaps(
+                  got, want[arch]["losses"], gr)))
+        print("%s: (2, 2) gloo against the one-rank gradients %.3g; the "
+              "one-rank gradients against the reference's %.3g"
+              % (arch, gaps(got, got["losses"], g1)[1], one))
+
+
 def main():
+    if "--families" in sys.argv[1:]:
+        return families()
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
         got = torch.load(t.run_ranks(t.SHARDED_TRAIN, 4, tmp) / "mesh.pt")

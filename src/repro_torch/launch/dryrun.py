@@ -24,7 +24,9 @@ Each cell writes the reference's JSON record. ``lower_s`` is the trace's
 seconds; ``memory_analysis`` holds one rank's argument bytes (the local
 shards of parameters, optimizer state, batch and caches) and the traced
 peak of the tensors the step makes; ``cost_analysis`` and
-``hlo_analysis`` come from the analysis. Keys with no counterpart are
+``hlo_analysis`` come from the analysis; ``peak_traced_bytes_outside_flash``
+is that peak without the attention plain version's own tensors (its
+float32 scores: the kernel keeps them on chip). Keys with no counterpart are
 listed under ``no_counterpart`` with the reason. A cell whose trace fails
 is written with ``"status": "error"`` and its error, as the reference
 does, and keeps its argument bytes.
@@ -176,6 +178,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 st = analyze_step(step, *dargs)
             record["lower_s"] = round(time.time() - t0, 2)
         record["memory_analysis"]["peak_traced_bytes"] = st.peak_bytes
+        record["memory_analysis"]["peak_traced_bytes_outside_flash"] = \
+            st.peak_outside_flash_bytes
         record["cost_analysis"] = {"flops": st.dot_flops,
                                    "bytes accessed": st.hbm_bytes}
         record["hlo_analysis"] = {
@@ -187,7 +191,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             "trip_counts": st.trip_counts,
             "local_ops": st.ops,
         }
-        record["no_counterpart"] = NO_COUNTERPART
+        record["no_counterpart"] = dict(NO_COUNTERPART)
+        if st.trip_counts:
+            record["no_counterpart"]["hlo_analysis.trip_counts"] = (
+                "the sLSTM's token loops: one step traced for each, counted "
+                "for its trips (parallel/hlo_analysis.py:trips); every other "
+                "loop ran every trip")
         record["status"] = "ok"
         print(f"[dryrun] {record['cell']}: OK (trace {record['lower_s']}s)")
         print(f"  memory_analysis: {record['memory_analysis']}")

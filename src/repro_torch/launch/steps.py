@@ -37,11 +37,14 @@ def loss_grads(params, batch, cfg: ModelConfig):
     return tree_map(lambda _: next(grads), p), ce.detach()
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
+                    donate: bool = False):
     """Returns ``step(params, opt, batch) -> (params, opt, metrics)``;
     with ``tcfg.grad_compression`` the signature becomes ``step(params,
     opt, batch, residual) -> (..., residual)``: int8 error-feedback
-    compression of the gradient before the update."""
+    compression of the gradient before the update. With ``donate`` the
+    step overwrites ``params`` and ``opt``'s tensors with the new state
+    (``adamw.update``'s ``donate``)."""
     m = tcfg.microbatches
 
     def split(v):
@@ -81,7 +84,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         lr = adamw.lr_schedule(tcfg, opt_state.step)
         grads, ce = _grads_and_ce(params, batch)
         new_params, new_opt, om = adamw.update(grads, opt_state, params,
-                                               tcfg, lr)
+                                               tcfg, lr, donate=donate)
         return new_params, new_opt, {"loss": ce, "lr": lr, **om}
 
     def train_step_compressed(params, opt_state, batch, residual):
@@ -90,7 +93,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         grads, ce = _grads_and_ce(params, batch)
         grads, residual = GC.apply_error_feedback(grads, residual)
         new_params, new_opt, om = adamw.update(grads, opt_state, params,
-                                               tcfg, lr)
+                                               tcfg, lr, donate=donate)
         return new_params, new_opt, {"loss": ce, "lr": lr, **om}, residual
 
     return train_step_compressed if tcfg.grad_compression else train_step

@@ -16,7 +16,9 @@ the run is bit-equal to the mesh-less one. Parameters come from
 ``layers.init_params_keyed`` with the reference's key, so they are the
 reference's ``M.init_params(cfg, PRNGKey(seed))``; the step is
 ``launch/steps.py:make_train_step`` (a training forward with
-checkpointed blocks and the flash backward kernel), the data
+checkpointed blocks and the flash backward kernel) with ``donate=True``:
+it overwrites the parameters and moments, as the reference's jitted step
+donates them, so the card holds one copy of the state; the data
 ``data/pipeline.py``'s counter-based batches, checkpoints
 ``runtime/checkpoint.py``'s format.
 
@@ -127,7 +129,9 @@ def train(cfg, tcfg: TrainConfig, *, batch: int, seq: int, steps: int,
     pipe = TokenPipeline(DataConfig(cfg.vocab_size, seq, batch,
                                     seed=tcfg.seed),
                          shard=0, num_shards=1)
-    step_fn = make_train_step(cfg, tcfg)
+    # the trainer owns its state: each step overwrites it, as the
+    # reference's jitted step donates it
+    step_fn = make_train_step(cfg, tcfg, donate=True)
     watchdog = StepWatchdog()
     losses = []
     for step in range(start_step, steps):

@@ -214,7 +214,10 @@ def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     if window > 0:
         mask &= (pos - kpos) < window
     s = s.masked_fill(~mask[None, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
+    # on a mesh: the probabilities laid out by batch alone (DTensor's
+    # einsum miscomputes a local view when the group dim is sharded over
+    # the axis that also shards the cache's head width)
+    p = ash.constrain(torch.softmax(s, dim=-1), "batch", None, None, None)
     out = torch.einsum("bhgk,bkhd->bhgd", p, cache_v.to(torch.float32))
     # on a mesh: summed over the sequence shards and laid out by batch
     # alone before the heads merge (a view cannot merge split head shards)
@@ -222,30 +225,11 @@ def decode_sdpa(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
     return out.reshape(B, 1, H, out.shape[-1]).to(q.dtype)
 
 
-def _split_heads(t: torch.Tensor, B: int, S: int, H: int) -> torch.Tensor:
-    """(B, S, H * D) -> (B, S, H, D). A DTensor whose flat dim is sharded
-    over mesh dims that do not divide H (SmolLM's 3 KV heads over 2 ranks)
-    is first replicated over them: a view cannot split a shard."""
-    if ash.is_dtensor(t):
-        from torch.distributed.tensor import Replicate, Shard
-        last = t.dim() - 1
-        mesh = t.device_mesh
-        over = [i for i, pl in enumerate(t.placements) if pl == Shard(last)]
-        n = 1
-        for i in over:
-            n *= mesh.shape[i]
-        if H % n:
-            t = t.redistribute(mesh, [Replicate() if i in over else pl
-                                      for i, pl in enumerate(t.placements)])
-    return t.reshape(B, S, H, -1)
-
-
 def gqa_project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor):
-    B, S, _ = x.shape
-    q = _split_heads(L.dense(p["wq"], x), B, S, cfg.num_heads)
-    k = _split_heads(L.dense(p["wk"], x), B, S, cfg.num_kv_heads)
-    v = _split_heads(L.dense(p["wv"], x), B, S, cfg.num_kv_heads)
+    q = ash.unflatten_last(L.dense(p["wq"], x), (cfg.num_heads, -1))
+    k = ash.unflatten_last(L.dense(p["wk"], x), (cfg.num_kv_heads, -1))
+    v = ash.unflatten_last(L.dense(p["wv"], x), (cfg.num_kv_heads, -1))
     if cfg.rope_theta > 0:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -294,13 +278,17 @@ def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    q = L.dense(p["wq_b"], L.apply_norm(p["q_norm"], L.dense(p["wq_a"], x),
-                                        "rmsnorm"))
+    # on a mesh each latent is normed whole: DTensor's backward of a norm
+    # over a sharded dim leaves its gradient sharded over the sequence,
+    # which the projection's weight gradient (a matmul over the flattened
+    # tokens) cannot take under fake tensors
+    q = L.dense(p["wq_b"], L.apply_norm(p["q_norm"], ash.constrain(
+        L.dense(p["wq_a"], x), "batch", "seq", None), "rmsnorm"))
     q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-    kv_a = L.dense(p["wkv_a"], x)
+    kv_a = ash.constrain(L.dense(p["wkv_a"], x), "batch", "seq", None)
     latent, k_rope = torch.split(
         kv_a, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     latent = L.apply_norm(p["kv_norm"], latent, "rmsnorm")
@@ -414,9 +402,8 @@ def cross_attn_defs(cfg: ModelConfig) -> Dict[str, object]:
 def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
     """The cross-attention K/V (B, M, KH, D) of a memory (B, M, d), in the
     memory's dtype."""
-    B, M = memory.shape[:2]
-    k = _split_heads(L.dense(p["wk"], memory), B, M, cfg.num_kv_heads)
-    v = _split_heads(L.dense(p["wv"], memory), B, M, cfg.num_kv_heads)
+    k = ash.unflatten_last(L.dense(p["wk"], memory), (cfg.num_kv_heads, -1))
+    v = ash.unflatten_last(L.dense(p["wv"], memory), (cfg.num_kv_heads, -1))
     return k, v
 
 
@@ -425,8 +412,7 @@ def cross_attn_forward(p, x: torch.Tensor, memory: torch.Tensor,
     """x: (B,S,d) queries; memory: (B,M,d) encoder or vision states,
     attended without a mask."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = L.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    q = ash.unflatten_last(L.dense(p["wq"], x), (cfg.num_heads, -1))
     k, v = cross_kv(p, memory, cfg)
     out = sdpa(q, k, v, causal=False)
     return L.dense(p["wo"], out.reshape(B, S, -1))
@@ -437,7 +423,6 @@ def cross_attn_cached(p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     """Cross-attention against precomputed K/V (B, M, KH, D): a decode
     step's query (S = 1) through ``sdpa``, as in the reference."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = L.dense(p["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    q = ash.unflatten_last(L.dense(p["wq"], x), (cfg.num_heads, -1))
     out = sdpa(q, ck, cv, causal=False)
     return L.dense(p["wo"], out.reshape(B, S, -1))

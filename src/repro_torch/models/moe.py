@@ -39,6 +39,27 @@ Where the port departs from the reference's code, not its function:
   the layer runs inside a CUDA graph capture.
 - ``act_sharding.constrain`` pins the groups over the batch axes at the
   reference's two points; it is a no-op without a mesh.
+- The dispatch's gather has a backward of its own (``_DispatchRows``):
+  each token's slots summed by a gather in ascending-expert order, the
+  order the CPU's ``index_add_`` takes; on the card ``index_select``'s
+  backward adds with atomics, so two runs of a train step differed.
+
+On a device mesh (DTensors, launch/train.py's ``mesh=``) the grouping is
+the reference's whatever the mesh (32 groups, halved until they divide
+the tokens), and the mesh decides only where each group's rows live: the
+routing's top-k, the sort, ``searchsorted`` and the gather of each group's
+rows (``_fill``) and the combine (``_combine``) run on each rank's own
+groups through ``local_map``, the groups over the active rules' batch axes
+(``act_sharding.batch_placements``), as the reference's per-group sort is
+local under its batch constraint; the router's product and the experts'
+(``_expert_ffn``) stay DTensor ops, so the experts' layout and the
+token-to-expert exchange are DTensor's. This, not a sharding strategy
+registered for ``searchsorted``: the sort, the searches and the index
+arithmetic are per group by construction, and a strategy for each of
+their ops (``searchsorted``, the batched ``argsort``/``gather`` and the
+index arithmetic, ~30 DTensor dispatches a layer) would only restate
+that; on one rank the local functions see the whole tensors, so a 1 x 1
+mesh computes the mesh-less bits.
 """
 from __future__ import annotations
 
@@ -90,8 +111,12 @@ def _route(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (..., T, d) -> (weights (..., T, k) float32, experts (..., T, k),
     aux loss (...)): the leading dims are token groups, each with its own
     load-balancing loss."""
+    return _top_k(x.to(torch.float32) @ p["router"]["w"], cfg)
+
+
+def _top_k(logits: torch.Tensor, cfg: ModelConfig):
+    """``_route`` from the router's logits (..., T, E)."""
     m = cfg.moe
-    logits = x.to(torch.float32) @ p["router"]["w"]              # (..., T, E)
     probs = torch.softmax(logits, dim=-1)
     # lax.top_k's order: descending, the lower expert first on a tie
     weights, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -140,13 +165,25 @@ def _dispatch_groups(p, xg: torch.Tensor, cfg: ModelConfig):
     (y (G, Tg, d), aux (G,)): each group routes, sorts and fills its own
     (E, C) capacity buffers, C from its Tg tokens, as one call of the
     reference's ``_dispatch_sorted`` on it."""
+    if ash.is_dtensor(xg):
+        return _sharded_groups(p, xg, cfg)
+    weights, experts, aux = _route(p, xg, cfg)                   # (G, Tg, k)
+    buf, se, rank, sw, pick = _fill(xg, weights, experts, cfg)
+    return _combine(_expert_ffn(p, buf, cfg), se, rank, sw, pick), aux
+
+
+def _fill(xg: torch.Tensor, weights, experts, cfg: ModelConfig):
+    """Sort each group's assignments and gather its rows. xg: (G, Tg, d),
+    the routing's weights and experts (G, Tg, k) -> (capacity buffers
+    (E, G·C, d); per group the sorted assignments' experts ``se`` and
+    ranks within their expert (G, N), their weights ``sw`` (G, N), each
+    token's k sorted indices by ascending expert ``pick`` (G, Tg, k))."""
     m = cfg.moe
     G, Tg, d = xg.shape
     E, k = m.num_experts, m.top_k
     N = Tg * k                                                   # assignments
     C = _capacity(Tg, cfg)
     dev = xg.device
-    weights, experts, aux = _route(p, xg, cfg)                   # (G, Tg, k)
     flat_e = experts.reshape(G, N)
     order = torch.argsort(flat_e, dim=-1, stable=True)           # (G, N)
     se = torch.gather(flat_e, 1, order)
@@ -156,7 +193,6 @@ def _dispatch_groups(p, xg: torch.Tensor, cfg: ModelConfig):
     starts = torch.searchsorted(se, ids)                         # (G, E)
     counts = torch.searchsorted(se, ids, right=True) - starts
     rank = torch.arange(N, device=dev) - torch.gather(starts, 1, se)
-    keep = rank < C
 
     # capacity buffers, laid out (E, G, C) so the experts' bmm reads each
     # bank once: slot (e, g, c) <- token stok[g, starts[g, e] + c] when
@@ -166,26 +202,96 @@ def _dispatch_groups(p, xg: torch.Tensor, cfg: ModelConfig):
     tok = torch.gather(stok, 1, src.reshape(G, E * C)).reshape(G, E, C)
     g_ix = torch.arange(G, device=dev)[:, None, None]
     row = torch.where(c_ix < counts[:, :, None], g_ix * Tg + tok, G * Tg)
-    x_rows = torch.cat([xg.reshape(G * Tg, d), xg.new_zeros((1, d))])
-    buf = x_rows.index_select(0, row.permute(1, 0, 2).reshape(-1))
-    ye = _expert_ffn(p, buf.reshape(E, G * C, d), cfg)          # (E, G*C, d)
-
-    # each sorted assignment's expert row, zero where it was dropped
-    back = (se * (G * C) + g_ix[:, :, 0] * C
-            + torch.clamp(rank, max=C - 1))                      # (G, N)
-    rows = ye.reshape(E * G * C, d).index_select(0, back.reshape(-1))
-    rows = torch.where(keep.reshape(-1, 1), rows, 0.0).reshape(G, N, d)
-    contrib = rows * sw[..., None].to(xg.dtype)
-    # the combine: each token's k rows by ascending expert, added in order
+    # the combine's order: each token's k rows by ascending expert
     inv = torch.argsort(order, dim=-1)      # sorted index of each (t, slot)
     by_expert = torch.argsort(experts, dim=-1)                   # (G, Tg, k)
     pick = torch.gather(inv.reshape(G, Tg, k), 2, by_expert)
+    # each token's k buffer slots in that order (E·G·C where dropped)
+    slot = torch.where(rank < C, _slots(se, rank, C), E * G * C)
+    slot = torch.gather(slot, 1, pick.reshape(G, N)).reshape(G * Tg, k)
+    x_rows = torch.cat([xg.reshape(G * Tg, d), xg.new_zeros((1, d))])
+    buf = _DispatchRows.apply(x_rows, row.permute(1, 0, 2).reshape(-1), slot)
+    return buf.reshape(E, G * C, d), se, rank, sw, pick
+
+
+def _slots(se, rank, C: int):
+    """The (E, G·C) buffer slot of each sorted assignment (G, N), its rank
+    clamped into the capacity."""
+    G = se.shape[0]
+    g_ix = torch.arange(G, device=se.device)[:, None]
+    return se * (G * C) + g_ix * C + torch.clamp(rank, max=C - 1)
+
+
+class _DispatchRows(torch.autograd.Function):
+    """The dispatch's gather ``x_rows[row]``. Its backward sums each
+    token's kept slots in ascending-expert order from zeros by a gather
+    (``slot``: each token's k slots, past the last slot where dropped),
+    which is the order the CPU's ``index_add_`` (``index_select``'s
+    backward) takes; on the card that backward adds with atomics, and a
+    token's rows repeat up to k times, so two runs of a train step would
+    differ."""
+
+    @staticmethod
+    def forward(ctx, x_rows, row, slot):
+        ctx.save_for_backward(slot)
+        ctx.rows = x_rows.shape[0]
+        return x_rows.index_select(0, row)
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, = ctx.saved_tensors
+        g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        dx = g.new_zeros((ctx.rows, g.shape[1]))
+        for j in range(slot.shape[1]):
+            dx[:-1] = dx[:-1] + g.index_select(0, slot[:, j])
+        return dx, None, None
+
+
+def _combine(ye: torch.Tensor, se, rank, sw, pick) -> torch.Tensor:
+    """The experts' rows (E, G·C, d) back to the tokens, from ``_fill``'s
+    indices -> y (G, Tg, d) in ye's dtype: each token's k weighted rows
+    added in ascending-expert order, from zeros."""
+    E, GC, d = ye.shape
+    G, Tg, k = pick.shape
+    N, C = Tg * k, GC // G
+    g_ix = torch.arange(G, device=ye.device)[:, None]
+    # each sorted assignment's expert row, zero where it was dropped
+    rows = ye.reshape(E * G * C, d).index_select(
+        0, _slots(se, rank, C).reshape(-1))
+    rows = torch.where((rank < C).reshape(-1, 1), rows, 0.0).reshape(G, N, d)
+    contrib = rows * sw[..., None].to(ye.dtype)
     picked = contrib.reshape(G * N, d).index_select(
-        0, (g_ix[:, :, 0] * N + pick.reshape(G, N)).reshape(-1))
+        0, (g_ix * N + pick.reshape(G, N)).reshape(-1))
     picked = picked.reshape(G, Tg, k, d)
-    y = xg.new_zeros((G, Tg, d))
+    y = ye.new_zeros((G, Tg, d))
     for j in range(k):
         y = y + picked[:, :, j]
+    return y
+
+
+def _sharded_groups(p, xg, cfg: ModelConfig):
+    """``_dispatch_groups`` of DTensors: the router's product as a DTensor
+    op, then the top-k and ``_fill``, and ``_combine``, on each rank's own
+    groups (the groups over the active rules' batch axes when they divide
+    them, else every group on every rank), the experts' products between
+    them as DTensor ops."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xg.device_mesh
+    g0 = ash.batch_placements(mesh, xg.shape[0], 0)
+    g1 = ash.batch_placements(mesh, xg.shape[0], 1)
+    logits = xg.to(torch.float32) @ ash.for_product(p["router"]["w"])
+
+    def fill(x, lg):
+        weights, experts, aux = _top_k(lg, cfg)
+        return _fill(x, weights, experts, cfg) + (aux,)
+
+    buf, se, rank, sw, pick, aux = local_map(
+        fill, out_placements=(g1,) + (g0,) * 5, in_placements=(g0, g0),
+        device_mesh=mesh, redistribute_inputs=True)(xg, logits)
+    y = local_map(_combine, out_placements=(g0,),
+                  in_placements=(g1, g0, g0, g0, g0), device_mesh=mesh,
+                  redistribute_inputs=True)(
+        _expert_ffn(p, buf, cfg), se, rank, sw, pick)
     return y, aux
 
 

@@ -45,6 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import act_sharding as ash
+from repro_torch.parallel.hlo_analysis import analyzing, trips
 
 f32 = torch.float32
 
@@ -56,7 +58,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.log_sigmoid, ``-softplus(-x)``, in torch's one kernel:
-    ``min(x, 0) - log1p(exp(-|x|))``, the same terms (negation is exact)."""
+    ``min(x, 0) - log1p(exp(-|x|))``, the same terms (negation is exact).
+    DTensor has no sharding strategy for that kernel's forward or backward
+    (``aten.log_sigmoid_forward``/``_backward``), so on a DTensor it runs
+    on each rank's shard through ``act_sharding.local_pointwise``, forward
+    and backward: the bits a plain tensor gets. (An elementwise
+    composition of the same terms rounds apart: torch's ``exp`` is not
+    the kernel's, up to 2 ulps forward and 4 in the gradient in
+    float32.)"""
+    if ash.is_dtensor(x):
+        return ash.local_pointwise(F.logsigmoid, x)
     return F.logsigmoid(x)
 
 
@@ -82,8 +93,59 @@ def chunked_linear_recurrence(q, k, v, log_a, b, *, chunk: int,
     """q,k: (B,S,H,dk); v: (B,S,H,dv); log_a,b: (B,S,H).
 
     Returns (y (B,S,H,dv) float32, (final_state (B,H,dk,dv),
-    final_norm (B,H,dk))).
+    final_norm (B,H,dk))). DTensors from a zero state run on each rank's
+    own rows and heads (``_sharded_recurrence``).
     """
+    if init_state is None and ash.is_dtensor(q):
+        return _sharded_recurrence(q, k, v, log_a, b, chunk, normalize,
+                                   den_floor)
+    return _recurrence(q, k, v, log_a, b, chunk, init_state, normalize,
+                       den_floor)
+
+
+def _sharded_recurrence(q, k, v, log_a, b, chunk, normalize, den_floor):
+    """``_recurrence`` of DTensors through ``local_map``: the batch over the
+    active rules' batch axes when they divide it, the heads over "model"
+    when it divides them (replicated there otherwise). Each chunk's steps
+    are local ops, not DTensor dispatches: flattening the (batch, head)
+    dims of a head-sharded tensor into one matmul batch dim leaves a
+    strided shard whose matmul DTensor cannot place under fake tensors."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+
+    def place(dim):
+        return _rows_and_heads(mesh, q.shape[0], q.shape[2], dim)
+
+    args = (q, k, v, log_a, b) + ((den_floor,) if den_floor is not None
+                                  else ())
+
+    def local(q, k, v, log_a, b, *floor):
+        y, (C, n) = _recurrence(q, k, v, log_a, b, chunk, None, normalize,
+                                floor[0] if floor else None)
+        return y, C, n
+
+    y, C, n = local_map(local, out_placements=(place(2), place(1),
+                                               place(1)),
+                        in_placements=(place(2),) * len(args),
+                        device_mesh=mesh, redistribute_inputs=True)(*args)
+    return y, (C, n)
+
+
+def _rows_and_heads(mesh, rows: int, heads: int, dim: int):
+    """Placements with the batch (dim 0, ``rows``) over the active rules'
+    batch axes when they divide it and the heads (``dim``) over "model"
+    when it divides them; replicated elsewhere."""
+    from torch.distributed.tensor import Shard
+    names = mesh.mesh_dim_names
+    place = ash.batch_placements(mesh, rows, 0)
+    split = ("model" in names and not place[names.index("model")].is_shard()
+             and heads % mesh.shape[names.index("model")] == 0)
+    return tuple(Shard(dim) if a == "model" and split else pl
+                 for a, pl in zip(names, place))
+
+
+def _recurrence(q, k, v, log_a, b, chunk, init_state, normalize, den_floor):
+    """``chunked_linear_recurrence`` on tensors."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     Lc = min(chunk, S)
@@ -143,7 +205,35 @@ def linear_recurrence_step(q, k, v, a, b, state, *, normalize=False,
                            den_floor=None):
     """Single decode step. q,k: (B,H,dk); v: (B,H,dv); a,b: (B,H); the
     state (C (B,H,dk,dv), n (B,H,dk)). Mixed bf16/float32 operands are
-    promoted to float32, as jnp promotes them."""
+    promoted to float32, as jnp promotes them. DTensors run on each
+    rank's own rows and heads, as ``_sharded_recurrence``."""
+    if ash.is_dtensor(q):
+        return _sharded_step(q, k, v, a, b, state, normalize, den_floor)
+    return _step(q, k, v, a, b, state, normalize, den_floor)
+
+
+def _sharded_step(q, k, v, a, b, state, normalize, den_floor):
+    """``_step`` of DTensors through ``local_map``: every operand has its
+    heads at dim 1 (module docstring of ``_sharded_recurrence``)."""
+    from torch.distributed.tensor.experimental import local_map
+    place = _rows_and_heads(q.device_mesh, q.shape[0], q.shape[1], 1)
+    args = (q, k, v, a, b) + tuple(state) + (
+        (den_floor,) if den_floor is not None else ())
+
+    def local(q, k, v, a, b, C, n, *floor):
+        y, (C, n) = _step(q, k, v, a, b, (C, n), normalize,
+                          floor[0] if floor else None)
+        return y, C, n
+
+    y, C, n = local_map(local, out_placements=(place,) * 3,
+                        in_placements=(place,) * len(args),
+                        device_mesh=q.device_mesh,
+                        redistribute_inputs=True)(*args)
+    return y, (C, n)
+
+
+def _step(q, k, v, a, b, state, normalize, den_floor):
+    """``linear_recurrence_step`` on tensors."""
     C, n = state
     q, k, v = q.to(f32), k.to(f32), v.to(f32)
     C = C * a[..., None, None] + b[..., None, None] * \
@@ -305,7 +395,7 @@ def mlstm_defs(cfg: ModelConfig) -> Dict[str, object]:
 
 def _blockdiag(w, x, H, dh):
     """x: (..., H*dh) -> per-head (..., H, dh) @ w (H, dh, dh)."""
-    xh = x.reshape(x.shape[:-1] + (H, dh))
+    xh = ash.unflatten_last(x, (H, dh))
     return torch.einsum("...hd,hde->...he", xh, w.to(x.dtype))
 
 
@@ -320,8 +410,14 @@ def _stabilizer_scan(f_log, i_log, m0):
 
 def _mlstm_gates(p, xi, m0):
     """xi: (B,S,di). Returns (log_a, b, m, den_floor)."""
-    f_log = log_sigmoid(L.dense(p["w_fgate"], xi).to(f32))    # (B,S,H)
-    i_log = L.dense(p["w_igate"], xi).to(f32)
+    # on a mesh the gates are pinned to the batch: their gradients then
+    # come back in that layout, where DTensor leaves them sharded over the
+    # sequence, which the gate weights' gradient (a matmul over the
+    # flattened tokens) cannot take under fake tensors
+    f_log = log_sigmoid(ash.constrain(L.dense(p["w_fgate"], xi),
+                                      "batch", "seq", None).to(f32))
+    i_log = ash.constrain(L.dense(p["w_igate"], xi), "batch", "seq",
+                          None).to(f32)                          # (B,S,H)
     m = _stabilizer_scan(f_log, i_log, m0)
     m_prev = torch.cat([m0[:, None], m[:, :-1]], dim=1)
     log_a = f_log + m_prev - m
@@ -333,7 +429,10 @@ def _mlstm_gates(p, xi, m0):
 def mlstm_forward(p, x, cfg: ModelConfig):
     di, H, dh = mlstm_dims(cfg)
     B, S, _ = x.shape
-    up = L.dense(p["w_up"], x)
+    # on a mesh the projection is gathered whole before it splits (the
+    # gradients of a split sharded dim come back in a strided layout that
+    # the projection's weight gradient cannot take under fake tensors)
+    up = ash.constrain(L.dense(p["w_up"], x), "batch", "seq", None)
     xi, z = torch.chunk(up, 2, dim=-1)
     xc, _ = causal_conv1d(p["conv_w"], xi)
     xc = F.silu(xc)
@@ -433,24 +532,97 @@ def _slstm_step(r, gates_x, state: SLSTMState) -> SLSTMState:
     return SLSTMState(c=c, n=n, h=h, m=m)
 
 
+def _slstm_scan(r, gates, state: SLSTMState):
+    """The token loop: (h of every token (B,S,H,dh), the last state)."""
+    hs = []
+    for t in range(gates.shape[1]):
+        state = _slstm_step(r, gates[:, t], state)
+        hs.append(state.h)
+    return torch.stack(hs, dim=1), state
+
+
+class _OneTrip(torch.autograd.Function):
+    """``_slstm_scan`` under the dry-run's step analysis (fake tensors,
+    nothing computed): one token's step traced inside ``trips(S)``, its
+    forward and its backward each counted for the S steps, as the
+    reference's analysis multiplies its scan's loop body; the outputs
+    have the loop's shapes (h of every token, the last state)."""
+
+    @staticmethod
+    def forward(ctx, r, gates, *state):
+        S = gates.shape[1]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True)
+                   for t in (r, gates[:, 0]) + state]
+            with trips(S):
+                out = _slstm_step(ins[0], ins[1], SLSTMState(*ins[2:]))
+        ctx.trip = (S, ins, out)
+        h = torch.stack([out.h.detach()] * S, dim=1)
+        return (h,) + tuple(t.detach() for t in out)
+
+    @staticmethod
+    def backward(ctx, dh, dc, dn, dh_last, dm):
+        S, ins, out = ctx.trip
+        with trips(S):
+            g = torch.autograd.grad(tuple(out), ins,
+                                    (dc, dn, dh[:, -1] + dh_last, dm),
+                                    allow_unused=True)
+        dgates = g[1].new_zeros((g[1].shape[0], S) + tuple(g[1].shape[1:]))
+        return (g[0], dgates) + tuple(g[2:])
+
+
+def _sharded_slstm_scan(r, gates, cfg: ModelConfig):
+    """``_slstm_scan`` from a zero state of DTensor gates: the loop on each
+    rank's own rows (the batch over the active rules' batch axes when
+    they divide it) through ``local_map``, so a token's step is a handful
+    of local ops, not DTensor dispatches; the replicated recurrent
+    weights' gradient comes back a partial sum over the ranks that split
+    the rows."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = gates.device_mesh
+    rows = ash.batch_placements(mesh, gates.shape[0], 0)
+    rep = (Replicate(),) * mesh.ndim
+    r_grad = tuple(Partial() if pl.is_shard() else Replicate()
+                   for pl in rows)
+
+    def scan(r, gates):
+        state = slstm_init_state(cfg, gates.shape[0], device=gates.device)
+        if analyzing() and gates.shape[1] > 1:
+            return _OneTrip.apply(r, gates, *state)
+        h, state = _slstm_scan(r, gates, state)
+        return (h,) + tuple(state)
+
+    h, *state = local_map(scan, out_placements=(rows,) * 5,
+                          in_placements=(rep, rows),
+                          in_grad_placements=(r_grad, rows),
+                          device_mesh=mesh,
+                          redistribute_inputs=True)(r, gates)
+    return h, SLSTMState(*state)
+
+
 def slstm_forward(p, x, cfg: ModelConfig,
                   state: Optional[SLSTMState] = None):
     """x: (B,S,d) -> (y (B,S,d), the state after the last token); one
     recurrent step a token, in order."""
     d, H, dh, d_up = slstm_dims(cfg)
     B, S, _ = x.shape
-    gates = L.dense(p["w_gates"], x).reshape(B, S, 4, H, dh).to(f32)
+    gates = ash.unflatten_last(L.dense(p["w_gates"], x),
+                               (4, H, dh)).to(f32)
     r = p["r_gates"].to(f32)
-    if state is None:
-        state = slstm_init_state(cfg, B, device=x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(r, gates[:, t], state)
-        hs.append(state.h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    y = L.apply_norm(p["out_norm"], y, "rmsnorm")
+    if state is None and ash.is_dtensor(gates):
+        h, state = _sharded_slstm_scan(r, gates, cfg)
+    else:
+        if state is None:
+            state = slstm_init_state(cfg, B, device=x.device)
+        h, state = _slstm_scan(r, gates, state)
+    # on a mesh laid out by batch alone before the heads merge (a view
+    # cannot merge split head shards)
+    y = ash.constrain(h, "batch", "seq", None, None).reshape(B, S, d)
+    y = L.apply_norm(p["out_norm"], y.to(x.dtype), "rmsnorm")
     act = L.activation("gelu")
-    y = L.dense(p["w_down"], act(L.dense(p["w_up"], y)))
+    up = ash.pin_grad(L.dense(p["w_up"], y))
+    y = L.dense(p["w_down"], act(up))
     return y, state
 
 

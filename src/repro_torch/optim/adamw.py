@@ -10,7 +10,12 @@ runs in float32. ``moment_dtype="bfloat16"`` halves the optimizer state.
 The update is elementwise, so a large leaf is updated in slices of
 ``UPDATE_CHUNK`` elements into its new tensors, with the same result: the
 float32 temporaries of one leaf of 10^9 values (MiniCPM3-4B's stacked
-MLP) would otherwise take ~36 GB beside the old and new state.
+MLP) would otherwise take ~36 GB beside the old and new state. With
+``donate=True`` the new values are written into the old parameters and
+moments, slice by slice, and those tensors come back: the counterpart of
+the reference trainer's ``jax.jit(step, donate_argnums=(0, 1))``, with
+the same bits and no second copy of the state (a caller that still reads
+the old state must not donate it).
 
 On a device mesh (launch/train.py's ``mesh=``) the leaves are DTensors
 laid out by the sharding plan, the moments as their parameters. A
@@ -95,8 +100,11 @@ def _pow32(b: float, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, cfg: TrainConfig, lr):
-    """Returns (new_params, new_state, metrics)."""
+def update(grads, state: AdamWState, params, cfg: TrainConfig, lr, *,
+           donate: bool = False):
+    """Returns (new_params, new_state, metrics); with ``donate`` the new
+    parameters and moments are ``params``' and ``state``'s tensors,
+    overwritten (module docstring)."""
     grads = tree_map(_as_param, grads, params)
     gnorm = global_norm(grads)
     scale = _local(torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)) \
@@ -121,16 +129,21 @@ def update(grads, state: AdamWState, params, cfg: TrainConfig, lr):
 
     def upd(g, m, v, p):
         out = upd_local(*(_local(t) for t in (g, m, v, p)))
+        if donate:
+            return p, m, v
         return tuple(_like(t, p) for t in out)
 
     def upd_local(g, m, v, p):
         decay = cfg.weight_decay > 0 and p.dim() >= 2
         n, chunk = p.numel(), UPDATE_CHUNK
-        if n <= chunk:
+        if n <= chunk and not donate:
             return upd_slice(g, m, v, p, decay)
-        out = (torch.empty_like(p),
-               torch.empty(p.shape, dtype=dt, device=p.device),
-               torch.empty(p.shape, dtype=dt, device=p.device))
+        if donate:
+            out = (p, m, v)
+        else:
+            out = (torch.empty_like(p),
+                   torch.empty(p.shape, dtype=dt, device=p.device),
+                   torch.empty(p.shape, dtype=dt, device=p.device))
         flat = [t.reshape(-1) for t in (g, m, v, p)]
         for a in range(0, n, chunk):
             part = upd_slice(*(t[a:a + chunk] for t in flat), decay)

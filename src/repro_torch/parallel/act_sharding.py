@@ -24,6 +24,12 @@ split the batch and sequence over (fully sharded data parallel: the
 its tensor-parallel shards; ``complete`` on a norm's input sums its
 partial sums once, where DTensor would reduce a copy for the statistics
 and carry the partial sums on into the next product.
+
+The model code's other DTensor cases use three helpers: ``unflatten_last``
+(a flat dim split into heads, gathered first when its shards do not
+divide them), ``local_pointwise`` (an elementwise op DTensor has no
+strategy for, run on local shards) and ``batch_placements`` (the layout of
+a ``local_map`` over each rank's own batch rows).
 """
 from __future__ import annotations
 
@@ -83,7 +89,48 @@ def constrain(x, *logical: Optional[str]):
     want = placements_of(spec, mesh.mesh_dim_names)
     if tuple(x.placements) == want:
         return x
-    return x.redistribute(mesh, want)
+    return _dense_local(x.redistribute(mesh, want))
+
+
+class _PinGrad(torch.autograd.Function):
+    """The identity; its backward lays the gradient out as the forward's
+    value was (``pin_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def pin_grad(x):
+    """``x`` whose gradient comes back in ``x``'s own layout: DTensor may
+    hand a product's output gradient on sharded over the sequence, where
+    flattening the tokens for the weight's gradient leaves a strided
+    shard that a matmul cannot take under fake tensors. A plain tensor
+    comes back as it is."""
+    if not is_dtensor(x):
+        return x
+    return _PinGrad.apply(x)
+
+
+def _dense_local(x):
+    """``x`` with a contiguous local shard. Gathering a dim sharded
+    unevenly (Whisper's 1500 frames over 16 ranks) pads the shards and
+    narrows the result, which leaves a strided local tensor that a later
+    view of it (a matmul's flattening) cannot take; such a shard is
+    copied."""
+    if x._local_tensor.is_contiguous():
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().contiguous(), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def for_product(w):
@@ -112,3 +159,57 @@ def complete(x):
     from torch.distributed.tensor import Replicate
     return x.redistribute(x.device_mesh, [Replicate() if q.is_partial()
                                           else q for q in pl])
+
+
+def unflatten_last(x, shape):
+    """``x`` (..., prod(shape)) viewed as (..., *shape). A DTensor whose
+    last dim is sharded over mesh dims that do not divide ``shape[0]``
+    (SmolLM's 3 KV heads over 2 ranks, xLSTM's 4 heads over 16) is first
+    replicated over them: a view cannot split a shard unevenly."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        mesh = x.device_mesh
+        over = [i for i, pl in enumerate(x.placements) if pl == Shard(last)]
+        n = 1
+        for i in over:
+            n *= mesh.shape[i]
+        if shape[0] % n:
+            x = x.redistribute(mesh, [Replicate() if i in over else pl
+                                      for i, pl in enumerate(x.placements)])
+    return x.reshape(tuple(x.shape[:-1]) + tuple(shape))
+
+
+def local_pointwise(fn, x):
+    """An elementwise ``fn`` of a DTensor ``x`` run on each rank's local
+    shard through ``local_map`` (forward and backward), for an op DTensor
+    has no strategy for: partial sums are reduced first, and a dim whose
+    shards would be uneven is gathered."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    ways = {}
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard():
+            ways[pl.dim] = ways.get(pl.dim, 1) * mesh.shape[i]
+    place = tuple(Replicate() if pl.is_partial() or (
+        pl.is_shard() and x.shape[pl.dim] % ways[pl.dim]) else pl
+        for pl in x.placements)
+    return local_map(fn, out_placements=(place,), in_placements=(place,),
+                     device_mesh=mesh, redistribute_inputs=True)(x)
+
+
+def batch_placements(mesh, rows: int, dim: int = 0):
+    """DTensor placements that shard ``dim`` (of ``rows`` rows) over the
+    active rules' batch axes when they divide it, and replicate
+    everything else."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    batch = [a for a in L._mesh_axes((_RULES or {}).get("batch"))
+             if a in names]
+    n = 1
+    for a in batch:
+        n *= mesh.shape[names.index(a)]
+    split = rows % n == 0
+    return tuple(Shard(dim) if a in batch and split else Replicate()
+                 for a in names)

@@ -25,7 +25,10 @@ shards and the mode sees what one rank executes) and counts:
    ``flash_bytes`` the part made inside the attention's plain version
    (the kernel keeps those tiles on chip).
 4. **Peak** (``peak_bytes``): the most bytes of tensors made by the step
-   alive at once, freed when Python drops them (arguments not included).
+   alive at once, freed when Python drops them (arguments not included);
+   ``peak_outside_flash_bytes`` the same peak without the tensors made
+   inside the attention's plain version (its float32 scores, which the
+   kernel never writes out; its output and lse left out as well).
 
 DTensor derives each op's global output shape by running the op on fake
 global-shape tensors; those runs are not the rank's work and are not
@@ -37,8 +40,14 @@ PyTorch, which a release may rename; the analysis then fails with an
 with ``flash_region()`` (models/attention.py), which counts its made
 tensors as ``flash_bytes``.
 
-Python loops execute every layer, so there is no loop body counted once
-and ``trip_counts`` has no counterpart: it stays empty. The reference's ``_shape_bytes``/``_shape_dims`` parse HLO text types and have
+Python loops execute every layer and every chunk, so no loop body is
+counted once, with one exception: a token loop (the sLSTM's, a step for
+each of 4096-32768 tokens, ~75 fake-tensor ops of ~0.1 ms each a step)
+traces one step inside ``trips(n)``, and every op inside counts n times,
+forward and backward, as the reference multiplies an HLO while loop's
+body by its trip count; such loops' counts are ``trip_counts``, empty
+otherwise. Their peak counts one step's tensors, not the n steps' that
+the loop keeps for its backward. The reference's ``_shape_bytes``/``_shape_dims`` parse HLO text types and have
 no counterpart either: the mode reads each tensor's shape and dtype.
 """
 from __future__ import annotations
@@ -73,10 +82,12 @@ class HLOStats:
     # traffic made inside the attention's plain version (score and context
     # tiles), which the flash kernel keeps on chip
     flash_bytes: float = 0.0
-    # no counterpart: every Python loop trip runs and is counted (module
-    # docstring); kept empty for the reference's record
+    # the trip counts of loops traced once (``trips``); empty when every
+    # Python loop trip ran (module docstring)
     trip_counts: List[int] = field(default_factory=list)
     peak_bytes: float = 0.0
+    # the peak without the tensors made inside flash_region()
+    peak_outside_flash_bytes: float = 0.0
     ops: int = 0
 
     @property
@@ -86,7 +97,8 @@ class HLOStats:
     def add_coll(self, kind: str, nbytes: float, mult: float = 1.0):
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) \
             + nbytes * mult
-        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) + 1
+        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0) \
+            + int(mult)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -101,6 +113,7 @@ class _Counter(TorchDispatchMode):
         self.stats = stats
         self.shadow = 0            # inside DTensor's global-shape inference
         self.live = 0
+        self.live_flash = 0        # the part made inside flash_region()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -111,44 +124,73 @@ class _Counter(TorchDispatchMode):
         if self.shadow:
             return out
         st = self.stats
-        st.ops += 1
+        trips = _TRIPS[0]
+        st.ops += trips
         name = func._overloadpacket.__name__
         ns = func.namespace
         if ns == "_c10d_functional" or ns == "_dtensor":
             if name in KINDS:
                 st.add_coll(KINDS[name], sum(
                     _nbytes(t) for t in tree_leaves(out)
-                    if isinstance(t, torch.Tensor)))
+                    if isinstance(t, torch.Tensor)), trips)
             return out
         from torch.utils.flop_counter import flop_registry
         packet = func._overloadpacket
         if packet in flop_registry:
-            st.dot_flops += float(flop_registry[packet](*args, **kwargs,
-                                                        out_val=out))
+            st.dot_flops += trips * float(flop_registry[packet](
+                *args, **kwargs, out_val=out))
         if name in _FREE or func.is_view or func._schema.is_mutable:
             return out
         made = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         n = sum(_nbytes(t) for t in made)
-        st.hbm_bytes += 2.0 * n
+        st.hbm_bytes += 2.0 * n * trips
         if _FLASH_DEPTH[0]:
-            st.flash_bytes += 2.0 * n
+            st.flash_bytes += 2.0 * n * trips
         for t in made:
             self._track(t)
         return out
 
     def _track(self, t: torch.Tensor):
         n = _nbytes(t)
+        flash = n if _FLASH_DEPTH[0] else 0
         self.live += n
-        self.stats.peak_bytes = max(self.stats.peak_bytes, self.live)
+        self.live_flash += flash
+        st = self.stats
+        st.peak_bytes = max(st.peak_bytes, self.live)
+        st.peak_outside_flash_bytes = max(st.peak_outside_flash_bytes,
+                                          self.live - self.live_flash)
 
-        def free(counter=weakref.ref(self), n=n):
+        def free(counter=weakref.ref(self), n=n, flash=flash):
             c = counter()
             if c is not None:
                 c.live -= n
+                c.live_flash -= flash
         weakref.finalize(t, free)
 
 
 _FLASH_DEPTH = [0]               # open flash_region() contexts
+_TRIPS = [1]                     # how many times an op counts now
+_ACTIVE: List["_Counter"] = []   # the running analysis, if any
+
+
+def analyzing() -> bool:
+    """Whether ``analyze_step`` is counting (the step's tensors are
+    fake: nothing is computed)."""
+    return bool(_ACTIVE)
+
+
+@contextlib.contextmanager
+def trips(n: int):
+    """Inside, each op ``analyze_step`` sees counts ``n`` times: one
+    traced trip of an ``n``-trip loop (module docstring); ``n`` is listed
+    in ``trip_counts``."""
+    if _ACTIVE:
+        _ACTIVE[-1].stats.trip_counts.append(n)
+    _TRIPS[0] *= n
+    try:
+        yield
+    finally:
+        _TRIPS[0] //= n
 
 
 @contextlib.contextmanager
@@ -180,10 +222,12 @@ def analyze_step(fn, *args, **kwargs) -> HLOStats:
             counter.shadow -= 1
 
     setattr(ShardingPropagator, name, shadowed)
+    _ACTIVE.append(counter)
     try:
         with counter:
             out = fn(*args, **kwargs)
             del out
     finally:
+        _ACTIVE.pop()
         setattr(ShardingPropagator, name, inner)
     return stats

@@ -18,8 +18,15 @@ keeps none.
 - ``dryrun.run_cell`` on the production meshes with smoke widths: a
   train, a prefill and a decode cell "ok", each one's per-rank parameter
   bytes equal to the reference's spec arithmetic, the record's keys the
-  reference's plus the written reasons, and a cell that fails written as
-  "error" with its error.
+  reference's plus the written reasons, and a cell whose step raises
+  written as "error" with its error and its argument bytes;
+- the prefill cell's peak without the attention plain version's tensors
+  below its traced peak by at least one layer's float32 scores;
+- one cell of each family the mesh path now traces, at smoke widths over
+  the full config (so the MoE's sorted_grouped dispatch and 128 experts,
+  xLSTM's 4 heads and 8-block groups, Whisper's uneven heads and MLA's
+  latents stay): the MoE and xLSTM train_4k, Whisper decode_32k and
+  MiniCPM3 train_4k "ok", each one's parameter bytes the reference's.
 """
 import json
 import math
@@ -50,7 +57,7 @@ from repro.optim import adamw as JA  # noqa: E402
 from repro.parallel import sharding as JSH  # noqa: E402
 from repro.parallel.hlo_analysis import analyze_hlo  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
-from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.configs.base import SHAPES, TrainConfig  # noqa: E402
 from repro_torch.launch import steps as S  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.parallel.hlo_analysis import HLOStats, analyze_step  # noqa
@@ -165,25 +172,38 @@ def _param_bytes(arch, overrides, shape_name, multi_pod):
     return total
 
 
-def test_dryrun_cells_trace_on_the_production_meshes(tmp_path):
+@pytest.fixture(scope="module")
+def smoke_cells(tmp_path_factory):
+    """SmolLM's smoke-width ``CELLS`` and a cell whose step raises, run
+    by ``dryrun.run_cell`` in one subprocess -> (their directory, its
+    output, the overrides)."""
+    tmp = tmp_path_factory.mktemp("cells")
     sm = get_smoke("smollm_135m")
     overrides = {k: getattr(sm, k) for k in SMOKE_KEYS}
-    moe = get_smoke("qwen3_moe_235b")
-    moe_overrides = {k: getattr(moe, k) for k in SMOKE_KEYS}
     out = _run(f"""
         import json
         from pathlib import Path
         from repro_torch.launch import dryrun as D
-        out = Path({str(tmp_path)!r})
+        out = Path({str(tmp)!r})
         for shape, mp in {CELLS!r}:
             D.run_cell("smollm_135m", shape, mp, out,
                        overrides={overrides!r})
-        # a cell whose trace fails (the MoE's sorted dispatch: DTensor has
-        # no sharding strategy for searchsorted) is written as an error,
-        # as the reference writes one
-        D.run_cell("qwen3_moe_235b", "train_4k", False, out / "bad",
-                   overrides={moe_overrides!r})
+
+        # a cell whose step raises is written as an error, as the
+        # reference writes one
+        def raising(cfg, shape):
+            def step(params, batch):
+                raise NotImplementedError("this step raises")
+            return step
+        D.make_prefill_step = raising
+        D.run_cell("smollm_135m", "prefill_32k", False, out / "bad",
+                   overrides={overrides!r})
     """, timeout=600)
+    return tmp, out, overrides
+
+
+def test_dryrun_cells_trace_on_the_production_meshes(smoke_cells):
+    tmp_path, out, overrides = smoke_cells
     assert out.count(": OK") == 3 and out.count(": FAILED") == 1, out
     for shape, mp in CELLS:
         name = f"smollm_135m__{shape}__{'pod2' if mp else 'pod1'}.json"
@@ -204,12 +224,66 @@ def test_dryrun_cells_trace_on_the_production_meshes(tmp_path):
         if shape == "decode_32k":
             assert rec["memory_analysis"]["caches_bytes"] > 0
     bad = json.loads((tmp_path / "bad" /
-                      "qwen3_moe_235b__train_4k__pod1.json").read_text())
+                      "smollm_135m__prefill_32k__pod1.json").read_text())
     assert bad["status"] == "error"
-    assert bad["error"].startswith("NotImplementedError"), bad["error"]
-    assert "searchsorted" in bad["error"], bad["error"]
+    assert bad["error"] == "NotImplementedError: this step raises", \
+        bad["error"]
+    assert "traceback" in bad
     assert bad["memory_analysis"]["params_bytes"] == _param_bytes(
-        "qwen3_moe_235b", moe_overrides, "train_4k", False)
+        "smollm_135m", overrides, "prefill_32k", False)
+
+
+def test_dryrun_peak_outside_flash(smoke_cells):
+    """The prefill cell's peak without the tensors the attention's plain
+    version makes: below the traced peak by at least one layer's float32
+    scores (each rank's batch rows, every head: SmolLM's one KV head does
+    not split over 16 ranks), and no larger than the peak of any cell."""
+    tmp_path, _, overrides = smoke_cells
+    shape = SHAPES["prefill_32k"]
+    for s, mp in CELLS:
+        rec = json.loads((tmp_path / f"smollm_135m__{s}__"
+                          f"{'pod2' if mp else 'pod1'}.json").read_text())
+        mem = rec["memory_analysis"]
+        assert 0 < mem["peak_traced_bytes_outside_flash"] \
+            <= mem["peak_traced_bytes"]
+        if s != "prefill_32k":
+            continue
+        rows = shape.global_batch // 16
+        scores = rows * overrides["num_heads"] * shape.seq_len ** 2 * 4
+        assert (mem["peak_traced_bytes"]
+                - mem["peak_traced_bytes_outside_flash"]) >= scores, mem
+
+
+# (arch, shape, overrides beyond SMOKE_KEYS): a cell of each family the
+# mesh path now traces; xLSTM keeps its full 8-block groups (7 mLSTM
+# blocks and the sLSTM block that closes them)
+FAMILY_CELLS = (("qwen3_moe_235b", "train_4k", {}),
+                ("xlstm_1_3b", "train_4k", {"num_layers": 8}),
+                ("whisper_small", "decode_32k", {}),
+                ("minicpm3_4b", "train_4k", {}))
+
+
+@pytest.mark.parametrize("arch,shape,extra", FAMILY_CELLS,
+                         ids=[f"{a}-{s}" for a, s, _ in FAMILY_CELLS])
+def test_dryrun_family_cell_traces(arch, shape, extra, tmp_path):
+    sm = get_smoke(arch)
+    overrides = {k: getattr(sm, k) for k in SMOKE_KEYS}
+    overrides.update(extra)
+    out = _run(f"""
+        from pathlib import Path
+        from repro_torch.launch import dryrun as D
+        D.run_cell({arch!r}, {shape!r}, False, Path({str(tmp_path)!r}),
+                   overrides={overrides!r})
+    """, timeout=600)
+    rec = json.loads((tmp_path / f"{arch}__{shape}__pod1.json").read_text())
+    assert rec["status"] == "ok", (rec.get("error"), out)
+    assert rec["memory_analysis"]["params_bytes"] == _param_bytes(
+        arch, overrides, shape, False)
+    assert rec["hlo_analysis"]["dot_flops_per_device"] > 0
+    if arch == "xlstm_1_3b":
+        # the sLSTM's token loop traced once a pass, counted for its trips
+        assert set(rec["hlo_analysis"]["trip_counts"]) == {
+            SHAPES[shape].seq_len}
 
 
 def test_dryrun_cli_writes_a_cell(tmp_path):
