@@ -77,7 +77,19 @@ Phases (any failure is fatal and exits non-zero):
    non-causal, ragged 1000; the smoke widths 48 against 32), each with
    its time and device time, the plain version's time, one
    ``scaled_dot_product_attention`` call's (timed only) and the card's
-   bound; then the backward kernel (``flash_attention_bwd``) against its
+   bound; then causal calls with the reference's sliding window and query
+   offset (``WINDOW_FLASH_CASES``: the SmolLM prefill at windows 256 and
+   100, Mistral-7B-v0.1's attention, 32/8 heads of 128, at 16384 tokens
+   with its window of 4096 and without, float32 at window 100, and the
+   decode route at offset 1020 and window 256) against the plain version
+   (over query chunks where its scores would pass 2 GiB) within the same
+   gates (max abs, and relative Frobenius against the float32 result,
+   which a kernel that left the key tile holding a row's band start
+   unmasked is shown failing), two launches bit-equal, timed beside SDPA
+   given the band as a
+   boolean mask; the windowed Mistral-shape call's device time must be
+   under 0.8 of the causal one's (the skipped key tiles); then the
+   backward kernel (``flash_attention_bwd``) against its
    plain version (the materialized float32 formula) on the same
    residuals at SmolLM-135M's training shape (8 x 1024, 9/3 heads of 64,
    bf16, causal) and a sweep (float32, non-causal, G 1, ragged 1000 and
@@ -414,6 +426,19 @@ Phases (any failure is fatal and exits non-zero):
    old and new parameters and moments would not fit the card together.
    The flash phase's backward sweep holds this shape (G 16 at D 128)
    against the plain backward at the bf16 gates.
+38. windowed smollm (after 21, before 22) — SmolLM-135M at every width
+   and depth with ``attention="windowed"``, ``window_size`` 256 (the
+   repo's config through ``dataclasses.replace``), the SmolLM phases'
+   random bf16 weights: ``infer`` on 4 x 1024 tokens at p = 3 under
+   full(k=2) with the LM infer gates (logits and tier-1 boundary
+   bit-equal to the enclave recompute, 21 ops checked, exact launches, a
+   bit_flip drill), ``private_generate`` at 4 x 1024 + 4 with the
+   generate gates (private == trusted in tokens and logits) and the
+   slot-fed token step replayed at position 1026, past the window,
+   bit-equal to the eager one; the open forward within a relative
+   Frobenius 5e-2 of the same forward with the plain attention; one
+   infer's and one generation's flash calls counted by (causal, window),
+   all 30 windowed; the windowed and causal infer times printed.
 
 The kernels phase also checks every field kernel and ``blind_encode`` at
 the Qwen3-MoE projections (q 4096 x 8192, k/v 4096 x 512, o 8192 x 4096)
@@ -443,7 +468,7 @@ multiple of 64 is shown failing that bound. One query at G 8, D 128
 query take the split-KV decode route (``flash_attention_decode.cu``,
 both passes timed as one call), and their lines print its split count.
 
-Phases 3, 5-8, 10-18, 20, 21 and 23-36 each read the launch counts around
+Phases 3, 5-8, 10-18, 20, 21, 23-36 and 38 each read the launch counts around
 exactly the calls they drive and fail unless their path launched its
 kernels and no other (22 launches none); only 34-36 launch the
 backward.
@@ -2347,14 +2372,115 @@ def _unmasked_tail_rel(q, k, v, exact):
                           exact)
 
 
-def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False):
+# (label, B, Sq, Skv, H, KH, D, Dv, dtype, q_offset, window, tolerance):
+# causal calls with the reference's sliding window and query offset.
+# SmolLM's prefill (9/3 heads of 64) at window 256 (the windowed SmolLM
+# phase's) and at an unaligned 100; Mistral-7B-v0.1's published attention
+# (hf:mistralai/Mistral-7B-v0.1: 32/8 heads of 128, sliding_window 4096) at
+# 16384 tokens, whose band holds 0.44 of the causal triangle's pairs, and
+# the same call without a window (the skipped tiles' check); float32 at
+# window 100; and the decode route (Sq 4 x G 3 <= 16 rows a KV head) four
+# queries at the end of 1024 keys, offset 1020, window 256
+WINDOW_FLASH_CASES = (
+    ("smollm prefill window 256", 4, 1024, 1024, 9, 3, 64, 64,
+     torch.bfloat16, 0, 256, 2e-2),
+    ("smollm prefill window 100", 4, 1024, 1024, 9, 3, 64, 64,
+     torch.bfloat16, 0, 100, 2e-2),
+    ("mistral window 4096", 1, 16384, 16384, 32, 8, 128, 128,
+     torch.bfloat16, 0, 4096, 2e-2),
+    ("mistral causal", 1, 16384, 16384, 32, 8, 128, 128, torch.bfloat16, 0,
+     0, 2e-2),
+    ("float32 window 100", 2, 256, 256, 32, 8, 128, 128, torch.float32, 0,
+     100, 2e-5),
+    ("decode route offset 1020 window 256", 4, 4, 1024, 9, 3, 64, 64,
+     torch.bfloat16, 1020, 256, 2e-2),
+)
+# the windowed Mistral-shape call's device time must stay under this share
+# of the causal call's: its band is 0.44 of the pairs, so a kernel that
+# walked every causal tile and masked the window would read ~1
+WINDOW_SKIP_BOUND = 0.8
+# the plain version's scores are materialized in float32: calls past this
+# many bytes of scores run it over query chunks (each against its band's
+# keys, with the chunk's offset)
+PLAIN_SCORE_BYTES = 2 ** 31
+PLAIN_CHUNK = 1024
+
+
+def band_pairs(Sq, Skv, q_offset=0, window=0):
+    """(query, key) pairs a causal call's mask lets through, and the keys
+    [lo, hi) some row sees (``band``)."""
+    # imported here: scripts/torch_flash_bwd_compare.py runs this file's
+    # cases against a parent tree that may have no window
+    from repro_torch.kernels.flash_attention.flash_attention import band
+    qpos = torch.arange(Sq, dtype=torch.long) + q_offset
+    hi = torch.clamp(qpos + 1, max=Skv)
+    lo = torch.clamp(qpos - window + 1, min=0) if window > 0 else \
+        torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo, min=0).sum()), band(Sq, Skv, True,
+                                                        q_offset, window)
+
+
+def _unmasked_band_start_rel(q, k, v, q_offset, window, exact):
+    """The relative Frobenius error, against ``exact``, of causal attention
+    in which each row's band starts at its window's start rounded down to
+    a multiple of ``KEY_TILE`` keys (what the kernel gives if it left the
+    key tile holding a row's band start unmasked), over query chunks of
+    ``PLAIN_CHUNK``; None without a window."""
+    if not window:
+        return None
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    out = []
+    for i in range(0, Sq, PLAIN_CHUNK):
+        qc = q[:, i:i + PLAIN_CHUNK].float()
+        qpos = torch.arange(qc.shape[1], device=q.device) + (q_offset + i)
+        start = torch.clamp(qpos - window + 1, min=0) // KEY_TILE * KEY_TILE
+        lo, hi = int(start.min()), min(Skv, int(qpos.max()) + 1)
+        kpos = torch.arange(lo, hi, device=q.device)
+        seen = (kpos[None] >= start[:, None]) & (kpos[None] <= qpos[:, None])
+        kc, vc = (t[:, lo:hi].float().repeat_interleave(H // KH, dim=2)
+                  for t in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", qc, kc) / D ** 0.5
+        sc = sc.masked_fill(~seen[None, None], float("-inf"))
+        out.append(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1),
+                                vc))
+        del sc, kc, vc
+    return _rel_frobenius(torch.cat(out, dim=1), exact)
+
+
+def plain_banded(q, k, v, q_offset, window):
+    """The plain version of a causal call, over query chunks of
+    ``PLAIN_CHUNK`` when its float32 scores would pass
+    ``PLAIN_SCORE_BYTES``: each chunk against the keys of its band, the
+    offset shifted to match (the same function, the same inputs)."""
+    from repro_torch.kernels.flash_attention.flash_attention import band
+    B, Sq, H, _ = q.shape
+    Skv = k.shape[1]
+    if B * Sq * H * Skv * 4 <= PLAIN_SCORE_BYTES:
+        return flash_attention_plain(q, k, v, causal=True, q_offset=q_offset,
+                                     window=window)
+    out = []
+    for i in range(0, Sq, PLAIN_CHUNK):
+        qc = q[:, i:i + PLAIN_CHUNK]
+        lo, hi = band(qc.shape[1], Skv, True, q_offset + i, window)
+        out.append(flash_attention_plain(qc, k[:, lo:hi], v[:, lo:hi],
+                                         causal=True,
+                                         q_offset=q_offset + i - lo,
+                                         window=window))
+    return torch.cat(out, dim=1)
+
+
+def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False,
+                q_offset=0, window=0):
     """(bound ms, "bytes" | "operations", {form: ms}) of one attention call:
     q, k, v read once and the output written once against 3.35 TB/s; 2 (D +
     Dv) operations for every (query, key) pair the mask lets through (QK
     and PV; causal: query i sees keys 0..i) against the dense peak of the
     input type. ``backward``: q, k, v, the output, its gradient and the
     float32 lse read once, dq, dk and dv written once; 2 (3 D + 2 Dv)
-    operations a pair (S = QK^T, dP = dO V^T, dV, dQ, dK).
+    operations a pair (S = QK^T, dP = dO V^T, dV, dQ, dK). A window or a
+    query offset (causal): the pairs of the band, and of k and v only the
+    keys some row sees.
 
     A float32 call can take either of two routes to the same result: the
     CUDA cores at 67 TFLOP/s, or the tensor cores with each operand in two
@@ -2362,12 +2488,18 @@ def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False):
     kernels' 3xTF32). The least time the card could take is the smaller;
     the dict gives both (empty for bf16)."""
     size = torch.tensor([], dtype=dtype).element_size()
+    banded = causal and (q_offset or window)
+    if banded:
+        band_n, (lo, hi) = band_pairs(Sq, Skv, q_offset, window)
+        Skv = hi - lo
     q_rows, kv_rows = B * Sq * H, B * Skv * KH
     nbytes = size * (q_rows * (D + Dv) + kv_rows * (D + Dv))
     if backward:       # + dO, lse; + dq, dk, dv
         nbytes += size * q_rows * Dv + 4 * q_rows
         nbytes += size * (q_rows * D + kv_rows * (D + Dv))
-    if causal:
+    if banded:
+        pairs = band_n
+    elif causal:
         n = min(Sq, Skv)
         pairs = n * (n + 1) // 2 + (Sq - n) * Skv
     else:
@@ -2392,6 +2524,8 @@ def phase_flash(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     main_case = _flash_fwd_cases(dev, gen)
+    torch.cuda.empty_cache()
+    _flash_window_cases(dev, gen)
     torch.cuda.empty_cache()
     main_case["bwd"] = _flash_bwd_cases(dev, gen)
     return main_case
@@ -2472,6 +2606,99 @@ def _flash_fwd_cases(dev, gen):
         del q, k, v, got, want, qt, kt, vt
     main_case["err"] = err_max
     return main_case
+
+
+def _flash_window_cases(dev, gen):
+    """The forward kernels with a window and a query offset
+    (``WINDOW_FLASH_CASES``) against the plain version (``plain_banded``)
+    within the forward gates (max abs; relative Frobenius against the
+    plain version's float32 result, ``CROSS_REL_TOL``, which an unmasked
+    band-start tile must fail), two launches bit-equal, timed beside the
+    plain version and ``scaled_dot_product_attention`` given the band as a
+    boolean ``attn_mask`` (its KV heads repeated to the query heads before
+    the timing; a yardstick the port never calls); then the gate that the
+    windowed Mistral-shape call's device time is under
+    ``WINDOW_SKIP_BOUND`` of the causal one's. Returns {label: device ms}."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+    dms_of, share = {}, {}
+    for (label, B, Sq, Skv, H, KH, D, Dv, dtype, off, win,
+         tol) in WINDOW_FLASH_CASES:
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev, dtype=dtype)
+        k = torch.randn((B, Skv, KH, D), generator=gen, device=dev,
+                        dtype=dtype)
+        v = torch.randn((B, Skv, KH, Dv), generator=gen, device=dev,
+                        dtype=dtype)
+
+        def run():
+            return flash_attention_fwd(q, k, v, causal=True, q_offset=off,
+                                       window=win)
+
+        got = run()
+        want = plain_banded(q, k, v, off, win)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {label}: max abs err "
+                                 f"{err} against the plain version, "
+                                 f"tolerance {tol}")
+        del want
+        exact = plain_banded(q.float(), k.float(), v.float(), off, win)
+        rel, rel_tol = _rel_frobenius(got, exact), CROSS_REL_TOL[dtype]
+        start = _unmasked_band_start_rel(q, k, v, off, win, exact)
+        del exact
+        if not rel <= rel_tol:
+            raise AssertionError(f"flash_attention {label}: relative "
+                                 f"Frobenius err {rel} against the plain "
+                                 f"float32 result, bound {rel_tol}")
+        if start is not None and not start > rel_tol:
+            raise AssertionError(f"flash_attention {label}: an unmasked "
+                                 f"band-start tile ({start}) would pass the "
+                                 f"bound {rel_tol}")
+        if not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention {label}: two launches "
+                                 f"differ")
+        ms, dms = timed(run, "flash_fwd")
+        plain_ms = cuda_ms(lambda: plain_banded(q, k, v, off, win), reps=3,
+                           warmup=1)
+        G = H // KH
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        mask = band_mask(Sq, Skv, off, win, device=dev)
+        sdpa_ms, sdpa_dms = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        bound, by, forms = flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, True,
+                                       q_offset=off, window=win)
+        pairs, (lo, hi) = band_pairs(Sq, Skv, off, win)
+        causal_pairs, _ = band_pairs(Sq, Skv, off, 0)
+        splits = decode_splits(B, Sq, Skv, H, KH, dtype, causal=True,
+                               q_offset=off, window=win)
+        route = f"; decode route, {splits} splits" if splits else ""
+        routes = "".join(f"; {form} {t:.4f}" for form, t in forms.items())
+        print(f"flash_attention {label} (B {B}, Sq {Sq}, Skv {Skv}, H {H}, "
+              f"KH {KH}, D {D}, {str(dtype)[6:]}, causal, q_offset {off}, "
+              f"window {win}: keys [{lo}, {hi}), {pairs} pairs, "
+              f"{pairs / causal_pairs:.4f} of causal{route}): {ms:.4f} ms "
+              f"(device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa with "
+              f"the band as a mask {sdpa_ms:.4f} ms (device "
+              f"{fmt_ms(sdpa_dms)}), bound {bound:.4f} ms ({by}{routes}); "
+              f"max abs err {err:.3g} (tol {tol}); relative Frobenius err "
+              f"{rel:.3g} (bound {rel_tol:g}" + ("" if start is None else
+                                                 f"; an unmasked band-start "
+                                                 f"tile {start:.3g}") + ")")
+        dms_of[label], share[label] = dms, pairs / causal_pairs
+        del q, k, v, got, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    w, c = dms_of["mistral window 4096"], dms_of["mistral causal"]
+    if w is None or c is None or not w < WINDOW_SKIP_BOUND * c:
+        raise AssertionError(f"flash_attention: the windowed Mistral-shape "
+                             f"call's device time {fmt_ms(w)} is not under "
+                             f"{WINDOW_SKIP_BOUND} of the causal call's "
+                             f"{fmt_ms(c)}")
+    print(f"flash_attention: windowed / causal device time at the Mistral "
+          f"shape {w / c:.4f} (gate < {WINDOW_SKIP_BOUND}; the band's share "
+          f"of the causal pairs {share['mistral window 4096']:.4f})")
+    return dms_of
 
 
 def _flash_bwd_cases(dev, gen):
@@ -3445,6 +3672,113 @@ def phase_token_probe(cfg, params, dev, card):
           f"{ms / 1e3:.2f} s; {want} flash_attention launches")
 
 
+# -- SmolLM-135M served with a sliding window --------------------------------
+
+WINDOW_SIZE = 256
+WINDOWED_INFER_SHAPE = (4, 1024)
+# the open windowed forward against the same forward with the plain
+# attention (cost_mode): bf16 attention outputs rounded apart in every one
+# of the 30 blocks, relative Frobenius over the logits
+WINDOWED_FORWARD_REL = 5e-2
+WINDOWED_REPS = 3
+
+
+def phase_windowed(cfg, params, dev, card):
+    """SmolLM-135M at full width and depth served with a sliding window:
+    the repo's config through ``dataclasses.replace(attention="windowed",
+    window_size=WINDOW_SIZE)`` (no config file of its own) and the SmolLM
+    phases' random bf16 weights (seed SEED). ``infer`` on 4 x 1024 tokens
+    at p = LM_P under full(k=2) (the LM infer gates: logits and tier-1
+    boundary bit-equal to the enclave recompute, every op checked);
+    ``private_generate`` on GEN_BATCH x PROMPT_LEN prompts, NEW_TOKENS new
+    (the generate gates: tokens and logits equal to the trusted path's);
+    the slot-fed token step replayed at PROMPT_LEN + STEP_PAST, past the
+    window, bit-equal to the eager one; the open forward within
+    ``WINDOWED_FORWARD_REL`` of the same forward with the plain attention.
+    One blinded infer's and one private_generate's flash calls are counted
+    by (causal, window): every one windowed."""
+    import dataclasses
+    from collections import Counter
+
+    from repro_torch.models import attention as A
+    wcfg = dataclasses.replace(cfg, attention="windowed",
+                               window_size=WINDOW_SIZE)
+    tag = f"windowed smollm on {card}"
+    print(f"{tag}: {cfg.name} with attention=\"windowed\", window_size "
+          f"{WINDOW_SIZE}, {wcfg.num_layers} layers, random bf16 weights "
+          f"(seed {SEED})")
+    _lm_infer_gates(wcfg, params, dev, f"{tag}: infer", LM_P, 7,
+                    WINDOWED_INFER_SHAPE, SEED + 60, busy=False)
+    ex, prompt, _, open_ms = _generate_gates(wcfg, params, dev,
+                                             f"{tag}: generate", 7, 7)
+    _replayed_step(wcfg, ex, prompt, f"{tag}: generate", 7)
+
+    # flash calls by (causal, window) around one blinded infer and one
+    # private_generate; the windowed and the causal infer's times
+    batch = {"tokens": _lm_tokens(wcfg, WINDOWED_INFER_SHAPE, SEED + 60)}
+    key = PRNGKey(SEED + 61)
+    policy = IntegrityPolicy.full(k=2)
+    iex = OrigamiExecutor(wcfg, params, "origami", LM_P, integrity=policy,
+                          device=dev)
+    cex = OrigamiExecutor(cfg, params, "origami", LM_P, integrity=policy,
+                          device=dev)
+    calls, inner = Counter(), A.flash_attention_fwd
+
+    def counting(q, k, v, **kw):
+        calls[(bool(kw.get("causal", True)), int(kw.get("window", 0)))] += 1
+        return inner(q, k, v, **kw)
+
+    A.flash_attention_fwd = counting
+    try:
+        infer_launches, _, _ = counted(lambda: iex.infer(batch, key))
+        by_infer = dict(calls)
+        calls.clear()
+        gen_launches, gen_ms, _ = counted(lambda: private_generate(
+            params, prompt, wcfg, executor=ex, max_new_tokens=NEW_TOKENS,
+            session_key=PRNGKey(SEED + 62)))
+        by_gen = dict(calls)
+    finally:
+        A.flash_attention_fwd = inner
+    want = {(True, WINDOW_SIZE): wcfg.num_layers}
+    if by_infer != want or by_gen != want:
+        raise AssertionError(f"{tag}: flash calls by (causal, window) "
+                             f"{by_infer} (infer), {by_gen} (generate), "
+                             f"not {want}")
+    assert infer_launches["flash_attention"] == wcfg.num_layers
+    assert gen_launches["flash_attention"] == wcfg.num_layers
+    # the blinded forward is host-bound: three readings each, interleaved
+    windowed_ms, causal_ms = [], []
+    for _ in range(WINDOWED_REPS):
+        windowed_ms.append(cuda_ms(lambda: iex.infer(batch, key), reps=1,
+                                   warmup=1))
+        causal_ms.append(cuda_ms(lambda: cex.infer(batch, key), reps=1,
+                                 warmup=1))
+    with torch.no_grad():
+        got = M.forward(params, batch, wcfg).logits.float()
+        plain = M.forward(params, batch, wcfg, cost_mode=True).logits.float()
+        causal = M.forward(params, batch, cfg).logits.float()
+    fro = ((got - plain).norm() / plain.norm()).item()
+    apart = ((got - causal).norm() / causal.norm()).item()
+    if not fro < WINDOWED_FORWARD_REL:
+        raise AssertionError(f"{tag}: the open forward is {fro} (relative "
+                             f"Frobenius) from the plain attention's, bound "
+                             f"{WINDOWED_FORWARD_REL}")
+    print(f"{tag}: flash calls by (causal, window): blinded infer "
+          f"{by_infer}, private_generate {by_gen} (the token steps attend "
+          f"through decode_sdpa's window mask); launches, infer "
+          f"{infer_launches}; generate {gen_launches}")
+    print(f"{tag}: open forward vs the plain attention's (cost_mode): "
+          f"relative Frobenius {fro:.5f} (bound {WINDOWED_FORWARD_REL}); vs "
+          f"the causal model's {apart:.5f}; blinded infer "
+          f"{WINDOWED_INFER_SHAPE[0]}x{WINDOWED_INFER_SHAPE[1]} windowed "
+          f"{_spread(windowed_ms)}, causal {_spread(causal_ms)}; "
+          f"private_generate {gen_ms:.1f} ms "
+          f"({NEW_TOKENS} tokens, batch {GEN_BATCH}; open generate of 2 "
+          f"tokens {open_ms:.1f} ms)")
+    del ex, iex, cex, got, plain, causal
+    _free()
+
+
 # -- the mixture-of-experts family: Qwen3-MoE-235B-A22B at full width -------
 
 MOE_ARCH = "qwen3_moe_235b"
@@ -4238,12 +4572,12 @@ class _FlashCalls:
         self.module, self.inner = A, A.flash_attention_fwd
         self.calls, self.rel = {}, {}
 
-        def spy(q, k, v, *, causal=True):
+        def spy(q, k, v, *, causal=True, **kw):
             key = (causal, k.shape[1], str(q.dtype)[6:])
             self.calls[key] = self.calls.get(key, 0) + 1
             if self.plain:
-                return flash_attention_plain(q, k, v, causal=causal)
-            out = self.inner(q, k, v, causal=causal)
+                return flash_attention_plain(q, k, v, causal=causal, **kw)
+            out = self.inner(q, k, v, causal=causal, **kw)
             if self.check:
                 exact = flash_attention_plain(q.float(), k.float(), v.float(),
                                               causal=causal)
@@ -5140,9 +5474,11 @@ def main():
     phase_sampling(lm_cfg, lm_params, dev, card)
     phase_generate_origami(lm_cfg, lm_params, dev, card)
     phase_token_probe(lm_cfg, lm_params, dev, card)
+    mark("the SmolLM serving phases and the token probe")
+    phase_windowed(lm_cfg, lm_params, dev, card)
     del lm_params
     _free()
-    mark("the SmolLM serving phases and the token probe")
+    mark("windowed smollm")
     phase_moe_layer(dev, card)
     _free()
     moe_cfg = _moe_config()

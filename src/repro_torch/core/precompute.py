@@ -159,6 +159,11 @@ class BlindedLayerCache:
         with self._lock:
             return self._skey(session_key, step) in self._ready
 
+    def clear_prefetch(self) -> None:
+        """Drop all buffered factor sets (e.g. when a server goes idle)."""
+        with self._lock:
+            self._ready.clear()
+
     def discard(self, session_key, step: int = 0) -> None:
         """Drop a prefetched set that will never be taken."""
         with self._lock:
@@ -169,3 +174,12 @@ class BlindedLayerCache:
         with self._lock:
             hit = self._ready.pop(self._skey(session_key, step), None)
         return hit or self.session_factors(session_key, step)
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers)
+
+    def weight_bytes(self) -> int:
+        """Cache footprint of the static half (w_q + limb planes + scale)."""
+        return sum(lyr.w_q.numel() * 4 + lyr.w_limbs.numel() + 4
+                   for lyr in self.layers)

@@ -59,10 +59,11 @@ _SIGNATURES = {
     "repro_blind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     "repro_unblind": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     # q, k, v, out, lse (or None), the decode route's workspace (or None),
-    # dtype, B, Sq, Skv, H, KH, D, Dv, causal, the decode route's split
-    # count (0 on the prefill route), the (b, s, h) element strides of q, k
-    # and v, the score scale, the stream
-    "repro_flash_attention": (_P,) * 6 + (ctypes.c_int,) * 10
+    # dtype, B, Sq, Skv, H, KH, D, Dv, causal, the query offset, the
+    # window (0: none), the decode route's split count (0 on the prefill
+    # route), the (b, s, h) element strides of q, k and v, the score scale,
+    # the stream
+    "repro_flash_attention": (_P,) * 6 + (ctypes.c_int,) * 12
                              + (ctypes.c_longlong,) * 9
                              + (ctypes.c_float, _P),
     # q, k, v, out, dout, lse, the Drow scratch, dq, dk, dv, then as the

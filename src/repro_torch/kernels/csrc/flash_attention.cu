@@ -7,9 +7,18 @@
 // contiguous, in q's dtype:
 //
 //   s    = (q . k) * scale                      scale = 1 / sqrt(D)
-//   mask = qpos >= kpos (causal) and kpos < Skv  masked scores are -1e30
+//   mask = kpos < Skv and, causal, qpos >= kpos   qpos = row + q_offset
+//          and (window > 0) qpos - kpos < window  masked scores are -inf
 //   out  = sum_k softmax(s)_k v_k                online softmax, f32 m, l, acc
 //        = acc / max(l, 1e-30)
+//
+// The window and the query offset are the reference's (its sdpa's window
+// and q_offset, which the Pallas kernel does not take), runtime ints; both
+// apply only to a causal call (the C entry zeroes them otherwise), and the
+// wrapper refuses a call in which some row sees no key. A causal call with
+// a window runs an instantiation of its own (WINDOWED): with the window's
+// masks and tests in the causal kernel itself, the causal calls without one
+// ran 4-12% slower on an H100 (PERF.md, the windowed kernels).
 //
 // Bound on the H100: operations. Causal attention at the smollm prefill shape
 // (B 4, S 1024, H 9, D 64) does 4 B H S^2 D / 2 = 4.8 GFLOP on 14 MB of
@@ -34,12 +43,20 @@
 // result keeps the TPU kernel's f32 accuracy up to the output's one bf16
 // rounding; P in one bf16 part put one output ulp, 0.0156 at |o| in [2, 4),
 // against the 2e-2 tolerance); V is read with ldmatrix.trans as P.V's B
-// operand, once for both parts. Only tiles that cross the diagonal or the
-// ragged end of Skv are masked; a warp whose 16 rows all lie above a tile
-// skips it (all its scores would be masked: exp gives exact zeros and the
-// running max does not move, so skipping changes no bit). The grid walks the
-// q blocks heaviest first, so the long causal rows start before the short
-// ones fill the gaps. Rows past Sq and keys past Skv are zero-filled by the
+// operand, once for both parts. A CTA walks only the key tiles of its rows'
+// band: from the tile of the first row's band start (position q0 + q_offset
+// - window + 1, windowed) to that of the last row's position (causal), so
+// a window of w keys costs about (w + 64) / 64 tiles a q block however long
+// the sequence. Only tiles that cross the diagonal, the band's start or the
+// ragged end of Skv are masked; a warp whose 16 rows all lie above a tile,
+// or whose rows' bands all start past it, skips it (all its scores would be masked:
+// exp gives exact zeros and the running max does not move, so skipping
+// changes no bit). The grid walks the q blocks from the last, so the long
+// causal rows start before the short ones fill the gaps; with a window
+// every block past the first window / 64 holds the same band, and only the
+// first ones are lighter, so the order stays heaviest first (as long as the
+// last rows' positions stay within Skv, q_offset <= Skv - Sq: the offset's
+// use). Rows past Sq and keys past Skv are zero-filled by the
 // copies (source size 0) and never stored or seen. The statistics are f32 in
 // the exp2 domain (scores scaled by log2(e) / sqrt(D), exp2f). D = 64 takes
 // ~160 registers a thread, so one 384-thread CTA an SM; q blocks of 32
@@ -84,11 +101,13 @@
 // reference's lse; both kernels keep the max in the exp2 domain, times
 // ln 2). The output is the same with or without it.
 //
-// Numbers. Masked scores are the TPU kernel's finite -1e30, never -inf, and
-// the first tile always holds key 0, which every row sees, so no exp argument
-// is ever -1e30 - (-1e30) on a real row. Sums run in a fixed order with no
-// atomics: the result is deterministic, so two runs of one prompt agree bit
-// for bit.
+// Numbers. The running max starts at the finite -1e30 and masked scores are
+// -inf, so a masked key's weight is exp2(-inf) = 0 exactly, also in a tile
+// whose keys a row cannot see before it has seen any (a windowed row's
+// tiles before its band: its max stays -1e30 and its sums 0). A row that has
+// seen a key gets the same bits as with the TPU kernel's finite -1e30 for
+// masked scores. Sums run in a fixed order with no atomics: the result is
+// deterministic, so two runs of one prompt agree bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,15 +168,15 @@ __device__ __forceinline__ void load_kv(char* stage, const __nv_bfloat16* kb,
   }
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     flash_fwd_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                               int Sq, int Skv, int H, int G,
-                              int GB, int n_qblocks, int n_heads_b, Strides qs, Strides ks,
-                              Strides vs, float scale) {
+                              int GB, int n_qblocks, int n_heads_b, int q_off, int win,
+                              Strides qs, Strides ks, Strides vs, float scale) {
   using S = Smem<D, DV>;
   constexpr int DT = DV / 8;    // n8 tiles of the output
   constexpr int DK = D / 16;    // k16 steps of Q.K^T
@@ -183,9 +202,16 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
   const int p0 = (warp % WARPS_PER_HEAD) * 16;        // warp's first position
   const int g = lane / 4, t = lane % 4;
 
+  // the key tiles of the block's band: from the first row's band start to
+  // the last row's position
+  // a windowed call (causal, win > 0) has a kernel of its own: the causal
+  // kernel without a window keeps its code
+  constexpr bool windowed = CAUSAL && WINDOWED;
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int kv_end = CAUSAL ? min(Skv, q_last + q_off + 1) : Skv;
+  const int kv_lo = windowed ? max(0, q0 + q_off - win + 1) : 0;
+  const int t_lo = kv_lo / BK;
+  const int t_hi = (kv_end + BK - 1) / BK;
   const __nv_bfloat16* kb = k + bidx * ks.b + kh * ks.h;
   const __nv_bfloat16* vb = v + bidx * vs.b + kh * vs.h;
 
@@ -198,7 +224,7 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
         q + bidx * qs.b + (ok ? qpos : 0) * qs.s + (h0 + row / BQ) * qs.h + 8 * c;
     tiles::cp_async16(qbuf + row * S::ROW + 16 * c, src, ok);
   }
-  if (n_tiles > 0) load_kv<D, DV>(kvbuf, kb, vb, ks, vs, 0, Skv, nthreads);
+  if (t_lo < t_hi) load_kv<D, DV>(kvbuf, kb, vb, ks, vs, t_lo * BK, Skv, nthreads);
   tiles::cp_async_commit();
 
   float o[DT][4];
@@ -209,26 +235,30 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
   float m_row[2] = {NEG, NEG}, l_row[2] = {0.f, 0.f};   // rows g, g + 8 (l per lane)
   unsigned qf[DK][4];
   const float sl2 = scale * LOG2E;
-  const int row_lo = q0 + p0;                          // the warp's first position
+  const int row_lo = q0 + p0;                          // the warp's first row
+  const int pos_lo = row_lo + q_off;                   // ... and its position
   const bool warp_live = row_lo < Sq;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_lo; tile < t_hi; ++tile) {
     const int k0 = tile * BK;
-    if (tile + 1 < n_tiles)
-      load_kv<D, DV>(kvbuf + ((tile + 1) & 1) * S::STAGE, kb, vb, ks, vs, k0 + BK, Skv,
-                     nthreads);
+    const int slot = (tile - t_lo) & 1;
+    if (tile + 1 < t_hi)
+      load_kv<D, DV>(kvbuf + (slot ^ 1) * S::STAGE, kb, vb, ks, vs, k0 + BK, Skv, nthreads);
     tiles::cp_async_commit();
     tiles::cp_async_wait<1>();   // tile `tile` (and q) have landed
     __syncthreads();
-    if (tile == 0) {
+    if (tile == t_lo) {
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk)
         tiles::ldmatrix_x4(qf[kk], qbuf + (gi * BQ + p0 + (lane & 15)) * S::ROW +
                                        2 * (16 * kk + (lane >> 4) * 8));
     }
-    const bool skip = !warp_live || (CAUSAL && k0 > row_lo + 15);
+    // every row of the warp above the tile, or its band starting past the
+    // tile's last key
+    const bool skip = !warp_live || (CAUSAL && k0 > pos_lo + 15) ||
+                      (windowed && k0 + BK - 1 <= pos_lo - win);
     if (!skip) {
-      const char* kt = kvbuf + (tile & 1) * S::STAGE;
+      const char* kt = kvbuf + slot * S::STAGE;
       const char* vt = kt + S::KTILE;
 
       // S = Q K^T: K rows (keys) as the col-major B operand
@@ -249,7 +279,8 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
         }
 
       // scale, mask, online softmax (exp2 domain)
-      const bool masked = k0 + BK > Skv || (CAUSAL && k0 + BK - 1 > row_lo);
+      const bool masked = k0 + BK > Skv || (CAUSAL && k0 + BK - 1 > pos_lo) ||
+                          (windowed && k0 <= pos_lo + 15 - win);
       float mx[2] = {NEG, NEG};
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -258,8 +289,9 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
           float x = s[j][r] * sl2;
           if (masked) {
             const int kpos = k0 + 8 * j + 2 * t + (r & 1);
-            const int qpos = row_lo + g + 8 * (r >> 1);
-            if (kpos >= Skv || (CAUSAL && kpos > qpos)) x = NEG;
+            const int qpos = pos_lo + g + 8 * (r >> 1);
+            if (kpos >= Skv || (CAUSAL && (kpos > qpos || (windowed && qpos - kpos >= win))))
+              x = -INFINITY;
           }
           s[j][r] = x;
           mx[r >> 1] = fmaxf(mx[r >> 1], x);
@@ -338,17 +370,17 @@ __global__ void __launch_bounds__(mma_max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
   }
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
-                float scale, cudaStream_t stream) {
+                int Sq, int Skv, int H, int KH, int q_off, int win, Strides qs, Strides ks,
+                Strides vs, float scale, cudaStream_t stream) {
   const int G = H / KH;
   const int GB = flash::heads_per_cta(G, mma_max_gb<D, DV>());
   const int n_qblocks = (Sq + BQ - 1) / BQ;
   const int n_heads_b = B * KH * (G / GB);            // (batch, head group) pairs
   const long long blocks = static_cast<long long>(n_qblocks) * n_heads_b;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_bf16_mma_kernel<D, DV, CAUSAL>;
+  auto kernel = flash_fwd_bf16_mma_kernel<D, DV, CAUSAL, WINDOWED>;
   using S = Smem<D, DV>;
   // the limit is per device: set it on the current one at every launch
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -357,26 +389,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, S::bytes(GB),
            stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
-                     Sq, Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
+                     Sq, Skv, H, G, GB, n_qblocks, n_heads_b, q_off, win, qs, ks, vs,
+                     scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int DV>
-int dispatch(int dtype, int causal, const void* q, const void* k, const void* v, void* out,
-             float* lse, float* ws, int B, int Sq, int Skv, int H, int KH, int splits,
-             Strides qs, Strides ks, Strides vs, float scale, cudaStream_t st) {
+int dispatch(int dtype, int causal, int q_off, int win, const void* q, const void* k,
+             const void* v, void* out, float* lse, float* ws, int B, int Sq, int Skv, int H,
+             int KH, int splits, Strides qs, Strides ks, Strides vs, float scale,
+             cudaStream_t st) {
   if (!flash::rows_aligned16(q, k, v, qs, ks, vs, dtype == 0 ? 4 : 2))
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (dtype == 0)
-    return flash::launch_f32(D, DV, causal, q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
-                             scale, st);
+    return flash::launch_f32(D, DV, causal, q_off, win, q, k, v, out, lse, B, Sq, Skv, H, KH,
+                             qs, ks, vs, scale, st);
   if (splits > 0)
-    return flash::launch_decode(D, DV, causal, q, k, v, out, lse, ws, B, Sq, Skv, H, KH,
-                                splits, qs, ks, vs, scale, st);
-  return causal ? launch_bf16<D, DV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
-                                           scale, st)
-                : launch_bf16<D, DV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, ks, vs,
-                                            scale, st);
+    return flash::launch_decode(D, DV, causal, q_off, win, q, k, v, out, lse, ws, B, Sq, Skv,
+                                H, KH, splits, qs, ks, vs, scale, st);
+  if (!causal)
+    return launch_bf16<D, DV, false, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, 0, 0, qs, ks,
+                                            vs, scale, st);
+  return win > 0 ? launch_bf16<D, DV, true, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, q_off,
+                                                  win, qs, ks, vs, scale, st)
+                 : launch_bf16<D, DV, true, false>(q, k, v, out, lse, B, Sq, Skv, H, KH, q_off,
+                                                   0, qs, ks, vs, scale, st);
 }
 
 }  // namespace
@@ -386,20 +423,22 @@ int dispatch(int dtype, int causal, const void* q, const void* k, const void* v,
 // and v and their (b, s, h) strides must be multiples of 16 bytes. ``lse``,
 // when not null, receives each row's float32 log-sum-exp (B, Sq, H), the
 // residual of the backward (flash_attention_bwd.cu); the output is the same
-// either way. A bf16 call with Sq * (H / KH) <= flash::DECODE_ROWS takes the
+// either way. ``q_offset`` >= 0 and ``window`` >= 0 (0: none) apply to a
+// causal call only (flash::band); every row must see a key. A bf16 call with Sq * (H / KH) <= flash::DECODE_ROWS takes the
 // decode route and must come with ``splits`` > 0 and the float32 workspace
 // ``ws`` of B KH splits Sq (H / KH) (Dv + 2) floats; every other call with
 // 0 and null.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* out, void* lse, void* ws, int dtype, int B, int Sq,
                                      int Skv, int H, int KH, int D, int Dv, int causal,
-                                     int splits, long long qsb, long long qss, long long qsh,
+                                     int q_offset, int window, int splits, long long qsb, long long qss, long long qsh,
                                      long long ksb, long long kss, long long ksh,
                                      long long vsb, long long vss, long long vsh, float scale,
                                      void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1))
+  if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1) || q_offset < 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!causal) q_offset = window = 0;
   const bool decode =
       dtype == 1 && static_cast<long long>(Sq) * (H / KH) <= flash::DECODE_ROWS;
   if (decode != (splits > 0) || (splits > 0) != (ws != nullptr) || splits < 0)
@@ -408,9 +447,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_PAIR(DQ, DVV)                                                           \
   if (D == DQ && Dv == DVV)                                                               \
-    return dispatch<DQ, DVV>(dtype, causal, q, k, v, out, static_cast<float*>(lse),       \
-                             static_cast<float*>(ws), B, Sq, Skv, H, KH, splits, qs, ks, vs, \
-                             scale, st);
+    return dispatch<DQ, DVV>(dtype, causal, q_offset, window, q, k, v, out,               \
+                             static_cast<float*>(lse), static_cast<float*>(ws), B, Sq, Skv, \
+                             H, KH, splits, qs, ks, vs, scale, st);
   REPRO_FLASH_PAIRS(REPRO_FLASH_PAIR)
 #undef REPRO_FLASH_PAIR
   return static_cast<int>(cudaErrorInvalidValue);

@@ -21,7 +21,11 @@
 // Split pass (flash_fwd_decode_split_kernel): one CTA of four warps per
 // (split, KV head, batch). The split count comes from the wrapper
 // (decode_splits, from the shapes alone, so a call gives the same bits on
-// any card); split s holds keys [s c, min((s + 1) c, Skv)), c = ceil(Skv /
+// any card). The splits cover the call's band (flash::band): the keys [lo,
+// hi) that some query row sees, all of Skv unless causal; causal, up to the
+// last row's position and, with a window, from the first row's band start,
+// so a windowed call's keys outside every row's band are never read. Split
+// s holds keys [lo + s c, min(lo + (s + 1) c, hi)), c = ceil((hi - lo) /
 // splits). Each CTA reads its keys' K and V rows once for all R = Sq * G
 // query rows of its KV head (row r is query position r / G of head kh G +
 // r % G): tiles of 64 keys arrive by cp.async (16-byte copies) into a ring
@@ -39,9 +43,11 @@
 // count is a fifth of the bytes bound. When the keys are done the four
 // warps' (m, l, o) meet in shared memory and merge in warp order into the
 // split's float32 (m, l, acc[Dv]) of each row in the workspace: m the row's
-// max score, l the sum of exp2(s - m), acc the unnormalised P V. Causal
-// masking (qpos >= kpos, both from 0) and the split's and Skv's ends are
-// masked as in the prefill kernel (copies past them are zero-filled); a row
+// max score, l the sum of exp2(s - m), acc the unnormalised P V. Each lane's
+// two rows see the keys from their band's start (their position, query
+// position + q_offset, less window - 1, when windowed) to their position
+// (causal), within the split: the masks of the prefill kernel (copies past
+// the split's end are zero-filled); a row
 // that sees no key of a split has m = -1e30, l = 0 and acc = 0, and a
 // masked key's weight is set to 0 outright, so a split whose first keys a
 // row cannot see never takes exp2(-1e30 - (-1e30)) = 1 for them. A warp
@@ -126,7 +132,8 @@ __global__ void __launch_bounds__(NT)
                                   const __nv_bfloat16* __restrict__ k,
                                   const __nv_bfloat16* __restrict__ v, float* __restrict__ ws,
                                   int B, int Sq, int Skv, int KH, int G, int splits,
-                                  Strides qs, Strides ks, Strides vs, float scale) {
+                                  int q_off, int win, Strides qs, Strides ks, Strides vs,
+                                  float scale) {
   using S = DecSmem<D, DV>;
   constexpr int DK = D / 16;    // k16 steps of Q K^T
   constexpr int DT = DV / 8;    // n8 tiles of the output
@@ -139,10 +146,10 @@ __global__ void __launch_bounds__(NT)
   const int R = Sq * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int chunk = (Skv + splits - 1) / splits;
-  const int k_lo = split * chunk;
-  int k_hi = min(k_lo + chunk, Skv);
-  if (CAUSAL) k_hi = min(k_hi, Sq);   // the last position, Sq - 1, sees keys < Sq
+  const flash::Band bd = flash::band(Sq, Skv, CAUSAL, q_off, win);
+  const int chunk = (bd.hi - bd.lo + splits - 1) / splits;
+  const int k_lo = bd.lo + split * chunk;
+  const int k_hi = min(k_lo + chunk, bd.hi);
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + T - 1) / T : 0;
   const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
@@ -179,10 +186,15 @@ __global__ void __launch_bounds__(NT)
   for (int kk = 0; kk < DK; ++kk)
     tiles::ldmatrix_x4(qf[kk], qbuf + (lane & 15) * S::ROW + 2 * (16 * kk + (lane >> 4) * 8));
   const float sl2 = scale * LOG2E;
-  // the end of the keys that this lane's rows g and g + 8 see: causal, row
-  // r (position r / G) sees keys up to r / G
-  const int end_lo = CAUSAL ? min(k_hi, g / G + 1) : k_hi;
-  const int end_hi = CAUSAL ? min(k_hi, (g + 8) / G + 1) : k_hi;
+  // the keys of the split that this lane's rows g and g + 8 see: causal,
+  // row r (position r / G + q_off) sees keys up to its position and, with
+  // a window, from its position - win + 1
+  const bool windowed = CAUSAL && win > 0;
+  const int pos_lo = g / G + q_off, pos_hi = (g + 8) / G + q_off;
+  const int end_lo = CAUSAL ? min(k_hi, pos_lo + 1) : k_hi;
+  const int end_hi = CAUSAL ? min(k_hi, pos_hi + 1) : k_hi;
+  const int beg_lo = windowed ? max(k_lo, pos_lo - win + 1) : k_lo;
+  const int beg_hi = windowed ? max(k_lo, pos_hi - win + 1) : k_lo;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     tiles::cp_async_wait<STAGES - 2>();   // this thread's copies of the tile
@@ -221,7 +233,8 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int kpos = kw + 8 * j + 2 * t + (r & 1);
-          const bool seen = kpos < (r < 2 ? end_lo : end_hi);
+          const bool seen = kpos < (r < 2 ? end_lo : end_hi) &&
+                            kpos >= (r < 2 ? beg_lo : beg_hi);
           const float x = seen ? s[j][r] * sl2 : NEG;
           s[j][r] = x;
           mx[r >> 1] = fmaxf(mx[r >> 1], x);
@@ -355,8 +368,9 @@ __global__ void __launch_bounds__(DV / 4)
 
 template <int D, int DV, bool CAUSAL>
 int launch_pair(const void* q, const void* k, const void* v, void* out, float* lse,
-                float* ws, int B, int Sq, int Skv, int H, int KH, int splits, Strides qs,
-                Strides ks, Strides vs, float scale, cudaStream_t stream) {
+                float* ws, int B, int Sq, int Skv, int H, int KH, int splits, int q_off,
+                int win, Strides qs, Strides ks, Strides vs, float scale,
+                cudaStream_t stream) {
   const int G = H / KH;
   if (B > 65535 || KH > 65535 || splits > MAX_SPLITS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,7 +387,8 @@ int launch_pair(const void* q, const void* k, const void* v, void* out, float* l
   if (attr != cudaSuccess) return static_cast<int>(attr);
   split<<<dim3(splits, KH, B), NT, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), ws, B, Sq, Skv, KH, G, splits, qs, ks, vs, scale);
+      static_cast<const __nv_bfloat16*>(v), ws, B, Sq, Skv, KH, G, splits, q_off, win, qs, ks,
+      vs, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_fwd_decode_combine_kernel<DV><<<dim3(Sq * G, KH, B), DV / 4, 0, stream>>>(
@@ -383,16 +398,17 @@ int launch_pair(const void* q, const void* k, const void* v, void* out, float* l
 
 }  // namespace
 
-int flash::launch_decode(int D, int Dv, bool causal, const void* q, const void* k,
-                         const void* v, void* out, float* lse, float* ws, int B, int Sq,
-                         int Skv, int H, int KH, int splits, Strides qs, Strides ks,
-                         Strides vs, float scale, cudaStream_t stream) {
-#define REPRO_FLASH_DECODE(DQ, DVV)                                                       \
-  if (D == DQ && Dv == DVV)                                                             \
-    return causal ? launch_pair<DQ, DVV, true>(q, k, v, out, lse, ws, B, Sq, Skv, H, KH, \
-                                               splits, qs, ks, vs, scale, stream)        \
-                  : launch_pair<DQ, DVV, false>(q, k, v, out, lse, ws, B, Sq, Skv, H,   \
-                                                KH, splits, qs, ks, vs, scale, stream);
+int flash::launch_decode(int D, int Dv, bool causal, int q_offset, int window, const void* q,
+                         const void* k, const void* v, void* out, float* lse, float* ws,
+                         int B, int Sq, int Skv, int H, int KH, int splits, Strides qs,
+                         Strides ks, Strides vs, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_DECODE(DQ, DVV)                                                        \
+  if (D == DQ && Dv == DVV)                                                              \
+    return causal ? launch_pair<DQ, DVV, true>(q, k, v, out, lse, ws, B, Sq, Skv, H, KH,  \
+                                               splits, q_offset, window, qs, ks, vs, scale, \
+                                               stream)                                    \
+                  : launch_pair<DQ, DVV, false>(q, k, v, out, lse, ws, B, Sq, Skv, H, KH, \
+                                                splits, 0, 0, qs, ks, vs, scale, stream);
   REPRO_FLASH_PAIRS(REPRO_FLASH_DECODE)
 #undef REPRO_FLASH_DECODE
   return static_cast<int>(cudaErrorInvalidValue);

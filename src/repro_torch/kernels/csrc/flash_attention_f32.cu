@@ -39,9 +39,12 @@
 //
 // Layout of the work: the bf16 kernel's. One CTA per (q block of 64 rows,
 // group of GB query heads of one KV head, batch), heaviest q blocks first;
-// GB x 4 warps, a warp 16 rows of one head. A warp whose 16 rows all lie
-// above a key tile skips it; only tiles that cross the diagonal or the
-// ragged end of Skv are masked; rows past Sq and keys past Skv are
+// GB x 4 warps, a warp 16 rows of one head. A CTA walks only the key tiles
+// of its rows' band (the window and the query offset as there, a windowed
+// call in an instantiation of its own); a warp
+// whose 16 rows all lie above a key tile, or whose rows' bands all start
+// past it, skips it; only tiles that cross the diagonal, the band's start
+// or the ragged end of Skv are masked; rows past Sq and keys past Skv are
 // zero-filled by the copies and never stored or seen. One query (a decode
 // step) runs in a 16-row tile with 15 rows unused.
 //
@@ -64,9 +67,10 @@
 // accumulators (S's two, the tile's P V) then fit the 170 registers a
 // thread of a 384-thread CTA (255 at D 128), with no local memory.
 //
-// Numbers. Masked scores are the finite -1e30; the first tile holds key 0,
-// which every row sees. Sums run in a fixed order with no atomics: two
-// launches agree bit for bit.
+// Numbers. As in the bf16 kernel: the running max starts at the finite
+// -1e30 and masked scores are -inf, so a masked key weighs exactly 0, also
+// before a windowed row's band. Sums run in a fixed order with no atomics:
+// two launches agree bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -159,13 +163,13 @@ __device__ __forceinline__ void split_kv(const float* stage, float* split, int n
   }
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ out,
                              float* __restrict__ lse, int Sq, int Skv, int H, int G, int GB,
-                             int n_qblocks, int n_heads_b, Strides qs, Strides ks, Strides vs,
-                             float scale) {
+                             int n_qblocks, int n_heads_b, int q_off, int win, Strides qs,
+                             Strides ks, Strides vs, float scale) {
   using S = Smem<D, DV>;
   constexpr int DT = DV / 8;    // n8 tiles of the output
   constexpr int DK = D / 8;     // k8 steps of Q.K^T
@@ -195,9 +199,16 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
   const int p0 = (warp % WARPS_PER_HEAD) * 16;        // warp's first position
   const int g = lane / 4, t = lane % 4;
 
+  // the key tiles of the block's band: from the first row's band start to
+  // the last row's position
+  // a windowed call (causal, win > 0) has a kernel of its own: the causal
+  // kernel without a window keeps its code
+  constexpr bool windowed = CAUSAL && WINDOWED;
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
-  const int n_tiles = (kv_end + BKT - 1) / BKT;
+  const int kv_end = CAUSAL ? min(Skv, q_last + q_off + 1) : Skv;
+  const int kv_lo = windowed ? max(0, q0 + q_off - win + 1) : 0;
+  const int t_lo = kv_lo / BKT;
+  const int t_hi = (kv_end + BKT - 1) / BKT;
   const float* kb = k + bidx * ks.b + kh * ks.h;
   const float* vb = v + bidx * vs.b + kh * vs.h;
 
@@ -210,7 +221,7 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
         q + bidx * qs.b + (ok ? qpos : 0) * qs.s + (h0 + row / BQ) * qs.h + 4 * c;
     tiles::cp_async16(qbuf + row * S::QP + 4 * c, src, ok);
   }
-  if (n_tiles > 0) load_kv<D, DV>(stage, kb, vb, ks, vs, 0, Skv, nthreads);
+  if (t_lo < t_hi) load_kv<D, DV>(stage, kb, vb, ks, vs, t_lo * BKT, Skv, nthreads);
   tiles::cp_async_commit();
 
   float o[DT][4];
@@ -220,20 +231,24 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
     for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
   float m_row[2] = {NEG, NEG}, l_row[2] = {0.f, 0.f};   // rows g, g + 8 (l per lane)
   const float sl2 = scale * LOG2E;
-  const int row_lo = q0 + p0;                          // the warp's first position
+  const int row_lo = q0 + p0;                          // the warp's first row
+  const int pos_lo = row_lo + q_off;                   // ... and its position
   const bool warp_live = row_lo < Sq;
   const float* qw = qbuf + (gi * BQ + p0) * S::QP;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_lo; tile < t_hi; ++tile) {
     const int k0 = tile * BKT;
     tiles::cp_async_wait<0>();   // tile `tile` (and q) have landed
     __syncthreads();             // ... for every thread; the split tiles are free
     split_kv<D, DV>(stage, stage + S::STAGE, nthreads);
     __syncthreads();             // the split tiles are ready, the staging tile free
-    if (tile + 1 < n_tiles)
+    if (tile + 1 < t_hi)
       load_kv<D, DV>(stage, kb, vb, ks, vs, k0 + BKT, Skv, nthreads);
     tiles::cp_async_commit();
-    const bool skip = !warp_live || (CAUSAL && k0 > row_lo + 15);
+    // every row of the warp above the tile, or its band starting past the
+    // tile's last key
+    const bool skip = !warp_live || (CAUSAL && k0 > pos_lo + 15) ||
+                      (windowed && k0 + BKT - 1 <= pos_lo - win);
     if (skip) continue;
 
     // S = Q K^T: q fragments by ldmatrix, split in registers; K rows (keys)
@@ -270,7 +285,8 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
       for (int r = 0; r < 4; ++r) s[j][r] += s_lo[j][r];
 
     // scale, mask, online softmax (exp2 domain)
-    const bool masked = k0 + BKT > Skv || (CAUSAL && k0 + BKT - 1 > row_lo);
+    const bool masked = k0 + BKT > Skv || (CAUSAL && k0 + BKT - 1 > pos_lo) ||
+                        (windowed && k0 <= pos_lo + 15 - win);
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -279,8 +295,9 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
         float x = s[j][r] * sl2;
         if (masked) {
           const int kpos = k0 + 8 * j + 2 * t + (r & 1);
-          const int qpos = row_lo + g + 8 * (r >> 1);
-          if (kpos >= Skv || (CAUSAL && kpos > qpos)) x = NEG;
+          const int qpos = pos_lo + g + 8 * (r >> 1);
+          if (kpos >= Skv || (CAUSAL && (kpos > qpos || (windowed && qpos - kpos >= win))))
+            x = -INFINITY;
         }
         s[j][r] = x;
         mx[r >> 1] = fmaxf(mx[r >> 1], x);
@@ -365,17 +382,17 @@ __global__ void __launch_bounds__(max_gb<D, DV>() * WARPS_PER_HEAD * 32, 1)
   }
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 int launch_pair(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
-                float scale, cudaStream_t stream) {
+                int Sq, int Skv, int H, int KH, int q_off, int win, Strides qs, Strides ks,
+                Strides vs, float scale, cudaStream_t stream) {
   const int G = H / KH;
   const int GB = flash::heads_per_cta(G, max_gb<D, DV>());
   const int n_qblocks = (Sq + BQ - 1) / BQ;
   const int n_heads_b = B * KH * (G / GB);            // (batch, head group) pairs
   const long long blocks = static_cast<long long>(n_qblocks) * n_heads_b;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_f32_mma_kernel<D, DV, CAUSAL>;
+  auto kernel = flash_fwd_f32_mma_kernel<D, DV, CAUSAL, WINDOWED>;
   using S = Smem<D, DV>;
   constexpr int F = static_cast<int>(sizeof(float));
   // the limit is per device: set it on the current one at every launch
@@ -385,22 +402,26 @@ int launch_pair(const void* q, const void* k, const void* v, void* out, float* l
   kernel<<<static_cast<unsigned>(blocks), GB * WARPS_PER_HEAD * 32, S::floats(GB) * F,
            stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Skv, H,
-                     G, GB, n_qblocks, n_heads_b, qs, ks, vs, scale);
+                     G, GB, n_qblocks, n_heads_b, q_off, win, qs, ks, vs, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-int flash::launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-                      void* out, float* lse, int B, int Sq, int Skv, int H, int KH,
-                      Strides qs, Strides ks, Strides vs, float scale,
+int flash::launch_f32(int D, int Dv, bool causal, int q_offset, int window, const void* q,
+                      const void* k, const void* v, void* out, float* lse, int B, int Sq,
+                      int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
                       cudaStream_t stream) {
-#define REPRO_FLASH_F32(DQ, DVV)                                                         \
-  if (D == DQ && Dv == DVV)                                                            \
-    return causal ? launch_pair<DQ, DVV, true>(q, k, v, out, lse, B, Sq, Skv, H, KH, qs, \
-                                               ks, vs, scale, stream)                   \
-                  : launch_pair<DQ, DVV, false>(q, k, v, out, lse, B, Sq, Skv, H, KH,   \
-                                                qs, ks, vs, scale, stream);
+#define REPRO_FLASH_F32(DQ, DVV)                                                          \
+  if (D == DQ && Dv == DVV)                                                             \
+    return !causal ? launch_pair<DQ, DVV, false, false>(q, k, v, out, lse, B, Sq, Skv, H,  \
+                                                        KH, 0, 0, qs, ks, vs, scale, stream) \
+           : window > 0 ? launch_pair<DQ, DVV, true, true>(q, k, v, out, lse, B, Sq, Skv, H,  \
+                                                          KH, q_offset, window, qs, ks, vs,  \
+                                                          scale, stream)                     \
+                        : launch_pair<DQ, DVV, true, false>(q, k, v, out, lse, B, Sq, Skv, H, \
+                                                           KH, q_offset, 0, qs, ks, vs,      \
+                                                           scale, stream);
   REPRO_FLASH_PAIRS(REPRO_FLASH_F32)
 #undef REPRO_FLASH_F32
   return static_cast<int>(cudaErrorInvalidValue);

@@ -37,6 +37,22 @@ struct Strides {
   long long b, s, h;
 };
 
+// The keys [lo, hi) that some query row of a call sees, the union of the
+// rows' bands. Query i stands at position i + q_offset; causal, it sees the
+// keys kpos <= i + q_offset and, with window > 0, only those with i +
+// q_offset - kpos < window; non-causal, every key (neither the offset nor
+// the window applies). The wrapper's band() is the same function.
+struct Band {
+  int lo, hi;
+};
+
+__host__ __device__ inline Band band(int Sq, int Skv, bool causal, int q_offset, int window) {
+  if (!causal) return {0, Skv};
+  const int lo = window > 0 ? (q_offset - window + 1 > 0 ? q_offset - window + 1 : 0) : 0;
+  const int end = Sq + q_offset < Skv ? Sq + q_offset : Skv;
+  return {lo, end > lo ? end : lo};
+}
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The tensor-core kernels copy q, k and v in 16-byte chunks of rows: their
@@ -60,20 +76,23 @@ inline int heads_per_cta(int G, int most) {
 
 // The float32 kernel's launch for the pair (D, Dv) (flash_attention_f32.cu);
 // cudaErrorInvalidValue for a pair it was not built for.
-// ``lse`` (float32 (B, Sq, H)) is written when not null.
-int launch_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-               void* out, float* lse, int B, int Sq, int Skv, int H, int KH, Strides qs,
-               Strides ks, Strides vs, float scale, cudaStream_t stream);
+// ``lse`` (float32 (B, Sq, H)) is written when not null. ``q_offset`` and
+// ``window`` (0: none) as in band(); the caller passes 0 for both when not
+// causal.
+int launch_f32(int D, int Dv, bool causal, int q_offset, int window, const void* q,
+               const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv,
+               int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+               cudaStream_t stream);
 
 // The decode route for the pair (D, Dv) (flash_attention_decode.cu): the
-// split pass over `splits` key splits into the float32 workspace `ws`
-// (B KH splits Sq G rows of Dv + 2 floats), then the combine pass into `out`
-// (and `lse` when not null); cudaErrorInvalidValue for a pair it was not
-// built for.
-int launch_decode(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-                  void* out, float* lse, float* ws, int B, int Sq, int Skv, int H, int KH,
-                  int splits, Strides qs, Strides ks, Strides vs, float scale,
-                  cudaStream_t stream);
+// split pass over `splits` splits of the call's band() into the float32
+// workspace `ws` (B KH splits Sq G rows of Dv + 2 floats), then the combine
+// pass into `out` (and `lse` when not null); cudaErrorInvalidValue for a
+// pair it was not built for.
+int launch_decode(int D, int Dv, bool causal, int q_offset, int window, const void* q,
+                  const void* k, const void* v, void* out, float* lse, float* ws, int B,
+                  int Sq, int Skv, int H, int KH, int splits, Strides qs, Strides ks,
+                  Strides vs, float scale, cudaStream_t stream);
 
 // The backward's float32 dK/dV and dQ passes for the pair (D, Dv)
 // (flash_attention_bwd_f32.cu), after Drow; cudaErrorInvalidValue for a pair

@@ -21,6 +21,19 @@ not is copied first.
 Unlike the TPU kernel, no length has to divide a tile: the kernel masks
 ragged ``Sq`` and ``Skv`` itself.
 
+A causal call also takes the reference's sliding window and query offset
+(``repro/models/attention.py``, ``sdpa``'s ``window`` and ``q_offset``;
+the Pallas kernel has neither): query i stands at position i + ``q_offset``
+and sees the keys at positions kpos <= i + q_offset with, when ``window``
+> 0, i + q_offset - kpos < window. The three forward kernels take both as
+runtime ints and skip every key tile (the decode route: every key outside
+the union of the rows' bands, ``band``) that no row of the tile's queries
+sees. Without ``causal`` neither applies, as in the reference. A call in
+which some row would see no key (an offset that puts the last row
+``window`` or more past the last key) is refused on either device
+(``check_band``), where the reference's naive core returns NaN for the
+row.
+
 A bf16 call with at most ``DECODE_ROWS`` query rows a KV head (Sq * G: a
 decode step's cross attention) takes the split-KV decode route
 (``csrc/flash_attention_decode.cu``): a split pass over ``decode_splits``
@@ -73,29 +86,68 @@ DECODE_CTAS = 264
 DECODE_MIN_KEYS = 64
 
 
+def band(Sq: int, Skv: int, causal: bool, q_offset: int = 0,
+         window: int = 0):
+    """(lo, hi): the keys [lo, hi) that some query row of a call sees, the
+    union of the rows' bands (the same function as ``flash::band`` in
+    ``csrc/flash_common.cuh``). Non-causal: every key."""
+    if not causal:
+        return 0, Skv
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    return lo, max(lo, min(Skv, Sq + q_offset))
+
+
+def check_band(Sq: int, Skv: int, causal: bool, q_offset: int,
+               window: int):
+    """(q_offset, window) of a call as ints, both 0 without ``causal``;
+    raises unless every row sees a key: no negative offset or window, and
+    with a window no row ``window`` or more past the last key."""
+    q_offset, window = (int(q_offset), int(window)) if causal else (0, 0)
+    if q_offset < 0 or window < 0:
+        raise ValueError(f"q_offset {q_offset} and window {window} must be "
+                         f">= 0")
+    if causal and window > 0 and Sq > 0 and Sq + q_offset - window >= Skv:
+        raise ValueError(
+            f"causal attention with window {window} and q_offset "
+            f"{q_offset}: query {Sq - 1} (position {Sq - 1 + q_offset}) sees "
+            f"none of the {Skv} keys (the reference returns NaN there)")
+    return q_offset, window
+
+
 def decode_splits(B: int, Sq: int, Skv: int, H: int, KH: int,
-                  dtype: torch.dtype) -> int:
+                  dtype: torch.dtype, *, causal: bool = False,
+                  q_offset: int = 0, window: int = 0) -> int:
     """The decode route's key-split count for a call of these shapes, or
     0 for the prefill route (float32, or more than ``DECODE_ROWS`` query
-    rows a KV head). Split s holds keys [s c, min((s + 1) c, Skv)) with c =
-    ceil(Skv / splits); every split, the last included, holds a key."""
+    rows a KV head). The splits cover the call's ``band`` [lo, hi) of n =
+    hi - lo keys: split s holds keys [lo + s c, min(lo + (s + 1) c, hi))
+    with c = ceil(n / splits); every split, the last included, holds a
+    key."""
     if dtype != torch.bfloat16 or Sq * (H // KH) > DECODE_ROWS:
         return 0
-    if Skv <= 0:
+    lo, hi = band(Sq, Skv, causal, q_offset, window)
+    n = hi - lo
+    if n <= 0:
         return 1
     splits = max(1, min(DECODE_CTAS // max(B * KH, 1),
-                        Skv // DECODE_MIN_KEYS))
-    chunk = -(-Skv // splits)
-    return -(-Skv // chunk)
+                        n // DECODE_MIN_KEYS))
+    chunk = -(-n // splits)
+    return -(-n // chunk)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, return_lse: bool = False):
+                          *, causal: bool = True, return_lse: bool = False,
+                          q_offset: int = 0, window: int = 0):
     """Plain PyTorch version: materialized float32 softmax attention (and
-    with ``return_lse`` each row's float32 log-sum-exp)."""
+    with ``return_lse`` each row's float32 log-sum-exp), with the kernels'
+    window and query offset, refusing what they refuse
+    (``check_band``)."""
+    q_offset, window = check_band(q.shape[1], k.shape[1], causal, q_offset,
+                                  window)
     if return_lse:
-        return mha_ref_lse(q, k, v, causal=causal)
-    return mha_ref(q, k, v, causal=causal)
+        return mha_ref_lse(q, k, v, causal=causal, q_offset=q_offset,
+                           window=window)
+    return mha_ref(q, k, v, causal=causal, q_offset=q_offset, window=window)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -139,14 +191,21 @@ def _strides(*ts):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, return_lse: bool = False):
+                        *, causal: bool = True, return_lse: bool = False,
+                        q_offset: int = 0, window: int = 0):
     """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
     q's dtype, the scores scaled by 1/sqrt(D); with ``return_lse`` also
     each row's float32 log-sum-exp (B,Sq,H). Causal masking is ``qpos >=
-    kpos`` with both positions from 0."""
+    kpos`` with query i at position i + ``q_offset`` and keys from 0, and
+    with ``window`` > 0 also ``qpos - kpos < window``; both are ignored
+    without ``causal``. Raises where a row would see no key
+    (``check_band``)."""
+    q_offset, window = check_band(q.shape[1], k.shape[1], causal, q_offset,
+                                  window)
     if KB.on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse,
+                                     q_offset=q_offset, window=window)
     B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
     q, k, v = (KB.aligned16(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -154,7 +213,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     if out.numel() == 0:
         return (out, lse) if return_lse else out
-    splits = decode_splits(B, Sq, Skv, H, KH, q.dtype)
+    splits = decode_splits(B, Sq, Skv, H, KH, q.dtype, causal=causal,
+                           q_offset=q_offset, window=window)
     # the decode route's (m, l, acc) of every row and split, float32
     ws = (torch.empty(B * KH * splits * Sq * (H // KH) * (Dv + 2),
                       dtype=torch.float32, device=q.device)
@@ -163,8 +223,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               None if lse is None else lse.data_ptr(),
               None if ws is None else ws.data_ptr(),
-              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal), splits,
-              *_strides(q, k, v), 1.0 / math.sqrt(D))
+              _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal),
+              q_offset, window, splits, *_strides(q, k, v),
+              1.0 / math.sqrt(D))
     return (out, lse) if return_lse else out
 
 

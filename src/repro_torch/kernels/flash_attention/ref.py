@@ -7,6 +7,14 @@ function as models/attention.py's plain core. ``mha_ref_lse`` also
 returns each row's log-sum-exp and ``mha_bwd_ref`` is the backward of the
 reference's custom VJP (``repro/models/attention.py:_make_flash``) from
 those residuals, both materialized in float32.
+
+The forward oracles take the masks of the reference's naive core
+(``repro/models/attention.py:_naive_core``): query i stands at position
+i + ``q_offset``; causal keeps keys at positions <= the query's and, with
+``window`` > 0, only the last ``window`` of them (qpos - kpos < window).
+Without ``causal`` neither the offset nor the window applies. A row that
+sees no key (an offset that puts it ``window`` or more past the last key)
+is NaN, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,9 +23,25 @@ import math
 import torch
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
+def band_mask(Sq: int, Skv: int, q_offset: int = 0, window: int = 0,
+              device=None) -> torch.Tensor:
+    """The causal mask (Sq, Skv): query i (position i + ``q_offset``) sees
+    key j when j <= i + q_offset and, with ``window`` > 0, i + q_offset -
+    j < window."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    if q_offset:
+        qpos = qpos + q_offset
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = qpos >= kpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            q_offset: int = 0, window: int = 0):
     """(float32 scores over sqrt(D), (B,Sq,KH,G,Skv); the causal mask
-    (1,Sq,1,1,Skv) with query i seeing keys 0..i, or None)."""
+    (1,Sq,1,1,Skv) of ``band_mask``, or None)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     qr = q.reshape(B, Sq, KH, H // KH, D).to(torch.float32)
@@ -25,27 +49,28 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool):
     s = s / math.sqrt(D)
     if not causal:
         return s, None
-    mask = (torch.arange(Sq, device=q.device)[:, None]
-            >= torch.arange(Skv, device=q.device)[None, :])
+    mask = band_mask(Sq, Skv, q_offset, window, q.device)
     return s, mask[None, :, None, None, :]
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True) -> torch.Tensor:
+            causal: bool = True, q_offset: int = 0,
+            window: int = 0) -> torch.Tensor:
     """q: (B,Sq,H,D); k,v: (B,Skv,KH,D) -> (B,Sq,H,Dv)."""
-    return _attend(q, k, v, causal, False)[0]
+    return _attend(q, k, v, causal, False, q_offset, window)[0]
 
 
 def mha_ref_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                causal: bool = True):
+                causal: bool = True, q_offset: int = 0, window: int = 0):
     """``mha_ref`` and each row's float32 log-sum-exp (B,Sq,H) of the
     scaled, masked scores."""
-    return _attend(q, k, v, causal, True)
+    return _attend(q, k, v, causal, True, q_offset, window)
 
 
-def _attend(q, k, v, causal: bool, want_lse: bool):
+def _attend(q, k, v, causal: bool, want_lse: bool, q_offset: int = 0,
+            window: int = 0):
     B, Sq, H, _ = q.shape
-    s, mask = _scores(q, k, causal)
+    s, mask = _scores(q, k, causal, q_offset, window)
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)

@@ -2,7 +2,8 @@
 and cross-attention (Whisper's decoder, Llama-3.2-Vision's image blocks),
 prefill and decode paths.
 
-Port of ``repro/models/attention.py`` but its windowed attention.
+Port of ``repro/models/attention.py``, sliding windows, query offsets and
+``cost_mode`` included.
 Projections work on the flat ``(..., n_heads * head_dim)`` layout and go
 through ``layers.dense``, so the Origami executor's hook routes them into
 the Slalom protocol in tier-1. Layouts are the reference's: q (B, S, H, D),
@@ -23,13 +24,28 @@ calls go to it unpadded. Like the reference's, ``sdpa`` takes keys and
 values of another dtype than the queries (Llama-3.2-Vision's float32
 patches projected into float32 k and v against bf16 queries): it promotes
 the three to one dtype, runs the kernel of that dtype and casts the
-output to q's. Sliding windows and query offsets are not ported.
+output to q's. A causal ``sdpa`` takes the reference's sliding window and
+query offset: query i stands at position i + ``q_offset`` and sees the keys
+at positions <= its own and, with ``window`` > 0, only the last ``window``
+of them; the three forward kernels (bf16, float32 and the decode route)
+take both and skip the key tiles outside the rows' bands. The port follows
+the reference's naive core there: its flash core drops ``q_offset``
+(ROADMAP Queue 3), so at flashable shapes the reference's ``sdpa`` returns
+the unoffset result. A call in which a row would see no key (an offset
+``window`` or more past the last key) is refused where the reference's
+naive core returns NaN. ``cost_mode=True`` runs the plain version (the
+materialized float32 scores), as the reference runs its naive core for its
+cost probes. A config with ``attention="windowed"`` runs the GQA layers
+with ``window = cfg.window_size`` in the prompt-side ``sdpa`` and the
+decode step's ``decode_sdpa``, as the reference's do.
 When grad is enabled and an input requires it (training), ``sdpa`` goes
 through ``FlashAttention``, a ``torch.autograd.Function``: its forward is
 the same kernel, which also saves each row's log-sum-exp, and its
 backward is ``flash_attention_bwd`` (the kernel on the card, its plain
 version on the CPU), the port of the reference's custom VJP. Every
-inference path calls the forward kernel alone, as before.
+inference path calls the forward kernel alone, as before. The backward
+kernels take no window or offset yet: ``FlashAttention`` refuses both
+(ROADMAP Queue 1, item 13), so a windowed config does not train.
 On a device mesh (q, k and v DTensors, launch/train.py's ``mesh=``)
 ``sdpa`` pins them at the reference's points (``act_sharding.constrain``)
 and runs ``_flash`` through ``local_map``: batch over the active rules'
@@ -37,10 +53,11 @@ batch axes and the KV heads over "model" when it divides them (replicated
 there otherwise), so the kernel and ``FlashAttention``'s backward kernel
 run on each rank's local q, k and v and never see a DTensor. The query
 is pinned to the batch axes only: the reference's context-parallel
-layout ("flash_seq", the query sequence over "model") needs a query
-offset that the kernel does not take, and pinning it there only to
-gather it back left the backward's gradients sequence-sharded, which
-DTensor's matmul propagation rejects under fake tensors.
+layout ("flash_seq", the query sequence over "model") would need each
+rank's query offset, and pinning it there only to gather it back left
+the backward's gradients sequence-sharded, which DTensor's matmul
+propagation rejects under fake tensors. So each rank holds whole rows and
+a window or an offset stays local.
 ``decode_sdpa`` (one query against the cache) has no kernel in the
 reference and stays plain PyTorch, as do MLA's absorbed decode einsums,
 which read ``wkv_b``'s weight directly (not through ``layers.dense``): in
@@ -60,12 +77,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.flash_attention import (
-    flash_attention_bwd, flash_attention_fwd)
+    flash_attention_bwd, flash_attention_fwd, flash_attention_plain)
 from repro_torch.models import layers as L
 from repro_torch.parallel import act_sharding as ash
 from repro_torch.parallel.hlo_analysis import flash_region
 
-_ROADMAP = "ROADMAP Queue 1"
+_WINDOWED_BWD = "ROADMAP Queue 1, item 13 (the windowed flash backward)"
 
 
 class KVCache(NamedTuple):
@@ -109,12 +126,20 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, object]:
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the flash backward: the forward kernel keeps
     q, k, v, its output and lse; the backward recomputes the
-    probabilities from them (reference: ``_make_flash``'s fwd and bwd)."""
+    probabilities from them (reference: ``_make_flash``'s fwd and bwd).
+    The backward kernels have no window or query offset: a causal call
+    with either that needs a gradient raises."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window=0, q_offset=0):
+        if causal and (window or q_offset) and any(ctx.needs_input_grad[:3]):
+            raise NotImplementedError(
+                f"FlashAttention with window={window}, q_offset={q_offset}: "
+                f"the flash backward kernels take no window or offset yet "
+                f"({_WINDOWED_BWD})")
         out, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                       return_lse=True)
+                                       return_lse=True, q_offset=q_offset,
+                                       window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -124,28 +149,35 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
                                          causal=ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> torch.Tensor:
+           causal: bool, window: int = 0, q_offset: int = 0,
+           cost_mode: bool = False) -> torch.Tensor:
+    if cost_mode:
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal)
-    return flash_attention_fwd(q, k, v, causal=causal)
+        return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                               window=window)
 
 
-def _local_flash(q, k, v, causal):
+def _local_flash(q, k, v, causal, window=0, q_offset=0, cost_mode=False):
     with flash_region():
         if k.dtype == q.dtype and v.dtype == q.dtype:
-            return _flash(q, k, v, causal)
+            return _flash(q, k, v, causal, window, q_offset, cost_mode)
         # mixed dtypes: the kernel of the promoted dtype, the output in q's
         dt = torch.promote_types(q.dtype,
                                  torch.promote_types(k.dtype, v.dtype))
-        return _flash(q.to(dt), k.to(dt), v.to(dt), causal).to(q.dtype)
+        return _flash(q.to(dt), k.to(dt), v.to(dt), causal, window,
+                      q_offset, cost_mode).to(q.dtype)
 
 
-def _sharded_flash(q, k, v, causal: bool):
+def _sharded_flash(q, k, v, causal: bool, window=0, q_offset=0,
+                   cost_mode=False):
     """``sdpa`` of DTensors q (B,Sq,H,D), k, v (B,Skv,KH,*): each rank's
     batch rows (the rules' batch axes) and, when "model" divides KH, its
     KV heads with their query heads, through ``_flash`` on local tensors."""
@@ -164,26 +196,28 @@ def _sharded_flash(q, k, v, causal: bool):
                   Shard(2) if n == "model" and heads else Replicate()
                   for n in names)
     return local_map(_local_flash, out_placements=(place,),
-                     in_placements=(place, place, place, None),
+                     in_placements=(place, place, place, None, None, None,
+                                    None),
                      device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v, causal)
+                     redistribute_inputs=True)(q, k, v, causal, window,
+                                               q_offset, cost_mode)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,
-         q_offset=0, window=0) -> torch.Tensor:
+         q_offset=0, window=0, cost_mode=False) -> torch.Tensor:
     """q: (B,Sq,H,D); k: (B,Skv,KH,D); v: (B,Skv,KH,Dv) -> (B,Sq,H,Dv) in
     q's dtype, the scores scaled by 1/sqrt(D); k and v may be of another
     dtype than q (computed in the promoted dtype).
 
-    A sliding window or a query offset has no kernel and no caller in the
-    port and raises."""
-    if window or q_offset:
-        raise NotImplementedError(
-            f"sdpa with window={window}, q_offset={q_offset} is not ported "
-            f"({_ROADMAP})")
+    Causal: query i at position i + ``q_offset`` sees keys at positions <=
+    its own and, with ``window`` > 0, fewer than ``window`` back (the
+    reference's naive core); neither applies without ``causal``. Raises
+    ``ValueError`` where a row would see no key (the reference gives NaN
+    there; ``check_band``, in the kernel's wrapper and in the plain
+    version). ``cost_mode`` runs the plain version."""
     if ash.is_dtensor(q):
-        return _sharded_flash(q, k, v, causal)
-    return _local_flash(q, k, v, causal)
+        return _sharded_flash(q, k, v, causal, window, q_offset, cost_mode)
+    return _local_flash(q, k, v, causal, window, q_offset, cost_mode)
 
 
 def position(pos, device) -> torch.Tensor:
@@ -236,22 +270,29 @@ def gqa_project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _window(cfg: ModelConfig) -> int:
+    """The layer's sliding window (0: none), as the reference reads it."""
+    return cfg.window_size if cfg.attention == "windowed" else 0
+
+
 def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
-                causal=True) -> torch.Tensor:
+                causal=True, cost_mode=False) -> torch.Tensor:
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = gqa_project_qkv(p, x, cfg, positions)
-    out = sdpa(q, k, v, causal=causal)
+    out = sdpa(q, k, v, causal=causal, window=_window(cfg),
+               cost_mode=cost_mode)
     return L.dense(p["wo"], out.reshape(B, S, -1))
 
 
-def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, cost_mode=False):
     """Forward + this layer's KV cache content (B, S, KH, D)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = gqa_project_qkv(p, x, cfg, positions)
-    out = sdpa(q, k, v, causal=True)
+    out = sdpa(q, k, v, causal=True, window=_window(cfg),
+               cost_mode=cost_mode)
     return L.dense(p["wo"], out.reshape(B, S, -1)), KVCache(k, v)
 
 
@@ -266,9 +307,9 @@ def gqa_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig):
     pos = position(pos, x.device)
     q, k, v = gqa_project_qkv(p, x, cfg, pos.reshape(1, 1).expand(B, 1))
     at = pos.reshape(1)
-    cache.k.index_copy_(1, at, k.to(cache.k.dtype))
-    cache.v.index_copy_(1, at, v.to(cache.v.dtype))
-    out = decode_sdpa(q, cache.k, cache.v, pos)
+    ash.write_at(cache.k, at, k.to(cache.k.dtype))
+    ash.write_at(cache.v, at, v.to(cache.v.dtype))
+    out = decode_sdpa(q, cache.k, cache.v, pos, window=_window(cfg))
     return L.dense(p["wo"], out.reshape(B, 1, -1)), cache
 
 
@@ -310,28 +351,29 @@ def _mla_expand_kv(p, latent: torch.Tensor, k_rope: torch.Tensor,
     return torch.cat([k_nope, k_rope_b], dim=-1), v
 
 
-def _mla_attend(p, x: torch.Tensor, cfg: ModelConfig, positions):
+def _mla_attend(p, x: torch.Tensor, cfg: ModelConfig, positions,
+                cost_mode=False):
     """(the attention's output projected by ``wo``, latent, rope key)."""
     B, S, _ = x.shape
     q_nope, q_rope, latent, k_rope = _mla_qkv(p, x, cfg, positions)
     k, v = _mla_expand_kv(p, latent, k_rope, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    out = sdpa(q, k, v, causal=True)
+    out = sdpa(q, k, v, causal=True, cost_mode=cost_mode)
     return L.dense(p["wo"], out.reshape(B, S, -1)), latent, k_rope
 
 
 def mla_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
-                positions=None) -> torch.Tensor:
+                positions=None, cost_mode=False) -> torch.Tensor:
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return _mla_attend(p, x, cfg, positions)[0]
+    return _mla_attend(p, x, cfg, positions, cost_mode)[0]
 
 
-def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, cost_mode=False):
     """Forward + this layer's cache content: the latent and the rope key,
     (B, S, kv_lora_rank + qk_rope_head_dim), and no ``v``."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    y, latent, k_rope = _mla_attend(p, x, cfg, positions)
+    y, latent, k_rope = _mla_attend(p, x, cfg, positions, cost_mode)
     return y, KVCache(torch.cat([latent, k_rope], dim=-1), None)
 
 
@@ -362,6 +404,9 @@ def mla_absorbed_attend(q_nope: torch.Tensor, q_rope: torch.Tensor,
     pattn = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", pattn, latents.to(f32))
     out = torch.einsum("bhr,rhv->bhv", ctx, w_uv.to(f32))
+    # on a mesh: laid out by batch alone before the heads merge (merging
+    # head shards leaves a strided shard that later ops cannot take)
+    out = ash.constrain(out, "batch", None, None)
     return out.reshape(B, 1, H * m.v_head_dim)
 
 
@@ -382,7 +427,7 @@ def mla_decode(p, x: torch.Tensor, cache: KVCache, pos, cfg: ModelConfig,
     q_nope, q_rope, latent_new, k_rope_new = _mla_qkv(
         p, x, cfg, pos.reshape(1, 1).expand(B, 1))
     new_entry = torch.cat([latent_new, k_rope_new], dim=-1)
-    cache.k.index_copy_(1, pos.reshape(1), new_entry.to(cache.k.dtype))
+    ash.write_at(cache.k, pos.reshape(1), new_entry.to(cache.k.dtype))
     latents, k_ropes = torch.split(
         cache.k, [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     if absorbed:
@@ -408,13 +453,13 @@ def cross_kv(p, memory: torch.Tensor, cfg: ModelConfig):
 
 
 def cross_attn_forward(p, x: torch.Tensor, memory: torch.Tensor,
-                       cfg: ModelConfig) -> torch.Tensor:
+                       cfg: ModelConfig, *, cost_mode=False) -> torch.Tensor:
     """x: (B,S,d) queries; memory: (B,M,d) encoder or vision states,
     attended without a mask."""
     B, S, _ = x.shape
     q = ash.unflatten_last(L.dense(p["wq"], x), (cfg.num_heads, -1))
     k, v = cross_kv(p, memory, cfg)
-    out = sdpa(q, k, v, causal=False)
+    out = sdpa(q, k, v, causal=False, cost_mode=cost_mode)
     return L.dense(p["wo"], out.reshape(B, S, -1))
 
 

@@ -189,9 +189,9 @@ def _block(stacked, *index):
     return tree_map(lambda a: a[index], stacked)
 
 
-def _shared_attn_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+def _shared_attn_fwd(p, x: torch.Tensor, cfg: ModelConfig, cost_mode=False):
     h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                          cfg)
+                          cfg, cost_mode=cost_mode)
     return h + T.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm),
                              cfg)
 
@@ -202,7 +202,7 @@ def _mamba_blk(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _range_hybrid(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                  hi: int, train: bool = False):
+                  hi: int, train: bool = False, cost_mode: bool = False):
     """Zamba2's blocks [lo, hi): the Mamba2 blocks of each group, and the
     shared attention block after a group that completes inside the range;
     then the tail past the last group."""
@@ -218,7 +218,7 @@ def _range_hybrid(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
         for j in range(a - g_lo, b - g_lo):
             x = mamba_blk(_block(params["mamba_main"], g, j), x)
         if b == g_hi and hi >= g_hi:   # group completed inside range
-            x = _shared_attn_fwd(params["shared_attn"], x, cfg)
+            x = _shared_attn_fwd(params["shared_attn"], x, cfg, cost_mode)
     a, b = max(lo, n_main), min(hi, cfg.num_layers)
     if a < b and "mamba_tail" in params:
         for j in range(a - n_main, b - n_main):
@@ -232,9 +232,10 @@ def _mlstm_blk(p, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                 hi: int, train: bool = False):
+                 hi: int, train: bool = False, cost_mode: bool = False):
     """xLSTM's blocks [lo, hi): in each group of ``slstm_every`` the mLSTM
-    blocks, then the sLSTM block that closes the group."""
+    blocks, then the sLSTM block that closes the group (no attention:
+    ``cost_mode`` changes nothing)."""
     mlstm_blk = T.remat(lambda p, h: _mlstm_blk(p, h, cfg), cfg, train)
     e = cfg.ssm.slstm_every
     groups = cfg.num_layers // e
@@ -253,12 +254,13 @@ def _range_xlstm(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
 
 
 def _range_vlm(params, x: torch.Tensor, cfg: ModelConfig, lo: int, hi: int,
-               patches: torch.Tensor, train: bool = False):
+               patches: torch.Tensor, train: bool = False,
+               cost_mode: bool = False):
     """Llama-3.2-Vision's blocks [lo, hi): in each group of
     ``cross_attn_every`` the self blocks, then the gated cross block over
     ``patches`` that closes the group."""
-    self_blk = T.remat(lambda p, h: T.decoder_block_fwd(p, h, cfg), cfg,
-                       train)
+    self_blk = T.remat(lambda p, h: T.decoder_block_fwd(
+        p, h, cfg, cost_mode=cost_mode), cfg, train)
     e = cfg.cross_attn_every
     groups = cfg.num_layers // e
     for g in range(groups):
@@ -269,34 +271,40 @@ def _range_vlm(params, x: torch.Tensor, cfg: ModelConfig, lo: int, hi: int,
         cidx = g_lo + e - 1
         if lo <= cidx < hi:
             x = T.vlm_cross_block_fwd(_block(params["cross_groups"], g), x,
-                                      patches, cfg)
+                                      patches, cfg, cost_mode=cost_mode)
     return x, 0.0
 
 
 def _range_audio_encoder(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                         hi: int, train: bool = False):
-    blk = T.remat(lambda p, h: T.encoder_block_fwd(p, h, cfg), cfg, train)
+                         hi: int, train: bool = False,
+                         cost_mode: bool = False):
+    blk = T.remat(lambda p, h: T.encoder_block_fwd(
+        p, h, cfg, cost_mode=cost_mode), cfg, train)
     for i in range(lo, hi):
         x = blk(T.layer_params(params["enc_blocks"], i), x)
     return x, 0.0
 
 
 def apply_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                hi: int, *, memory: Optional[torch.Tensor] = None,
-                train: bool = False):
+                hi: int, *, cost_mode: bool = False,
+                memory: Optional[torch.Tensor] = None, train: bool = False):
     """Run blocks [lo, hi) on hidden states x -> (x, aux). ``memory``: a
     VLM's patches; an audio model's range is over its encoder blocks.
-    ``train``: each block the reference scans runs under ``T.remat``."""
+    ``train``: each block the reference scans runs under ``T.remat``.
+    ``cost_mode``: the attention's plain version (the reference's naive
+    core) in place of its kernel."""
     if cfg.family == "hybrid":
-        return _range_hybrid(params, x, cfg, lo, hi, train)
+        return _range_hybrid(params, x, cfg, lo, hi, train, cost_mode)
     if cfg.family == "ssm":
-        return _range_xlstm(params, x, cfg, lo, hi, train)
+        return _range_xlstm(params, x, cfg, lo, hi, train, cost_mode)
     if cfg.family == "vlm":
-        return _range_vlm(params, x, cfg, lo, hi, memory, train)
+        return _range_vlm(params, x, cfg, lo, hi, memory, train, cost_mode)
     if cfg.family == "audio":
         # ranges apply to the encoder (tier-1 is a prefix of the encoder)
-        return _range_audio_encoder(params, x, cfg, lo, hi, train)
-    blk = T.remat(lambda p, h: T.decoder_block_fwd(p, h, cfg), cfg, train)
+        return _range_audio_encoder(params, x, cfg, lo, hi, train,
+                                    cost_mode)
+    blk = T.remat(lambda p, h: T.decoder_block_fwd(
+        p, h, cfg, cost_mode=cost_mode), cfg, train)
     aux = 0.0
     for i in range(lo, hi):
         x, a = blk(T.layer_params(params["blocks"], i), x)
@@ -309,7 +317,7 @@ def _audio_input(frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     sinusoidal positions."""
     x = frames.to(torch_dtype(cfg.dtype))
     pe = L.sinusoidal_positions(x.shape[1], cfg.d_model, device=x.device)
-    return x + pe.to(x.dtype)
+    return act.constrain(x + pe.to(x.dtype), "batch", "seq", "embed_act")
 
 
 def layer_program(cfg: ModelConfig):
@@ -344,19 +352,22 @@ def layer_program(cfg: ModelConfig):
 MEMORY_KEYS = {"audio": "frames", "vlm": "patches"}
 
 
-def forward(params, batch, cfg: ModelConfig, *,
+def forward(params, batch, cfg: ModelConfig, *, cost_mode: bool = False,
             train: bool = False) -> T.LMOutputs:
     """Teacher-forced logits at every position: {"tokens"} and, for the
     cross-attention families, {"frames"} (audio) or {"patches"} (vlm).
-    ``train``: the blocks the reference scans run under ``T.remat``."""
+    ``train``: the blocks the reference scans run under ``T.remat``.
+    ``cost_mode``: every attention through its plain version."""
     if cfg.family == "audio":
-        memory = encode_audio(params, batch["frames"], cfg, train=train)
-        return T.LMOutputs(forward_audio_decoder(params, batch, memory, cfg,
-                                                 train=train), 0.0)
+        memory = encode_audio(params, batch["frames"], cfg,
+                              cost_mode=cost_mode, train=train)
+        return T.LMOutputs(forward_audio_decoder(
+            params, batch, memory, cfg, cost_mode=cost_mode, train=train),
+            0.0)
     x = embed_tokens(params, batch["tokens"], cfg)
     memory = batch.get("patches") if cfg.family == "vlm" else None
-    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers, memory=memory,
-                         train=train)
+    x, aux = apply_range(params, x, cfg, 0, cfg.num_layers,
+                         cost_mode=cost_mode, memory=memory, train=train)
     return T.LMOutputs(head(params, x, cfg), aux)
 
 
@@ -371,21 +382,21 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_weight: float = 0.01):
 
 
 def encode_audio(params, frames: torch.Tensor, cfg: ModelConfig, *,
-                 train: bool = False):
+                 cost_mode: bool = False, train: bool = False):
     """Whisper's encoder: frames (B, M, d) -> the normed memory (B, M, d)."""
     x, _ = _range_audio_encoder(params, _audio_input(frames, cfg), cfg, 0,
-                                cfg.num_layers, train)
+                                cfg.num_layers, train, cost_mode)
     return L.apply_norm(params["enc_norm"], x, cfg.norm)
 
 
 def forward_audio_decoder(params, batch, memory: torch.Tensor,
-                          cfg: ModelConfig, *,
+                          cfg: ModelConfig, *, cost_mode: bool = False,
                           train: bool = False) -> torch.Tensor:
     """Whisper's decoder over a precomputed encoder memory -> logits (the
     Origami program's epilogue)."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    blk = T.remat(lambda p, h: T.cross_decoder_block_fwd(p, h, memory, cfg),
-                  cfg, train)
+    blk = T.remat(lambda p, h: T.cross_decoder_block_fwd(
+        p, h, memory, cfg, cost_mode=cost_mode), cfg, train)
     for i in range(cfg.num_layers):
         x = blk(T.layer_params(params["dec_blocks"], i), x)
     return head(params, x, cfg)
@@ -483,13 +494,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill_range(params, x: torch.Tensor, cfg: ModelConfig, lo: int,
-                  hi: int):
+                  hi: int, *, cost_mode: bool = False):
     """Prefill blocks [lo, hi) on hidden states x -> (x, KVCache with a
     leading layer dim of hi - lo)."""
     ks, vs = [], []
     for i in range(lo, hi):
         x, cache, _aux = T.decoder_block_prefill(
-            T.layer_params(params["blocks"], i), x, cfg)
+            T.layer_params(params["blocks"], i), x, cfg, cost_mode=cost_mode)
         ks.append(cache.k)
         vs.append(cache.v)
     # an MLA cache has no v
@@ -534,7 +545,7 @@ def _cross_prefill_out(params, x: torch.Tensor, cfg: ModelConfig, ks, vs,
 
 
 def prefill(params, batch, cfg: ModelConfig, *,
-            max_seq: Optional[int] = None):
+            max_seq: Optional[int] = None, cost_mode: bool = False):
     """(last-position logits, caches sized to max_seq). Whisper's batch
     carries its ``frames``: the encoder runs once, and each decoder block
     leaves its self-attention K/V and the memory's cross K/V (bf16)."""
@@ -548,20 +559,23 @@ def prefill(params, batch, cfg: ModelConfig, *,
     tokens = batch["tokens"]
     max_seq = max_seq or tokens.shape[1]
     if cfg.family == "audio":
-        return _prefill_audio(params, batch, cfg, max_seq)
+        return _prefill_audio(params, batch, cfg, max_seq, cost_mode)
     x = embed_tokens(params, tokens, cfg)
-    x, caches = prefill_range(params, x, cfg, 0, cfg.num_layers)
+    x, caches = prefill_range(params, x, cfg, 0, cfg.num_layers,
+                              cost_mode=cost_mode)
     return head(params, x[:, -1:], cfg), concat_layer_caches([caches],
                                                              max_seq)
 
 
-def _prefill_audio(params, batch, cfg: ModelConfig, max_seq: int):
-    memory = encode_audio(params, batch["frames"], cfg)
+def _prefill_audio(params, batch, cfg: ModelConfig, max_seq: int,
+                   cost_mode: bool = False):
+    memory = encode_audio(params, batch["frames"], cfg, cost_mode=cost_mode)
     x = embed_tokens(params, batch["tokens"], cfg)
     ks, vs, cks, cvs = [], [], [], []
     for i in range(cfg.num_layers):
         p = T.layer_params(params["dec_blocks"], i)
-        x, cache = T.cross_decoder_block_prefill(p, x, memory, cfg)
+        x, cache = T.cross_decoder_block_prefill(p, x, memory, cfg,
+                                                 cost_mode=cost_mode)
         ck, cv = A.cross_kv(p["xattn"], memory, cfg)
         ks.append(cache.k)
         vs.append(cache.v)
@@ -571,7 +585,7 @@ def _prefill_audio(params, batch, cfg: ModelConfig, max_seq: int):
 
 
 def prefill_vlm(params, batch, cfg: ModelConfig, *,
-                max_seq: Optional[int] = None):
+                max_seq: Optional[int] = None, cost_mode: bool = False):
     """Llama-3.2-Vision's prompt pass over {"tokens", "patches"} (the
     patches cast to the model dtype, as the reference's) -> (last-position
     logits, {"self": KVCache (groups, every - 1, B, max_seq, KH, D),
@@ -586,11 +600,12 @@ def prefill_vlm(params, batch, cfg: ModelConfig, *,
         gk, gv = [], []
         for j in range(e - 1):
             x, cache, _ = T.decoder_block_prefill(
-                _block(params["self_groups"], g, j), x, cfg)
+                _block(params["self_groups"], g, j), x, cfg,
+                cost_mode=cost_mode)
             gk.append(cache.k)
             gv.append(cache.v)
         cp = _block(params["cross_groups"], g)
-        x = T.vlm_cross_block_fwd(cp, x, patches, cfg)
+        x = T.vlm_cross_block_fwd(cp, x, patches, cfg, cost_mode=cost_mode)
         ck, cv = A.cross_kv(cp["xattn"], patches, cfg)
         ks.append(torch.stack(gk))
         vs.append(torch.stack(gv))

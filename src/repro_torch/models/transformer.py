@@ -1,8 +1,9 @@
 """Decoder stacks of every LM family the port runs.
 
 Port of ``repro/models/transformer.py``: the gated MLP, the pre-norm
-decoder block's forward / prefill / decode with GQA or, for ``attention ==
-"mla"``, latent attention (a MoE block runs ``models/moe.py`` in the
+decoder block's forward / prefill / decode with GQA (``attention ==
+"windowed"``: GQA over a sliding window of ``cfg.window_size`` keys) or,
+for ``attention == "mla"``, latent attention (a MoE block runs ``models/moe.py`` in the
 MLP's place and returns its aux loss), stacked parameter definitions and
 ``lm_defs``, whose hybrid tree (Zamba2) stacks the Mamba2 blocks twice,
 as (groups, every), beside one shared attention block, whose SSM tree
@@ -15,7 +16,9 @@ beside one gated cross-attention block a group (its float32 ``attn_gate``
 and ``mlp_gate``, zero at init, enter as ``tanh(gate)``). The reference
 scans blocks with ``lax.scan`` over stacked parameters; the port keeps the
 stacked layout (a leading layer dim on every block leaf) and walks it
-with a Python loop (models/model.py). ``remat`` is the reference's
+with a Python loop (models/model.py). The forward and prefill functions
+take the reference's ``cost_mode`` (the attention's plain version in
+place of its kernel). ``remat`` is the reference's
 ``_maybe_remat``: when training, each block the reference scans runs under
 activation checkpointing.
 """
@@ -35,9 +38,9 @@ from repro_torch.models import ssm as S
 from repro_torch.parallel import act_sharding as ash
 
 # (family, attention) pairs the port runs
-SUPPORTED = (("dense", "gqa"), ("moe", "gqa"), ("dense", "mla"),
-             ("hybrid", "gqa"), ("ssm", "none"), ("audio", "gqa"),
-             ("vlm", "gqa"))
+SUPPORTED = (("dense", "gqa"), ("dense", "windowed"), ("moe", "gqa"),
+             ("dense", "mla"), ("hybrid", "gqa"), ("ssm", "none"),
+             ("audio", "gqa"), ("vlm", "gqa"))
 
 
 def _supported(cfg: ModelConfig) -> None:
@@ -84,16 +87,16 @@ def decoder_block_defs(cfg: ModelConfig):
     return d
 
 
-def _attn_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+def _attn_fwd(p, x: torch.Tensor, cfg: ModelConfig, *, cost_mode=False):
     if cfg.attention == "mla":
-        return A.mla_forward(p, x, cfg)
-    return A.gqa_forward(p, x, cfg)
+        return A.mla_forward(p, x, cfg, cost_mode=cost_mode)
+    return A.gqa_forward(p, x, cfg, cost_mode=cost_mode)
 
 
-def _attn_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+def _attn_prefill(p, x: torch.Tensor, cfg: ModelConfig, *, cost_mode=False):
     if cfg.attention == "mla":
-        return A.mla_prefill(p, x, cfg)
-    return A.gqa_prefill(p, x, cfg)
+        return A.mla_prefill(p, x, cfg, cost_mode=cost_mode)
+    return A.gqa_prefill(p, x, cfg, cost_mode=cost_mode)
 
 
 def _attn_decode(p, x: torch.Tensor, cache: A.KVCache, pos,
@@ -110,15 +113,18 @@ def _ffn(p, x: torch.Tensor, cfg: ModelConfig):
     return mlp_forward(p["mlp"], x, cfg), 0.0
 
 
-def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
-    h = x + _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg)
+def decoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, *,
+                      cost_mode=False):
+    h = x + _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg,
+                      cost_mode=cost_mode)
     y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
     return ash.constrain(h + y, "batch", "seq", "embed_act"), aux
 
 
-def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+def decoder_block_prefill(p, x: torch.Tensor, cfg: ModelConfig, *,
+                          cost_mode=False):
     a, cache = _attn_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                             cfg)
+                             cfg, cost_mode=cost_mode)
     h = x + a
     y, aux = _ffn(p, L.apply_norm(p["ln2"], h, cfg.norm), cfg)
     return h + y, cache, aux
@@ -230,9 +236,10 @@ def encoder_block_defs(cfg: ModelConfig):
             "mlp": mlp_defs(cfg)}
 
 
-def encoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+def encoder_block_fwd(p, x: torch.Tensor, cfg: ModelConfig, *,
+                      cost_mode=False):
     h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                          cfg, causal=False)
+                          cfg, causal=False, cost_mode=cost_mode)
     return h + mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
 
 
@@ -246,25 +253,25 @@ def cross_decoder_block_defs(cfg: ModelConfig):
 
 
 def _cross_and_mlp(p, h: torch.Tensor, memory: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, cost_mode=False):
     h = h + A.cross_attn_forward(p["xattn"],
                                  L.apply_norm(p["ln_x"], h, cfg.norm),
-                                 memory, cfg)
+                                 memory, cfg, cost_mode=cost_mode)
     return h + mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg.norm), cfg)
 
 
 def cross_decoder_block_fwd(p, x: torch.Tensor, memory: torch.Tensor,
-                            cfg: ModelConfig):
+                            cfg: ModelConfig, *, cost_mode=False):
     h = x + A.gqa_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                          cfg)
-    return _cross_and_mlp(p, h, memory, cfg)
+                          cfg, cost_mode=cost_mode)
+    return _cross_and_mlp(p, h, memory, cfg, cost_mode)
 
 
 def cross_decoder_block_prefill(p, x: torch.Tensor, memory: torch.Tensor,
-                                cfg: ModelConfig):
+                                cfg: ModelConfig, *, cost_mode=False):
     a, cache = A.gqa_prefill(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                             cfg)
-    return _cross_and_mlp(p, x + a, memory, cfg), cache
+                             cfg, cost_mode=cost_mode)
+    return _cross_and_mlp(p, x + a, memory, cfg, cost_mode), cache
 
 
 def cross_decoder_block_decode(p, x: torch.Tensor, cross_ck: torch.Tensor,
@@ -301,9 +308,9 @@ def _gated_mlp(p, h: torch.Tensor, a: torch.Tensor, cfg: ModelConfig):
 
 
 def vlm_cross_block_fwd(p, x: torch.Tensor, patches: torch.Tensor,
-                        cfg: ModelConfig):
+                        cfg: ModelConfig, *, cost_mode=False):
     a = A.cross_attn_forward(p["xattn"], L.apply_norm(p["ln1"], x, cfg.norm),
-                             patches, cfg)
+                             patches, cfg, cost_mode=cost_mode)
     return _gated_mlp(p, x, a, cfg)
 
 

@@ -25,11 +25,13 @@ its tensor-parallel shards; ``complete`` on a norm's input sums its
 partial sums once, where DTensor would reduce a copy for the statistics
 and carry the partial sums on into the next product.
 
-The model code's other DTensor cases use three helpers: ``unflatten_last``
+The model code's other DTensor cases use four helpers: ``unflatten_last``
 (a flat dim split into heads, gathered first when its shards do not
 divide them), ``local_pointwise`` (an elementwise op DTensor has no
-strategy for, run on local shards) and ``batch_placements`` (the layout of
-a ``local_map`` over each rank's own batch rows).
+strategy for, run on local shards), ``batch_placements`` (the layout of
+a ``local_map`` over each rank's own batch rows) and ``write_at`` (a
+decode step's write into a cache sharded over the sequence, on each
+rank's local shard).
 """
 from __future__ import annotations
 
@@ -197,6 +199,49 @@ def local_pointwise(fn, x):
         for pl in x.placements)
     return local_map(fn, out_placements=(place,), in_placements=(place,),
                      device_mesh=mesh, redistribute_inputs=True)(x)
+
+
+def write_at(cache, at, new, dim: int = 1):
+    """``cache.index_copy_(dim, at, new)`` in place (``at`` a one-element
+    long tensor, ``new`` of size 1 along ``dim``); returns ``cache``. On a
+    DTensor cache each rank writes its local shard at ``at`` less the
+    shard's offset along ``dim``, and a rank whose shard does not hold
+    ``at`` writes its own row back: the cache keeps its placements.
+    (DTensor's own ``index_copy_`` relabels a cache sharded over the
+    sequence as sharded over its next dim, leaving a local shard that no
+    longer matches its placements.)"""
+    if not is_dtensor(cache):
+        return cache.index_copy_(dim, at, new)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cache.device_mesh
+    want = tuple(Replicate() if pl.is_partial()
+                 or (pl.is_shard() and pl.dim == dim) else pl
+                 for pl in cache.placements)
+    if is_dtensor(new):
+        new = new.redistribute(mesh, want)
+    else:
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False).redistribute(mesh, want)
+    if is_dtensor(at):
+        at = at.full_tensor()
+    local = cache.to_local()
+    # this rank's first row along dim: its shard's start, mesh dim by mesh
+    # dim in placement order (torch.chunk's split, as DTensor's Shard)
+    size, start, coord = cache.shape[dim], 0, mesh.get_coordinate()
+    for i, pl in enumerate(cache.placements):
+        if pl.is_shard() and pl.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            size, start = min(size - lo, chunk), start + lo
+    n = local.shape[dim]
+    if n == 0:           # a shard past the cache's end holds no row
+        return cache
+    at = at - start
+    inside = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    local.index_copy_(dim, at, torch.where(inside, new.to_local(),
+                                           local.index_select(dim, at)))
+    return cache
 
 
 def batch_placements(mesh, rows: int, dim: int = 0):

@@ -252,10 +252,11 @@ def test_tensor_core_kernels_in_sass(dev):
                                     "limb_matmul_fused_mma_kernel",
                                     "limb_fold_mma_kernel"))]
     # flash: the (q/k, v) width pairs (32, 32), (64, 64), (128, 128),
-    # (96, 64) and (48, 32), causal and not, in the forward (bf16 and
-    # float32) and in each of the backward's two passes (bf16 and float32);
-    # the fold has two tilings, one kernel each
-    assert len(flash) == 20 and len(bwd) == 40 and len(limb) == 4, \
+    # (96, 64) and (48, 32), in the forward (bf16 and float32) non-causal,
+    # causal and causal with a window, and in each of the backward's two
+    # passes (bf16 and float32) causal and not; the fold has two tilings,
+    # one kernel each
+    assert len(flash) == 30 and len(bwd) == 40 and len(limb) == 4, \
         sorted(bodies)
     for body in flash + bwd:
         assert re.search(r"\bHG?MMA\b", body)
@@ -676,6 +677,70 @@ def test_flash_attention_routes_by_rows_a_kv_head(dev):
                            "flash_fwd_f32_mma_kernel")
                if any(w in name for name in names)}
         assert ran == want, (case, dtype, sorted(names))
+
+
+DECODE_PASSES = {"flash_fwd_decode_split_kernel",
+                 "flash_fwd_decode_combine_kernel"}
+# (B, Sq, Skv, H, KH, D, dtype, q_offset, window, the route's kernels):
+# windowed causal calls on each forward route: the bf16 prefill kernel
+# (an unaligned window), the float32 kernel (an offset, Sq < Skv), and the
+# decode route (Sq x G <= 16 rows a KV head) at the end of the keys
+WINDOW_CASES = (
+    (2, 300, 300, 9, 3, 64, torch.bfloat16, 0, 100,
+     {"flash_fwd_bf16_mma_kernel"}),
+    (2, 200, 260, 8, 2, 128, torch.float32, 60, 37,
+     {"flash_fwd_f32_mma_kernel"}),
+    (4, 4, 1024, 9, 3, 64, torch.bfloat16, 1020, 256, DECODE_PASSES),
+    (1, 7, 700, 16, 8, 64, torch.bfloat16, 693, 100, DECODE_PASSES),
+)
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES,
+                         ids=[f"{c[6]}-{c[1]}x{c[2]}-w{c[8]}"
+                              for c in WINDOW_CASES])
+def test_windowed_sdpa_runs_the_forward_kernels(dev, case, monkeypatch):
+    """``sdpa`` with a window and a query offset on the card: one flash
+    launch, within the flash gates of the plain version (max abs, and
+    relative Frobenius against its float32 result), two launches
+    bit-equal, and under the profiler its route's kernels and no other
+    kernel (no plain version, no library call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_plain)
+    from repro_torch.models import attention as A
+    B, Sq, Skv, H, KH, D, dtype, off, win, kernels = case
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(Sq + win)
+    q, k, v = (torch.randn(s, generator=gen, device=dev, dtype=dtype)
+               for s in ((B, Sq, H, D), (B, Skv, KH, D), (B, Skv, KH, D)))
+
+    def refuse(*a, **kw):
+        raise AssertionError("sdpa ran the plain version on the card")
+
+    monkeypatch.setattr(A, "flash_attention_plain", refuse)
+    n, got = _counted(lambda: A.sdpa(q, k, v, causal=True, q_offset=off,
+                                     window=win))
+    assert n["flash_attention"] == 1 and sum(n.values()) == 1, n
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    want = flash_attention_plain(q, k, v, causal=True, q_offset=off,
+                                 window=win)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    # and within the relative Frobenius bound of the float32 result
+    exact = flash_attention_plain(q.float(), k.float(), v.float(),
+                                  causal=True, q_offset=off, window=win)
+    rel = ((got.float() - exact).norm() / exact.norm()).item()
+    assert rel <= (8e-3 if dtype == torch.bfloat16 else 1e-4), rel
+    assert torch.equal(got, A.sdpa(q, k, v, causal=True, q_offset=off,
+                                   window=win))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        A.sdpa(q, k, v, causal=True, q_offset=off, window=win)
+        torch.cuda.synchronize()
+    ran = {ev.key for ev in prof.key_averages()
+           if getattr(ev, "device_time_total", 0) > 0}
+    assert ran and all(any(w in name for w in kernels) for name in ran), ran
+    assert all(any(w in name for name in ran) for w in kernels), ran
 
 
 def test_flash_attention_decode_replays_in_a_graph(dev):

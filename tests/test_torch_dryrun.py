@@ -286,6 +286,46 @@ def test_dryrun_family_cell_traces(arch, shape, extra, tmp_path):
             SHAPES[shape].seq_len}
 
 
+# cells that once errored at full width on both production meshes:
+# the decode steps' writes into a sequence-sharded cache (DTensor's
+# index_copy_ relabelled the cache's placements), MLA's absorbed output
+# merged from head shards, and Whisper's encoder input laid out by the
+# frames' feature shards
+REPAIRED_CELLS = tuple((arch, shape, mp) for arch, shape in (
+    ("minicpm3_4b", "decode_32k"), ("zamba2_1_2b", "decode_32k"),
+    ("zamba2_1_2b", "long_500k"), ("whisper_small", "train_4k"))
+    for mp in (False, True))
+
+
+@pytest.fixture(scope="module")
+def repaired_cells(tmp_path_factory):
+    """``REPAIRED_CELLS`` at their smoke widths, run by
+    ``dryrun.run_cell`` in one subprocess -> their directory."""
+    tmp = tmp_path_factory.mktemp("repaired")
+    overrides = {arch: {k: getattr(get_smoke(arch), k) for k in SMOKE_KEYS}
+                 for arch, _, _ in REPAIRED_CELLS}
+    _run(f"""
+        from pathlib import Path
+        from repro_torch.launch import dryrun as D
+        for arch, shape, mp in {REPAIRED_CELLS!r}:
+            D.run_cell(arch, shape, mp, Path({str(tmp)!r}),
+                       overrides={overrides!r}[arch])
+    """, timeout=600)
+    return tmp
+
+
+@pytest.mark.parametrize("arch,shape,mp", REPAIRED_CELLS,
+                         ids=[f"{a}-{s}-{'pod2' if m else 'pod1'}"
+                              for a, s, m in REPAIRED_CELLS])
+def test_dryrun_repaired_cells_trace(repaired_cells, arch, shape, mp):
+    name = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}.json"
+    rec = json.loads((repaired_cells / name).read_text())
+    assert rec["status"] == "ok", (rec.get("error"), rec.get("traceback"))
+    assert rec["hlo_analysis"]["dot_flops_per_device"] > 0
+    assert rec["memory_analysis"]["caches_bytes" if rec["kind"] == "decode"
+                                  else "opt_state_bytes"] > 0
+
+
 def test_dryrun_cli_writes_a_cell(tmp_path):
     out = _run(f"""
         from repro_torch.launch import dryrun as D

@@ -165,15 +165,6 @@ def test_sdpa_head_dim_128_matches_reference(B, H, KH, S, tdt, jdt, tol):
                                rtol=tol, atol=tol)
 
 
-def test_sdpa_without_a_kernel_raises():
-    """Windows and query offsets are not ported: no port caller uses
-    them, and the kernel has no window."""
-    q, k, v = _qkv(np.random.default_rng(6), 1, 8, 8, 4, 2, 32)
-    for kw in ({"window": 4}, {"q_offset": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.sdpa(_t(q), _t(k), _t(v), **kw)
-
-
 @pytest.mark.parametrize("pos,window", [(0, 0), (5, 0), (11, 0), (9, 4)])
 def test_decode_sdpa_matches_reference(pos, window):
     rng = np.random.default_rng(pos + window)

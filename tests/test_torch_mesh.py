@@ -433,3 +433,116 @@ def test_make_host_mesh_needs_a_group_for_more_than_one_rank():
     with pytest.raises(RuntimeError, match="4 ranks"):
         make_host_mesh(2, 2, device_type="cpu")
     assert not dist.is_initialized()
+
+
+# (name, placements over ("data", "model")) of a (B, S, KH, D) cache
+# sharded over its sequence: over "model" with the batch over "data" (the
+# decode_32k layout), over "data" alone, over both (long_500k's); lengths
+# that split evenly, unevenly, and leave the last rank no row (3 over 4)
+WRITE_LAYOUTS = ("seq over model", "seq over data", "seq over both")
+WRITE_LENGTHS = (8, 7, 5, 3)
+# (arch, batch): decode steps from an empty cache of DECODE_LEN positions,
+# the batch over "data" and the cache's sequence over "model" (16 rows:
+# the production mesh's batch rule), or batch 1 with the sequence over
+# both axes; SmolLM windowed at 3 so the window bites
+DECODE_CASES = (("smollm_135m", 16), ("smollm_135m", 1),
+                ("zamba2_1_2b", 1))
+DECODE_LEN = 7
+
+SEQ_SHARDED = f"""
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import MeshConfig, ShapeConfig
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as M
+from repro_torch.parallel import act_sharding as ash
+from repro_torch.parallel.sharding import distribute, make_plan
+mesh = make_host_mesh(2, 2, device_type="cpu")
+layouts = dict(zip({WRITE_LAYOUTS!r}, ((Shard(0), Shard(1)),
+                                       (Shard(1), Replicate()),
+                                       (Shard(1), Shard(1)))))
+gen = torch.Generator().manual_seed(0)
+writes = {{}}
+for name, places in layouts.items():
+    for S in {WRITE_LENGTHS!r}:
+        cache = torch.randn((2, S, 2, 4), generator=gen)
+        want = cache.clone()
+        d = distribute_tensor(cache, mesh, places, src_data_rank=None)
+        local = d.to_local().shape
+        for p in range(S):       # every row: each shard's edges and inside
+            new = torch.randn((2, 1, 2, 4), generator=gen)
+            want.index_copy_(1, torch.tensor([p]), new)
+            if p % 2:            # a DTensor row, laid out by batch
+                new = distribute_tensor(new, mesh, (Shard(0), Replicate()),
+                                        src_data_rank=None)
+            assert ash.write_at(d, torch.tensor([p]), new) is d
+            assert tuple(d.placements) == places
+            assert d.to_local().shape == local
+        writes[(name, S)] = (d.full_tensor(), want)
+steps = {{}}
+for arch, B in {DECODE_CASES!r}:
+    cfg = get_smoke(arch).replace(dtype="float32")
+    if arch == "smollm_135m":
+        cfg = cfg.replace(attention="windowed", window_size=3)
+    S = {DECODE_LEN}
+    plan = make_plan(cfg, ShapeConfig("custom", "decode", S, B), mesh,
+                     MeshConfig(), "serve")
+    params = M.init_params(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (S, B, 1), generator=gen)
+    ref = M.init_caches(cfg, B, S, dtype=torch.float32, device="cpu")
+    caches = distribute(M.init_caches(cfg, B, S, dtype=torch.float32,
+                                      device="cpu"),
+                        plan.cache_shardings(cfg))
+    dp = distribute(params, plan.param_shardings(cfg))
+    logits = []
+    for p in range(S):
+        want, _ = M.decode_step(params, tokens[p], ref, p, cfg)
+        # the dry-run's scope: a dim the axes do not divide is replicated
+        with ash.activation_rules(plan.act_rules, plan.axis_sizes, mesh), \\
+                implicit_replication():
+            got, _ = M.decode_step(dp, distribute(tokens[p],
+                                                  plan.token_sharding()),
+                                   caches, p, cfg)
+        logits.append((got.full_tensor(), want))
+    kv = caches["shared"] if arch == "zamba2_1_2b" else caches
+    ref_kv = ref["shared"] if arch == "zamba2_1_2b" else ref
+    steps[(arch, B)] = dict(
+        logits=logits, seq=plan.seq_axes, placements=str(kv.k.placements),
+        caches=[(kv.k.full_tensor(), ref_kv.k),
+                (kv.v.full_tensor(), ref_kv.v)])
+if RANK == 0:
+    torch.save({{"writes": writes, "steps": steps}}, OUT + "/seq.pt")
+"""
+
+
+@pytest.fixture(scope="module")
+def seq_sharded(tmp_path_factory):
+    """``SEQ_SHARDED`` run once on a (2, 2) mesh of four gloo ranks."""
+    out = run_ranks(SEQ_SHARDED, 4, tmp_path_factory.mktemp("seq"))
+    return torch.load(out / "seq.pt")
+
+
+@pytest.mark.parametrize("layout", WRITE_LAYOUTS)
+@pytest.mark.parametrize("length", WRITE_LENGTHS)
+def test_write_at_on_a_sequence_sharded_cache(seq_sharded, layout, length):
+    """``act_sharding.write_at`` at every position of a cache sharded over
+    its sequence: the gathered cache equals ``index_copy_`` on the plain
+    tensor, bit for bit, and every rank's shard keeps its placements and
+    shape (checked on the ranks)."""
+    got, want = seq_sharded["writes"][(layout, length)]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch,batch", DECODE_CASES)
+def test_decode_steps_on_a_sequence_sharded_cache(seq_sharded, arch, batch):
+    """``decode_step`` from an empty cache, every position, with the
+    parameters and the caches laid out by the serve plan on a (2, 2) mesh
+    (the attention's cache written through ``write_at``): logits and the
+    attention caches within ``REL`` of the mesh-less step's (other
+    summation orders over the shards)."""
+    rec = seq_sharded["steps"][(arch, batch)]
+    assert rec["seq"] == (() if batch > 1 else ("data", "model"))
+    assert "Shard(dim=2)" in rec["placements"]
+    for got, want in rec["logits"] + rec["caches"]:
+        assert _rel(got, want) <= REL, (arch, batch, _rel(got, want))
