@@ -102,7 +102,18 @@ Phases (any failure is fatal and exits non-zero):
    output bit-equal with and without the lse; each with its time and
    device time, the plain version's, one ``scaled_dot_product_attention``
    backward's (timed only) and the card's bound (2 (3 D + 2 Dv)
-   operations a pair);
+   operations a pair); then the backward with the reference's sliding
+   window and query offset (``WINDOW_BWD_CASES``: SmolLM-135M's training
+   shape at windows 256 and 100, the Mistral-7B-v0.1 shape with its
+   window of 4096 and without, float32 at window 100, and rank 3 of a
+   4-way "flash_seq" axis, 256 rows at offset 768 against 1024 keys,
+   causal and at window 256) against the plain backward (over query
+   chunks of 1024 at the Mistral shape) at the same gates, which the
+   wrong band (each row's band start rounded down to a 64-key tile, or
+   the offset dropped) is shown failing, two launches bit-equal, timed
+   beside SDPA's backward given the band as a boolean mask; the windowed
+   Mistral-shape backward's device time must be under 0.8 of the causal
+   one's;
 10. private generation — full-width, full-depth SmolLM-135M (random bf16
    weights from a seed) generating 4 tokens for a batch of 4 1024-token
    prompts through ``private_generate`` under full(k=2) verification:
@@ -468,9 +479,22 @@ multiple of 64 is shown failing that bound. One query at G 8, D 128
 query take the split-KV decode route (``flash_attention_decode.cu``,
 both passes timed as one call), and their lines print its split count.
 
-Phases 3, 5-8, 10-18, 20, 21, 23-36 and 38 each read the launch counts around
-exactly the calls they drive and fail unless their path launched its
-kernels and no other (22 launches none); only 34-36 launch the
+39. train windowed (after 37) — SmolLM-135M at every width and depth
+   with ``attention="windowed"``, ``window_size`` 256 (the repo's config
+   through ``dataclasses.replace``), from the keyed init (seed 0),
+   through 34's (b) and (c): 10 steps of 8 x 1024, the loss falling by
+   more than 0.2, exactly 60 flash and 30 flash_attention_bwd launches a
+   step and no other kernel, every flash call of the run counted at
+   (causal, window 256); float32 gradients at 2 x 1024 within 1e-4 of
+   the plain attention's, every bf16 backward call within 8e-3 of the
+   plain backward, two bf16 gradients bit-equal; then 2 steps through
+   ``train(mesh=make_host_mesh(1, 1))`` on a one-rank NCCL group (the
+   query sequence over "model", offset 0) bit-equal to the same 2 steps
+   mesh-less; its ms a step, busy share and peak printed beside 34's.
+
+Phases 3, 5-8, 10-18, 20, 21, 23-36, 38 and 39 each read the launch counts
+around exactly the calls they drive and fail unless their path launched
+its kernels and no other (22 launches none); only 34-37 and 39 launch the
 backward.
 
 Prints the findings, then a JSON line of the kernels, then as its last
@@ -2519,7 +2543,8 @@ def flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, causal, backward=False,
 
 def phase_flash(dev):
     """The flash-attention forward cases, then the backward's
-    (``_flash_bwd_cases``); returns the smollm prefill case's numbers."""
+    (``_flash_bwd_cases``, ``_flash_window_bwd_cases``); returns the
+    smollm prefill case's numbers."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -2528,6 +2553,9 @@ def phase_flash(dev):
     _flash_window_cases(dev, gen)
     torch.cuda.empty_cache()
     main_case["bwd"] = _flash_bwd_cases(dev, gen)
+    torch.cuda.empty_cache()
+    _flash_window_bwd_cases(dev, gen)
+    torch.cuda.empty_cache()
     return main_case
 
 
@@ -2698,6 +2726,209 @@ def _flash_window_cases(dev, gen):
     print(f"flash_attention: windowed / causal device time at the Mistral "
           f"shape {w / c:.4f} (gate < {WINDOW_SKIP_BOUND}; the band's share "
           f"of the causal pairs {share['mistral window 4096']:.4f})")
+    return dms_of
+
+
+# (label, B, Sq, Skv, H, KH, D, Dv, dtype, q_offset, window): the backward
+# kernels with the reference's sliding window and query offset. SmolLM-135M's
+# training shape (8 x 1024, 9/3 heads of 64) at window 256 (phase 39's) and
+# at an unaligned 100; Mistral-7B-v0.1's attention (hf:mistralai/
+# Mistral-7B-v0.1: 32/8 heads of 128, sliding_window 4096) at 16384 tokens
+# and the same call causal (the skipped tiles' gate); float32 at window 100;
+# and an offset shard: rank 3 of a 4-way "flash_seq" axis of SmolLM's 4 x
+# 1024 (its 256 query rows at offset 768 against the 1024 keys), causal and
+# at window 256
+WINDOW_BWD_CASES = (
+    ("smollm train window 256", 8, 1024, 1024, 9, 3, 64, 64, torch.bfloat16,
+     0, 256),
+    ("smollm train window 100", 8, 1024, 1024, 9, 3, 64, 64, torch.bfloat16,
+     0, 100),
+    ("mistral window 4096", 1, 16384, 16384, 32, 8, 128, 128,
+     torch.bfloat16, 0, 4096),
+    ("mistral causal", 1, 16384, 16384, 32, 8, 128, 128, torch.bfloat16, 0,
+     0),
+    ("float32 window 100", 2, 256, 256, 32, 8, 128, 128, torch.float32, 0,
+     100),
+    ("offset shard 768", 4, 256, 1024, 9, 3, 64, 64, torch.bfloat16, 768, 0),
+    ("offset shard 768 window 256", 4, 256, 1024, 9, 3, 64, 64,
+     torch.bfloat16, 768, 256),
+)
+
+
+def plain_bwd_banded(q, k, v, out, lse, dout, q_offset, window):
+    """The plain backward of a causal call (``flash_attention_bwd_plain``),
+    over query chunks of ``PLAIN_CHUNK`` when its float32 scores would
+    pass ``PLAIN_SCORE_BYTES``: each chunk against the keys of its band,
+    the offset shifted to match, dk and dv summed over the chunks in
+    float32 and rounded to the inputs' dtype once (the same function, the
+    same inputs)."""
+    from repro_torch.kernels.flash_attention.flash_attention import band
+    B, Sq, H, _ = q.shape
+    Skv = k.shape[1]
+    if B * Sq * H * Skv * 4 <= PLAIN_SCORE_BYTES:
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=True, q_offset=q_offset,
+                                         window=window)
+    dq = []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for i in range(0, Sq, PLAIN_CHUNK):
+        rows = slice(i, i + PLAIN_CHUNK)
+        n = q[:, rows].shape[1]
+        lo, hi = band(n, Skv, True, q_offset + i, window)
+        gq, gk, gv = flash_attention_bwd_plain(
+            q[:, rows].float(), k[:, lo:hi].float(), v[:, lo:hi].float(),
+            out[:, rows].float(), lse[:, rows], dout[:, rows].float(),
+            causal=True, q_offset=q_offset + i - lo, window=window)
+        dq.append(gq.to(q.dtype))
+        dk[:, lo:hi] += gk
+        dv[:, lo:hi] += gv
+        del gq, gk, gv
+    return torch.cat(dq, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_control_rel(q, k, v, out, lse, dout, q_offset, window, want):
+    """The largest relative Frobenius error, against ``want``, of dq, dk
+    and dv from the plain backward's formula with the wrong band: each
+    row's band start rounded down to a multiple of ``KEY_TILE`` keys (what
+    the kernels give if they left the key tile holding a row's band start
+    unmasked) with a window, or the query offset dropped without one;
+    over query chunks of ``PLAIN_CHUNK``. None for a causal call with
+    neither."""
+    if not (window or q_offset):
+        return None
+    B, Sq, H, D = q.shape
+    Skv, KH, G = k.shape[1], k.shape[2], H // k.shape[2]
+    dq = []
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kf, vf = k.float(), v.float()
+    for i in range(0, Sq, PLAIN_CHUNK):
+        rows = slice(i, i + PLAIN_CHUNK)
+        qc = q[:, rows].float().reshape(B, -1, KH, G, D)
+        n = qc.shape[1]
+        qpos = torch.arange(n, device=q.device) + i + (q_offset if window
+                                                       else 0)
+        start = (torch.clamp(qpos - window + 1, min=0) // KEY_TILE
+                 * KEY_TILE if window else torch.zeros_like(qpos))
+        kpos = torch.arange(Skv, device=q.device)
+        seen = (kpos[None] >= start[:, None]) & (kpos[None] <= qpos[:, None])
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qc, kf) / D ** 0.5
+        p = torch.exp(s - lse[:, rows].reshape(B, n, KH, G, 1))
+        p = torch.where(seen[None, :, None, None, :], p, 0.0)
+        del s
+        do = dout[:, rows].float().reshape(B, n, KH, G, -1)
+        drow = (do * out[:, rows].float().reshape(B, n, KH, G, -1)).sum(-1)
+        dv += torch.einsum("bqhgk,bqhgd->bkhd", p, do)
+        ds = p * (torch.einsum("bqhgd,bkhd->bqhgk", do, vf)
+                  - drow[..., None]) / D ** 0.5
+        del p
+        dq.append(torch.einsum("bqhgk,bkhd->bqhgd", ds, kf).reshape(
+            B, n, H, D))
+        dk += torch.einsum("bqhgk,bqhgd->bkhd", ds, qc)
+        del ds
+    got = (torch.cat(dq, dim=1), dk, dv)
+    return max(_rel_frobenius(g, w.float()) for g, w in zip(got, want))
+
+
+def _flash_window_bwd_cases(dev, gen):
+    """The backward kernels with a window and a query offset
+    (``WINDOW_BWD_CASES``) against the plain backward (``plain_bwd_banded``)
+    on the same residuals (q, k, v, dO and the forward kernel's output and
+    lse at the same band): dq, dk and dv each within ``BWD_REL_TOL``
+    (relative Frobenius) and ``BWD_ABS_TOL`` x its largest magnitude, which
+    the wrong band (``_bwd_control_rel``) must fail, two launches
+    bit-equal; timed beside the plain backward and one
+    ``scaled_dot_product_attention`` backward given the band as a boolean
+    ``attn_mask`` (its KV heads repeated to the query heads before the
+    timing; a yardstick the port never calls); then the gate that the
+    windowed Mistral-shape backward's device time is under
+    ``WINDOW_SKIP_BOUND`` of the causal one's. Returns {label: device
+    ms}."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+    dms_of, share = {}, {}
+    for (label, B, Sq, Skv, H, KH, D, Dv, dtype, off,
+         win) in WINDOW_BWD_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                   for shape in ((B, Sq, H, D), (B, Skv, KH, D),
+                                 (B, Skv, KH, Dv)))
+        dout = torch.randn((B, Sq, H, Dv), generator=gen, device=dev,
+                           dtype=dtype)
+        out, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True,
+                                       q_offset=off, window=win)
+
+        def run():
+            return flash_attention_bwd(q, k, v, out, lse, dout, causal=True,
+                                       q_offset=off, window=win)
+
+        got = run()
+        want = plain_bwd_banded(q, k, v, out, lse, dout, off, win)
+        torch.cuda.synchronize()
+        rels, errs = [], []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = _rel_frobenius(g, w.float())
+            err = (g.float() - w.float()).abs().max().item()
+            bound = BWD_ABS_TOL[dtype] * w.float().abs().max().item()
+            if not (rel <= BWD_REL_TOL[dtype] and err <= bound):
+                raise AssertionError(
+                    f"flash_attention_bwd {label} {name}: relative Frobenius "
+                    f"err {rel} (bound {BWD_REL_TOL[dtype]}), max abs err "
+                    f"{err} (bound {bound}) against the plain backward")
+            rels.append(rel)
+            errs.append(err)
+        control = _bwd_control_rel(q, k, v, out, lse, dout, off, win, want)
+        if control is not None and not control > BWD_REL_TOL[dtype]:
+            raise AssertionError(f"flash_attention_bwd {label}: the wrong "
+                                 f"band ({control}) would pass the bound "
+                                 f"{BWD_REL_TOL[dtype]}")
+        again = run()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two launches "
+                                 f"differ")
+        del want, again
+        ms, dms = timed(run, "flash_bwd")
+        plain_ms = cuda_ms(lambda: plain_bwd_banded(q, k, v, out, lse, dout,
+                                                    off, win), reps=3,
+                           warmup=1)
+        G = H // KH
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+                  .requires_grad_(True) for t in (k, v))
+        mask = band_mask(Sq, Skv, off, win, device=dev)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = dout.transpose(1, 2)
+        sdpa_ms, sdpa_dms = timed(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        bound, by, forms = flash_bound(B, Sq, Skv, H, KH, D, Dv, dtype, True,
+                                       backward=True, q_offset=off,
+                                       window=win)
+        pairs, (lo, hi) = band_pairs(Sq, Skv, off, win)
+        causal_pairs, _ = band_pairs(Sq, Skv, off, 0)
+        routes = "".join(f"; {form} {t:.4f}" for form, t in forms.items())
+        print(f"flash_attention_bwd {label} (B {B}, Sq {Sq}, Skv {Skv}, H "
+              f"{H}, KH {KH}, D {D}, {str(dtype)[6:]}, causal, q_offset "
+              f"{off}, window {win}: keys [{lo}, {hi}), {pairs} pairs, "
+              f"{pairs / causal_pairs:.4f} of causal): {ms:.4f} ms (device "
+              f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms, sdpa backward with "
+              f"the band as a mask {sdpa_ms:.4f} ms (device "
+              f"{fmt_ms(sdpa_dms)}), bound {bound:.4f} ms ({by}{routes}); "
+              f"relative Frobenius err dq/dk/dv "
+              f"{'/'.join(f'{r:.3g}' for r in rels)} (bound "
+              f"{BWD_REL_TOL[dtype]:g}" + ("" if control is None else
+                                           f"; the wrong band {control:.3g}")
+              + f"), max abs err {'/'.join(f'{e:.3g}' for e in errs)}")
+        dms_of[label], share[label] = dms, pairs / causal_pairs
+        del q, k, v, dout, out, lse, got, qt, kt, vt, ot, dot, mask
+        torch.cuda.empty_cache()
+    w, c = dms_of["mistral window 4096"], dms_of["mistral causal"]
+    if w is None or c is None or not w < WINDOW_SKIP_BOUND * c:
+        raise AssertionError(f"flash_attention_bwd: the windowed "
+                             f"Mistral-shape backward's device time "
+                             f"{fmt_ms(w)} is not under {WINDOW_SKIP_BOUND} "
+                             f"of the causal one's {fmt_ms(c)}")
+    print(f"flash_attention_bwd: windowed / causal device time at the "
+          f"Mistral shape {w / c:.4f} (gate < {WINDOW_SKIP_BOUND}; the band's "
+          f"share of the causal pairs {share['mistral window 4096']:.4f})")
     return dms_of
 
 
@@ -4880,10 +5111,9 @@ class _BwdCheck:
         self.module, self.inner = A, A.flash_attention_bwd
         self.rel, self.calls = 0.0, 0
 
-        def spy(q, k, v, out, lse, dout, *, causal=True):
-            got = self.inner(q, k, v, out, lse, dout, causal=causal)
-            want = flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                             causal=causal)
+        def spy(q, k, v, out, lse, dout, **kw):
+            got = self.inner(q, k, v, out, lse, dout, **kw)
+            want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
             self.calls += 1
             self.rel = max([self.rel] + [_rel_frobenius(g, w.float())
                                          for g, w in zip(got, want)])
@@ -4894,6 +5124,38 @@ class _BwdCheck:
 
     def __exit__(self, *exc):
         self.module.flash_attention_bwd = self.inner
+
+
+class _BandCalls:
+    """Counts the flash calls inside the block by (pass, causal, window):
+    the forward's and the backward's, through the names the attention
+    module calls."""
+
+    def __enter__(self):
+        from collections import Counter
+
+        from repro_torch.models import attention as A
+        self.module, self.calls = A, Counter()
+        self.saved = fwd, bwd = A.flash_attention_fwd, A.flash_attention_bwd
+
+        def key(name, kw):
+            return (name, bool(kw.get("causal", True)),
+                    int(kw.get("window", 0)))
+
+        def count_fwd(*args, **kw):
+            self.calls[key("fwd", kw)] += 1
+            return fwd(*args, **kw)
+
+        def count_bwd(*args, **kw):
+            self.calls[key("bwd", kw)] += 1
+            return bwd(*args, **kw)
+
+        A.flash_attention_fwd, A.flash_attention_bwd = count_fwd, count_bwd
+        return self
+
+    def __exit__(self, *exc):
+        (self.module.flash_attention_fwd,
+         self.module.flash_attention_bwd) = self.saved
 
 
 def _named_leaves(tree, path=""):
@@ -4943,7 +5205,7 @@ def _pipeline_batch(cfg, shape, seed, dev):
     return {"tokens": torch.from_numpy(pipe.batch(0)["tokens"]).to(dev)}
 
 
-def _train_gates(cfg, tcfg, steps, grad_shape, dev):
+def _train_gates(cfg, tcfg, steps, grad_shape, dev, window=0):
     """One family trained at every width and depth, from the reference's
     keyed init: (b) ``steps`` steps through ``launch/train.py:train`` on
     the pipeline's batches of ``TRAIN_SHAPE``, every loss finite and the
@@ -4956,17 +5218,27 @@ def _train_gates(cfg, tcfg, steps, grad_shape, dev):
     plain attention's, in float32 weights with TF32 off, each leaf within
     ``GRAD_REL_TOL``; in bf16 every backward call within ``BWD_REL_TOL``
     of the plain backward on its own inputs and two gradients bit-equal.
-    Returns ((b)'s launch counts, a batch of ``TRAIN_SHAPE``)."""
+    With ``window``, (b)'s flash calls are counted by (causal, window):
+    every one at (causal, ``window``). Returns ((b)'s launch counts, a
+    batch of ``TRAIN_SHAPE``, {"step_ms", "busy", "peak_gib"} of (b))."""
     from repro_torch.launch import steps as S
     torch.backends.cuda.matmul.allow_tf32 = False
     n_fwd, n_bwd = _train_flash_launches(cfg)
-    tag = f"train {cfg.name}"
+    tag = f"train {cfg.name}" + (f" windowed {window}" if window else "")
 
     # (b) training
     rec = _StepRecorder()
-    launches, wall, (params, opt, losses) = counted(
-        lambda: _train(cfg, tcfg, steps, dev, rec))
+    with _BandCalls() as bands:
+        launches, wall, (params, opt, losses) = counted(
+            lambda: _train(cfg, tcfg, steps, dev, rec))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if window:
+        want_bands = {("fwd", True, window): steps * n_fwd,
+                      ("bwd", True, window): steps * n_bwd}
+        if dict(bands.calls) != want_bands:
+            raise AssertionError(f"{tag}: flash calls by (pass, causal, "
+                                 f"window) {dict(bands.calls)}, not "
+                                 f"{want_bands}")
     card_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
     check_launches(launches, TRAIN_PATH, f"{tag} phase")
     want = {"flash_attention": n_fwd, "flash_attention_bwd": n_bwd}
@@ -5009,6 +5281,11 @@ def _train_gates(cfg, tcfg, steps, grad_shape, dev):
           f"{bwd['rowdot']:.2f}, dK/dV {bwd['dkdv']:.2f}, dQ "
           f"{bwd['dq']:.2f}); top device ops: "
           + "; ".join(f"{n} {ms:.2f} ms x{c}" for n, ms, c in ops[:8]))
+    if window:
+        print(f"{tag} flash calls by (pass, causal, window) over the "
+              f"{steps} steps: {dict(bands.calls)}")
+    stats = {"step_ms": statistics.median(step_ms[1:]), "busy": busy,
+             "peak_gib": peak}
     del params, opt, step
     _free()
 
@@ -5063,7 +5340,7 @@ def _train_gates(cfg, tcfg, steps, grad_shape, dev):
           f"{gap16:.3g} (largest at {leaf16}; not gated)")
     del params16, g16, g16_plain
     _free()
-    return launches, batch
+    return launches, batch, stats
 
 
 def phase_train(dev, card):
@@ -5071,14 +5348,16 @@ def phase_train(dev, card):
     ``TRAIN_STEPS`` steps of ``TRAIN_TCFG``, the gradients at
     ``TRAIN_SHAPE``; then (d) 4 steps straight against 2, an
     ``AsyncCheckpointer`` save and a resume to 4, bit-equal; (e) one step
-    at 2 microbatches against 1. Returns (b)'s launch counts."""
+    at 2 microbatches against 1. Returns (b)'s launch counts and its
+    step time, busy share and peak (``_train_gates``)."""
     import dataclasses
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import steps as S
     from repro_torch.launch import train as TR
     cfg = get_config(TRAIN_ARCH)
     tcfg = TrainConfig(**TRAIN_TCFG)
-    launches, batch = _train_gates(cfg, tcfg, TRAIN_STEPS, TRAIN_SHAPE, dev)
+    launches, batch, stats = _train_gates(cfg, tcfg, TRAIN_STEPS,
+                                          TRAIN_SHAPE, dev)
     # (d) resume
     rtcfg = TrainConfig(**RESUME_TCFG)
     straight, half = RESUME_STEPS
@@ -5122,7 +5401,7 @@ def phase_train(dev, card):
           f"{loss[1]:.6f} (bound {MICRO_LOSS_TOL})")
     del params, opt
     _free()
-    return launches
+    return launches, stats
 
 
 def phase_train_families(dev, card):
@@ -5277,6 +5556,86 @@ def phase_train_mesh(dev, card):
     finally:
         LM.end_local_group()
     _free()
+
+
+WINDOWED_GRAD_SHAPE = (2, 1024)         # (batch, tokens) of phase 39's gradients
+WINDOWED_MESH_STEPS = 2
+
+
+def phase_train_windowed(dev, card, causal):
+    """SmolLM-135M trained with a sliding window: the repo's config through
+    ``dataclasses.replace(attention="windowed", window_size=WINDOW_SIZE)``
+    at every width and depth, the keyed init (seed 0), through
+    ``_train_gates`` (``TRAIN_STEPS`` steps of ``TRAIN_SHAPE``, every
+    flash call of the run at (causal, ``WINDOW_SIZE``), the gradients at
+    ``WINDOWED_GRAD_SHAPE``); then ``WINDOWED_MESH_STEPS`` steps through
+    ``train(mesh=make_host_mesh(1, 1))`` on a one-rank NCCL group against
+    the same steps mesh-less: losses, parameters and optimizer state
+    bit-equal, exact launches. The step time, busy share and peak are
+    printed beside ``causal``'s (phase 34's causal SmolLM). The group is
+    destroyed at the end, pass or fail."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as LM
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attention="windowed",
+                              window_size=WINDOW_SIZE)
+    tcfg = TrainConfig(**TRAIN_TCFG)
+    n_fwd, n_bwd = _train_flash_launches(cfg)
+    tag = f"train windowed {cfg.name}"
+    _, _, stats = _train_gates(cfg, tcfg, TRAIN_STEPS, WINDOWED_GRAD_SHAPE,
+                               dev, window=WINDOW_SIZE)
+    steps = WINDOWED_MESH_STEPS
+    if dist.is_initialized():
+        raise AssertionError(f"{tag}: a process group is already running")
+    try:
+        p0, o0, l0 = _train(cfg, tcfg, steps, dev)
+        mesh = LM.make_host_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError(f"{tag}: the mesh runs {dist.get_backend()} "
+                                 f"on {mesh.device_type}, not NCCL on cuda")
+        rec = _StepRecorder()
+        with _BandCalls() as bands:
+            launches, wall, (p1, o1, l1) = counted(
+                lambda: _train(cfg, tcfg, steps, dev, rec, mesh=mesh))
+        check_launches(launches, TRAIN_PATH, f"{tag} mesh")
+        for i, got in enumerate(rec.launches):
+            if (got["flash_attention"], got["flash_attention_bwd"]) != (
+                    n_fwd, n_bwd):
+                raise AssertionError(f"{tag} mesh step {i + 1}: launches "
+                                     f"{got}")
+        want = {("fwd", True, WINDOW_SIZE): steps * n_fwd,
+                ("bwd", True, WINDOW_SIZE): steps * n_bwd}
+        if dict(bands.calls) != want:
+            raise AssertionError(f"{tag} mesh: flash calls {dict(bands.calls)}"
+                                 f", not {want}")
+        if l1 != l0 or not _same_state((p0, o0), (p1, o1)):
+            raise AssertionError(f"{tag}: the 1 x 1 mesh run differs from the "
+                                 f"mesh-less one; losses {l1} vs {l0}")
+        ms1 = [t * 1e3 for t in rec.watchdog.history]
+        print(f"{tag} through train(mesh=make_host_mesh(1, 1)) (a one-rank "
+              f"NCCL group, the query sequence over \"model\" at offset 0): "
+              f"{steps} steps, losses " + " ".join(f"{x:.4f}" for x in l1)
+              + f" bit-equal to the mesh-less run's, parameters and AdamW "
+              f"state bit-equal; {n_fwd} flash and {n_bwd} flash_bwd "
+              f"launches a step at (causal, window {WINDOW_SIZE}); ms a step "
+              + " ".join(f"{x:.2f}" for x in ms1)
+              + f"; wall {wall:.1f} ms with the set-up")
+        del p0, o0, p1, o1
+    finally:
+        LM.end_local_group()
+    _free()
+
+    def busy(b):
+        return "not measured" if b is None else f"{b:.4f}"
+    print(f"{tag} on {card} beside the causal SmolLM (phase 34), "
+          f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} a step: ms a step (median "
+          f"after the first) windowed {stats['step_ms']:.2f}, causal "
+          f"{causal['step_ms']:.2f} (windowed / causal "
+          f"{stats['step_ms'] / causal['step_ms']:.4f}); device-busy share "
+          f"{busy(stats['busy'])} and {busy(causal['busy'])}; peak device "
+          f"memory {stats['peak_gib']:.2f} and {causal['peak_gib']:.2f} GiB")
 
 
 MOE_TRAIN_ARCH = "qwen3_moe_235b"
@@ -5521,7 +5880,7 @@ def main():
     mark("vlm infer, vlm generate")
     phase_whisper(dev, card)
     mark("whisper infer, whisper generate")
-    train_launches = phase_train(dev, card)
+    train_launches, train_stats = phase_train(dev, card)
     mark("train")
     phase_train_families(dev, card)
     mark("train " + ", ".join(arch for arch, _ in FAMILY_TRAIN))
@@ -5529,6 +5888,8 @@ def main():
     mark("train mesh")
     phase_train_moe_mesh(dev, card)
     mark("train moe mesh")
+    phase_train_windowed(dev, card, train_stats)
+    mark("train windowed")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     # each kernel's launches, read on the main path that uses it

@@ -13,8 +13,10 @@ one command, parent, change, change, parent:
 ``--forward`` runs the forward's cases instead: every case of
 ``FLASH_CASES`` and ``CROSS_FLASH_CASES``, float32 and bf16, so one loop
 gives the float32 kernel's parent times and the bf16 cases' check that
-they did not move. ``--case LABEL`` (repeatable) keeps only the cases of
-those labels, e.g. ``--forward --case "vlm cross decode"``.
+they did not move. ``--window`` runs the backward's windowed and offset
+cases (``WINDOW_BWD_CASES``) after ``BWD_CASES``; the tree must take the
+window. ``--case LABEL`` (repeatable) keeps only the cases of those
+labels, e.g. ``--forward --case "vlm cross decode"``.
 
 ``--src`` (default: this checkout's ``src``) is the directory that holds
 the ``repro_torch`` package whose kernels are built (into that package's
@@ -40,6 +42,8 @@ def main():
                          "to time")
     ap.add_argument("--forward", action="store_true",
                     help="time the forward's cases, not the backward's")
+    ap.add_argument("--window", action="store_true",
+                    help="also time the backward's windowed cases")
     ap.add_argument("--case", action="append", default=[],
                     help="keep only the cases of this label (repeatable)")
     args = ap.parse_args()
@@ -65,6 +69,7 @@ def main():
     gen.manual_seed(C.SEED)
     if args.case:
         names = ("FLASH_CASES", "CROSS_FLASH_CASES") if args.forward \
+            else ("BWD_CASES", "WINDOW_BWD_CASES") if args.window \
             else ("BWD_CASES",)
         for name in names:
             setattr(C, name, tuple(c for c in getattr(C, name)
@@ -75,6 +80,9 @@ def main():
                      f"{args.case}")
     cases = C._flash_fwd_cases if args.forward else C._flash_bwd_cases
     cases(torch.device("cuda"), gen)
+    if args.window and C.WINDOW_BWD_CASES:
+        torch.cuda.empty_cache()
+        C._flash_window_bwd_cases(torch.device("cuda"), gen)
 
 
 if __name__ == "__main__":

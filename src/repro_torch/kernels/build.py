@@ -67,8 +67,8 @@ _SIGNATURES = {
                              + (ctypes.c_longlong,) * 9
                              + (ctypes.c_float, _P),
     # q, k, v, out, dout, lse, the Drow scratch, dq, dk, dv, then as the
-    # forward from dtype on
-    "repro_flash_attention_bwd": (_P,) * 10 + (ctypes.c_int,) * 9
+    # forward from dtype to the window (no split count)
+    "repro_flash_attention_bwd": (_P,) * 10 + (ctypes.c_int,) * 11
                                  + (ctypes.c_longlong,) * 9
                                  + (ctypes.c_float, _P),
 }

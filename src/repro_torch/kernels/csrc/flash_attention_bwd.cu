@@ -17,8 +17,10 @@
 //   dQ   = dS K                     dK = dS^T Q
 //
 // with dK and dV summed over the G = H / KH query heads of each KV head.
-// Masks as the forward's: causal is qpos >= kpos, both from 0; keys past Skv
-// and rows past Sq are zero-filled and never stored.
+// Masks as the forward's: causal is qpos >= kpos with qpos = row + q_offset
+// and, with window > 0, qpos - kpos < window (the reference's sliding window
+// and query offset, runtime ints that apply to a causal call only); keys
+// past Skv and rows past Sq are zero-filled and never stored.
 //
 // Three launches a call, one C entry: (1) Drow, one warp a row; (2) dK and
 // dV, one CTA per (key tile of 64, KV head, batch), which walks the query
@@ -26,7 +28,15 @@
 // query heads and keeps dK and dV in registers; (3) dQ, one CTA per (query
 // tile of 64, query head (float32: a group of them), batch), which walks the
 // key tiles its rows see (causal: up to the diagonal) and keeps dQ in
-// registers. Each
+// registers. A causal call with a window or a query offset runs windowed
+// instantiations of both passes (WINDOWED), as the forward does: with the
+// band's masks and tests in the causal kernels, the causal forward ran 4-12%
+// slower on an H100 (PERF.md, the windowed kernels). They walk only the
+// band: the dK/dV CTA the query tiles whose rows see its keys, [max(0, k0 -
+// q_offset) / 64, (k0 + 62 + window - q_offset) / 64] with a window (up to
+// the last without), the dQ CTA the key tiles from its first row's band
+// start to its last row's position; only tiles that cross the diagonal or a
+// band start are masked, and a key that no row sees gets dK = dV = 0. Each
 // recomputes P and dS from the saved lse, as the reference's bwd does, so no
 // (Sq, Skv) matrix reaches device memory. Every output element is written
 // once after a sum in a fixed order: no atomics, so a training step is
@@ -233,7 +243,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (*acc
 }
 
 // Pass 2: dK and dV of one (key tile, KV head, batch).
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
@@ -241,8 +251,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ drow,
                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                              int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
-                              Strides vs, float scale) {
+                              int B, int Sq, int Skv, int H, int KH, int q_off, int win,
+                              Strides qs, Strides ks, Strides vs, float scale) {
   using S = BwdSmem<D, DV>;
   constexpr bool KV_REG = D + DV <= 192;   // K and V A fragments in registers
   constexpr int DK = D / 16, VK = DV / 16;  // k16 steps of S^T and dP^T
@@ -262,9 +272,21 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int kw0 = k0 + 16 * warp;              // the warp's first key
   const bool warp_live = kw0 < Skv;
 
+  // a windowed call (causal, a window or an offset) has a kernel of its
+  // own: the causal kernel keeps its code (qo = w = 0 fold away there)
+  constexpr bool windowed = CAUSAL && WINDOWED;
+  const int qo = windowed ? q_off : 0;         // row i stands at position i + qo
+  const int w = windowed ? win : 0;            // 0: no window
   const int n_qt = (Sq + BT - 1) / BT;
-  const int qt_first = CAUSAL ? kt : 0;        // earlier query tiles see none of these keys
-  const int per_head = max(n_qt - qt_first, 0);
+  // the query tiles whose rows see some of these keys: rows from k0 - qo on
+  // (causal: from the key tile's own), and with a window up to k0 + BT - 2 +
+  // w - qo; the causal kernel keeps its own expression, so its code is the
+  // same as without the window
+  const int qt_first = windowed ? max(k0 - qo, 0) / BT : CAUSAL ? kt : 0;
+  const int last_row = k0 + BT - 2 + w - qo;
+  const int qt_end =
+      windowed && w > 0 ? (last_row < 0 ? 0 : min(n_qt, last_row / BT + 1)) : n_qt;
+  const int per_head = max(qt_end - qt_first, 0);
   const int n_items = G * per_head;            // (head, query tile) pairs, heads outer
   const long long do_s = static_cast<long long>(H) * DV;   // dO's row stride
   const __nv_bfloat16* dob = dout + static_cast<long long>(b) * Sq * do_s;
@@ -314,12 +336,15 @@ __global__ void __launch_bounds__(MMA_THREADS)
     const char* dOs = Qs + S::TILE;
     const float* lse_s = reinterpret_cast<const float*>(dOs + S::VTILE);
     const float* drow_s = lse_s + BT;
-    if (warp_live && (!CAUSAL || kw0 < q0 + BT)) {
+    if (warp_live && (!CAUSAL || kw0 < q0 + BT + qo)) {
 #pragma unroll 1
       for (int c = 0; c < BT / 16; ++c) {
         const int qc = q0 + 16 * c;
         if (qc >= Sq) break;
-        if (CAUSAL && kw0 > qc + 15) continue;   // every pair of the chunk masked
+        // every pair of the chunk masked: its keys after its queries, or
+        // before every query's window
+        if (CAUSAL && kw0 > qc + 15 + qo) continue;
+        if (windowed && w > 0 && qc + qo - kw0 - 15 >= w) continue;
         // S^T = K Q^T and dP^T = V dO^T over the chunk's 16 queries
         float s[2][4], dp[2][4];
 #pragma unroll
@@ -354,7 +379,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
         }
         // P^T and dS^T: row (key) kw0 + g + 8 (r >> 1), column (query)
         // qc + 8 j + 2 t + (r & 1)
-        const bool masked = qc + 16 > Sq || kw0 + 16 > Skv || (CAUSAL && kw0 + 15 > qc);
+        const bool masked = qc + 16 > Sq || kw0 + 16 > Skv || (CAUSAL && kw0 + 15 > qc + qo) ||
+                            (windowed && w > 0 && qc + 15 + qo - kw0 >= w);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int col = 16 * c + 8 * j + 2 * t;
@@ -366,9 +392,11 @@ __global__ void __launch_bounds__(MMA_THREADS)
             const float drr = (r & 1) ? dr.y : dr.x;
             float p = exp2f(fmaf(s[j][r], sl2, -lrow * LOG2E));
             if (masked) {
-              const int qpos = q0 + col + (r & 1);
+              const int row = q0 + col + (r & 1);
               const int kpos = kw0 + g + 8 * (r >> 1);
-              if (qpos >= Sq || kpos >= Skv || (CAUSAL && kpos > qpos)) p = 0.f;
+              if (row >= Sq || kpos >= Skv || (CAUSAL && kpos > row + qo) ||
+                  (windowed && w > 0 && row + qo - kpos >= w))
+                p = 0.f;
             }
             s[j][r] = p;
             dp[j][r] = p * (dp[j][r] - drr) * scale;
@@ -398,7 +426,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // Pass 3: dQ of one (query tile, query head, batch).
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -406,7 +434,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
                             const __nv_bfloat16* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ drow,
                             __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv, int H,
-                            int KH, int n_qt, Strides qs, Strides ks, Strides vs, float scale) {
+                            int KH, int n_qt, int q_off, int win, Strides qs, Strides ks,
+                            Strides vs, float scale) {
   using S = BwdSmem<D, DV>;
   constexpr int DK = D / 16, VK = DV / 16;
   extern __shared__ __align__(128) char smem[];
@@ -426,17 +455,23 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bool warp_live = r0 < Sq;
   const long long do_s = static_cast<long long>(H) * DV;
 
+  // the key tiles of the rows' band: from the first row's band start
+  // (windowed) to the last row's position (causal)
+  constexpr bool windowed = CAUSAL && WINDOWED;
+  const int qo = windowed ? q_off : 0;         // row i stands at position i + qo
+  const int w = windowed ? win : 0;            // 0: no window
   const int q_last = min(q0 + BT, Sq) - 1;
-  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
+  const int kv_end = CAUSAL ? min(Skv, q_last + qo + 1) : Skv;
+  const int t_lo = windowed && w > 0 ? max(0, q0 + qo - w + 1) / BT : 0;
   const int n_kt = (kv_end + BT - 1) / BT;
   const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
 
   copy_rows<D>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
   copy_rows<DV>(dOs, dout + static_cast<long long>(b) * Sq * do_s + h * DV, do_s, q0, Sq);
-  if (n_kt > 0) {
-    copy_rows<D>(ring, kb, ks.s, 0, Skv);
-    copy_rows<DV>(ring + S::TILE, vb, vs.s, 0, Skv);
+  if (t_lo < n_kt) {
+    copy_rows<D>(ring, kb, ks.s, t_lo * BT, Skv);
+    copy_rows<DV>(ring + S::TILE, vb, vs.s, t_lo * BT, Skv);
   }
   tiles::cp_async_commit();
 
@@ -455,30 +490,31 @@ __global__ void __launch_bounds__(MMA_THREADS)
   unsigned qf[DK][4], of[VK][4];
   const float sl2 = scale * LOG2E;
 
-  for (int tile = 0; tile < n_kt; ++tile) {
+  for (int tile = t_lo; tile < n_kt; ++tile) {
     const int k0 = tile * BT;
     if (tile + 1 < n_kt) {
-      char* st = ring + ((tile + 1) & 1) * STAGE;
+      char* st = ring + ((tile - t_lo + 1) & 1) * STAGE;
       copy_rows<D>(st, kb, ks.s, k0 + BT, Skv);
       copy_rows<DV>(st + S::TILE, vb, vs.s, k0 + BT, Skv);
     }
     tiles::cp_async_commit();
     tiles::cp_async_wait<1>();   // tile `tile` (and Q, dO) have landed
     __syncthreads();
-    if (tile == 0) {
+    if (tile == t_lo) {
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) load_a<S::ROW>(qf[kk], Qs + 16 * warp * S::ROW, kk, lane);
 #pragma unroll
       for (int kk = 0; kk < VK; ++kk)
         load_a<S::VROW>(of[kk], dOs + 16 * warp * S::VROW, kk, lane);
     }
-    const char* Ks = ring + (tile & 1) * STAGE;
+    const char* Ks = ring + ((tile - t_lo) & 1) * STAGE;
     const char* Vs = Ks + S::TILE;
     if (warp_live) {
 #pragma unroll 1
       for (int c = 0; c < BT / 16; ++c) {
         const int kc = k0 + 16 * c;
-        if (kc >= Skv || (CAUSAL && kc > r0 + 15)) break;   // so are the later chunks
+        if (kc >= Skv || (CAUSAL && kc > r0 + 15 + qo)) break;   // so are the later chunks
+        if (windowed && w > 0 && r0 + qo - kc - 15 >= w) continue;   // before every window
         // S = Q K^T and dP = dO V^T over the chunk's 16 keys
         float s[2][4], dp[2][4];
 #pragma unroll
@@ -500,16 +536,19 @@ __global__ void __launch_bounds__(MMA_THREADS)
           tiles::mma_bf16_16816(dp[1], of[kk], &bv[2]);
         }
         // dS: row r0 + g + 8 (r >> 1), key kc + 8 j + 2 t + (r & 1)
-        const bool masked = kc + 16 > Skv || r0 + 16 > Sq || (CAUSAL && kc + 15 > r0);
+        const bool masked = kc + 16 > Skv || r0 + 16 > Sq || (CAUSAL && kc + 15 > r0 + qo) ||
+                            (windowed && w > 0 && r0 + 15 + qo - kc >= w);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             float p = exp2f(fmaf(s[j][r], sl2, -((r >> 1) ? l2_hi : l2_lo)));
             if (masked) {
-              const int qpos = r0 + g + 8 * (r >> 1);
+              const int row = r0 + g + 8 * (r >> 1);
               const int kpos = kc + 8 * j + 2 * t + (r & 1);
-              if (qpos >= Sq || kpos >= Skv || (CAUSAL && kpos > qpos)) p = 0.f;
+              if (row >= Sq || kpos >= Skv || (CAUSAL && kpos > row + qo) ||
+                  (windowed && w > 0 && row + qo - kpos >= w))
+                p = 0.f;
             }
             dp[j][r] = p * (dp[j][r] - ((r >> 1) ? dr_hi : dr_lo)) * scale;
           }
@@ -533,15 +572,15 @@ __global__ void __launch_bounds__(MMA_THREADS)
 }
 
 // the dK/dV and dQ passes of the bf16 design
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 int launch_bwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                    const __nv_bfloat16* dout, const float* lse, const float* drow,
                    __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int Sq,
-                   int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-                   cudaStream_t stream) {
+                   int Skv, int H, int KH, int q_off, int win, Strides qs, Strides ks,
+                   Strides vs, float scale, cudaStream_t stream) {
   using S = BwdSmem<D, DV>;
   if (Skv > 0) {
-    auto kernel = flash_bwd_dkdv_mma_kernel<D, DV, CAUSAL>;
+    auto kernel = flash_bwd_dkdv_mma_kernel<D, DV, CAUSAL, WINDOWED>;
     // the limit is per device: set it on the current one at every launch
     const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::DKDV);
@@ -549,12 +588,12 @@ int launch_bwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
     const long long blocks = static_cast<long long>((Skv + BT - 1) / BT) * KH * B;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<static_cast<unsigned>(blocks), MMA_THREADS, S::DKDV, stream>>>(
-        q, k, v, dout, lse, drow, dk, dv, B, Sq, Skv, H, KH, qs, ks, vs, scale);
+        q, k, v, dout, lse, drow, dk, dv, B, Sq, Skv, H, KH, q_off, win, qs, ks, vs, scale);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (Sq > 0) {
-    auto kernel = flash_bwd_dq_mma_kernel<D, DV, CAUSAL>;
+    auto kernel = flash_bwd_dq_mma_kernel<D, DV, CAUSAL, WINDOWED>;
     const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::DQ);
     if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -562,7 +601,7 @@ int launch_bwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bf
     const long long blocks = static_cast<long long>(n_qt) * H * B;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<static_cast<unsigned>(blocks), MMA_THREADS, S::DQ, stream>>>(
-        q, k, v, dout, lse, drow, dq, B, Sq, Skv, H, KH, n_qt, qs, ks, vs, scale);
+        q, k, v, dout, lse, drow, dq, B, Sq, Skv, H, KH, n_qt, q_off, win, qs, ks, vs, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -585,19 +624,25 @@ int launch_rowdot(const void* out, const void* dout, float* drow, long long rows
 // and dO; (D, Dv) must be a built pair. q, k and v are read through their
 // (b, s, h) element strides; out, dout, lse and the outputs are contiguous;
 // drow is float32 scratch of B * Sq * H. q, k, v and dout must start on 16
-// bytes and q's, k's and v's strides be multiples of 16 bytes.
+// bytes and q's, k's and v's strides be multiples of 16 bytes. ``q_offset``
+// >= 0 and ``window`` >= 0 (0: none) as the forward took them: they apply to
+// a causal call only (flash::band), and a causal call with either runs the
+// windowed instantiations.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const void* lse,
                                          void* drow, void* dq, void* dk, void* dv, int dtype,
                                          int B, int Sq, int Skv, int H, int KH, int D, int Dv,
-                                         int causal, long long qsb, long long qss,
+                                         int causal, int q_offset, int window,
+                                         long long qsb, long long qss,
                                          long long qsh, long long ksb, long long kss,
                                          long long ksh, long long vsb, long long vss,
                                          long long vsh, float scale, void* stream) {
   if (B == 0) return 0;
   if (KH <= 0 || H % KH != 0 || (dtype != 0 && dtype != 1) || B > 65535 || H > 65535 ||
-      !flash::built_pair(D, Dv))
+      !flash::built_pair(D, Dv) || q_offset < 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!causal) q_offset = window = 0;
+  const bool windowed = causal && (q_offset > 0 || window > 0);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   // dout is copied in 16-byte chunks of rows too (its rows are Dv wide)
   if (!(flash::rows_aligned16(q, k, v, qs, ks, vs, dtype == 1 ? 2 : 4) &&
@@ -611,8 +656,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                            : launch_rowdot<__nv_bfloat16>(out, dout, dr, rows, Dv, st);
   if (e != 0) return e;
   if (dtype == 0)
-    return flash::launch_bwd_f32(D, Dv, causal != 0, q, k, v, dout, lp, dr, dq, dk, dv, B, Sq,
-                                 Skv, H, KH, qs, ks, vs, scale, st);
+    return flash::launch_bwd_f32(D, Dv, causal != 0, q_offset, window, q, k, v, dout, lp, dr,
+                                 dq, dk, dv, B, Sq, Skv, H, KH, qs, ks, vs, scale, st);
   using bf = __nv_bfloat16;
   const bf* qp = static_cast<const bf*>(q);
   const bf* kp = static_cast<const bf*>(k);
@@ -622,13 +667,18 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   bf* dkp = static_cast<bf*>(dk);
   bf* dvp = static_cast<bf*>(dv);
 #define REPRO_FLASH_BWD_PAIR(DQ, DVV)                                                      \
-  if (D == DQ && Dv == DVV)                                                              \
-    return causal ? launch_bwd_mma<DQ, DVV, true>(qp, kp, vp, dop, lp, dr, dqp, dkp, dvp, \
-                                                  B, Sq, Skv, H, KH, qs, ks, vs, scale,  \
-                                                  st)                                     \
-                  : launch_bwd_mma<DQ, DVV, false>(qp, kp, vp, dop, lp, dr, dqp, dkp,     \
-                                                   dvp, B, Sq, Skv, H, KH, qs, ks, vs,    \
-                                                   scale, st);
+  if (D == DQ && Dv == DVV) {                                                            \
+    if (windowed)                                                                        \
+      return launch_bwd_mma<DQ, DVV, true, true>(qp, kp, vp, dop, lp, dr, dqp, dkp, dvp,  \
+                                                 B, Sq, Skv, H, KH, q_offset, window, qs, \
+                                                 ks, vs, scale, st);                      \
+    return causal ? launch_bwd_mma<DQ, DVV, true, false>(qp, kp, vp, dop, lp, dr, dqp,   \
+                                                         dkp, dvp, B, Sq, Skv, H, KH, 0, \
+                                                         0, qs, ks, vs, scale, st)       \
+                  : launch_bwd_mma<DQ, DVV, false, false>(qp, kp, vp, dop, lp, dr, dqp,  \
+                                                          dkp, dvp, B, Sq, Skv, H, KH,   \
+                                                          0, 0, qs, ks, vs, scale, st);  \
+  }
   REPRO_FLASH_PAIRS(REPRO_FLASH_BWD_PAIR)
 #undef REPRO_FLASH_BWD_PAIR
   return static_cast<int>(cudaErrorInvalidValue);

@@ -90,6 +90,16 @@
 //   memory: chip_smoke.py's build line reads each kernel's registers,
 //   stack and local bytes.
 //
+// The window and the query offset (flash_attention_bwd.cu's header): a
+// causal call with either runs windowed instantiations of both passes
+// (WINDOWED), the causal ones keeping their code. Pass 2 walks only the
+// query tiles whose rows see its keys, [max(0, k0 - q_offset) / QT, (k0 +
+// 62 + window - q_offset) / QT] with a window; pass 3 the key tiles from its
+// first row's band start to its last row's position; a warp skips a chunk
+// (a tile) wholly after its rows or before their windows, and only those
+// that cross the diagonal or a band start are masked. The chains stay as
+// short as the causal passes'.
+//
 // Numbers. Sums run in a fixed order with no atomics: two launches agree bit
 // for bit. Masked probabilities are exact zeros.
 #include <cuda_runtime.h>
@@ -302,14 +312,14 @@ __device__ __forceinline__ void scores(float (*s)[4], const float* a_big, const 
 }
 
 // Pass 2: dK and dV of one (key tile, KV head, batch).
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
     flash_bwd_dkdv_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                   const float* __restrict__ v, const float* __restrict__ dout,
                                   const float* __restrict__ lse, const float* __restrict__ drow,
                                   float* __restrict__ dk, float* __restrict__ dv, int B, int Sq,
-                                  int Skv, int H, int KH, Strides qs, Strides ks, Strides vs,
-                                  float scale) {
+                                  int Skv, int H, int KH, int q_off, int win, Strides qs,
+                                  Strides ks, Strides vs, float scale) {
   using S = Pass2<D, DV>;
   constexpr int KP = S::KP, VP = S::VP, QT = S::QT;
   constexpr int NTHREADS = S::THREADS;
@@ -336,9 +346,18 @@ __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
   const int kw0 = k0 + 16 * wk;                // the warp's first key
   const bool warp_live = kw0 < Skv;
 
+  constexpr bool windowed = CAUSAL && WINDOWED;
+  const int qo = windowed ? q_off : 0;         // row i stands at position i + qo
+  const int w = windowed ? win : 0;            // 0: no window
   const int n_qt = (Sq + QT - 1) / QT;
-  const int qt_first = CAUSAL ? k0 / QT : 0;   // earlier query tiles see none of these keys
-  const int per_head = max(n_qt - qt_first, 0);
+  // the query tiles whose rows see some of these keys: rows from k0 - qo on
+  // (causal: from the key tile's diagonal), and with a window up to k0 +
+  // KEYS2 - 2 + w - qo; the causal kernel keeps its own expression
+  const int qt_first = windowed ? max(k0 - qo, 0) / QT : CAUSAL ? k0 / QT : 0;
+  const int last_row = k0 + KEYS2 - 2 + w - qo;
+  const int qt_end =
+      windowed && w > 0 ? (last_row < 0 ? 0 : min(n_qt, last_row / QT + 1)) : n_qt;
+  const int per_head = max(qt_end - qt_first, 0);
   const int n_items = G * per_head;            // (head, query tile) pairs, heads outer
   const long long do_s = static_cast<long long>(H) * DV;   // dO's row stride
   const float* dob = dout + static_cast<long long>(b) * Sq * do_s;
@@ -415,7 +434,11 @@ __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
     tiles::cp_async_commit();
 
     const int qc = (qt_first + i % per_head) * QT + cr;   // the chunk's first query
-    if (!warp_live || qc >= Sq || (CAUSAL && kw0 > qc + 15)) continue;
+    // every pair masked: the keys after the chunk's queries, or before
+    // every query's window
+    if (!warp_live || qc >= Sq || (CAUSAL && kw0 > qc + 15 + qo) ||
+        (windowed && w > 0 && qc + qo - kw0 - 15 >= w))
+      continue;
     // S^T = K Q^T and dP^T = V dO^T over the chunk's 16 queries
     float s[2][4], dp[2][4];
     scores<false, D / 8, KP, KP, 2>(s, kbig + 16 * wk * KP, ksmall + 16 * wk * KP, qbig + cr * KP,
@@ -424,7 +447,8 @@ __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
                               osmall + cr * VP, lane);
     // P^T and dS^T: row (key) kw0 + g + 8 (r >> 1), column (query)
     // qc + 8 j + 2 t + (r & 1)
-    const bool masked = qc + 16 > Sq || kw0 + 16 > Skv || (CAUSAL && kw0 + 15 > qc);
+    const bool masked = qc + 16 > Sq || kw0 + 16 > Skv || (CAUSAL && kw0 + 15 > qc + qo) ||
+                        (windowed && w > 0 && qc + 15 + qo - kw0 >= w);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = cr + 8 * j + 2 * t;
@@ -434,9 +458,11 @@ __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
       for (int r = 0; r < 4; ++r) {
         float p = exp2f(fmaf(s[j][r], sl2, -((r & 1) ? l2.y : l2.x)));
         if (masked) {
-          const int qpos = qc + 8 * j + 2 * t + (r & 1);
+          const int row = qc + 8 * j + 2 * t + (r & 1);
           const int kpos = kw0 + g + 8 * (r >> 1);
-          if (qpos >= Sq || kpos >= Skv || (CAUSAL && kpos > qpos)) p = 0.f;
+          if (row >= Sq || kpos >= Skv || (CAUSAL && kpos > row + qo) ||
+              (windowed && w > 0 && row + qo - kpos >= w))
+            p = 0.f;
         }
         s[j][r] = p;
         dp[j][r] = p * (dp[j][r] - ((r & 1) ? dr.y : dr.x)) * scale;
@@ -507,14 +533,14 @@ __global__ void __launch_bounds__(Pass2<D, DV>::THREADS, 1)
 }
 
 // Pass 3: dQ of one (q block, group of GB query heads, batch).
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
     flash_bwd_dq_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ drow,
                                 float* __restrict__ dq, int Sq, int Skv, int H, int G, int GB,
-                                int n_qblocks, int n_heads_b, Strides qs, Strides ks, Strides vs,
-                                float scale) {
+                                int n_qblocks, int n_heads_b, int q_off, int win, Strides qs,
+                                Strides ks, Strides vs, float scale) {
   using S = Pass3<D, DV>;
   constexpr int KP = S::KP, VP = S::VP, KT = S::KT;
   constexpr int NC = KT / 8;    // n8 tiles of S, k8 steps of dS K
@@ -544,8 +570,14 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
   const int p0 = (warp % 4) * 16;               // warp's first row of the block
   const int g = lane / 4, t = lane % 4;
 
+  // the key tiles of the rows' band: from the first row's band start
+  // (windowed) to the last row's position (causal)
+  constexpr bool windowed = CAUSAL && WINDOWED;
+  const int qo = windowed ? q_off : 0;          // row i stands at position i + qo
+  const int w = windowed ? win : 0;             // 0: no window
   const int q_last = min(q0 + ROWS3, Sq) - 1;
-  const int kv_end = CAUSAL ? min(Skv, q_last + 1) : Skv;
+  const int kv_end = CAUSAL ? min(Skv, q_last + qo + 1) : Skv;
+  const int t_lo = windowed && w > 0 ? max(0, q0 + qo - w + 1) / KT : 0;
   const int n_tiles = (kv_end + KT - 1) / KT;
   const float* kb = k + bidx * ks.b + kh * ks.h;
   const float* vb = v + bidx * vs.b + kh * vs.h;
@@ -563,7 +595,7 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
                       dout + static_cast<long long>(bidx) * Sq * do_s + (h0 + gg) * DV, do_s, q0,
                       ROWS3, Sq, nthreads);
   }
-  if (n_tiles > 0) load_kv(0);
+  if (t_lo < n_tiles) load_kv(t_lo * KT);
   tiles::cp_async_commit();
 
   const int row_lo = q0 + p0;                   // the warp's first row
@@ -587,7 +619,7 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
   const float* qw = qbuf + (gi * ROWS3 + p0) * KP;
   const float* ow = obuf + (gi * ROWS3 + p0) * VP;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = t_lo; tile < n_tiles; ++tile) {
     const int k0 = tile * KT;
     tiles::cp_async_wait<0>();   // tile `tile` (and q, dO) have landed
     __syncthreads();             // ... for every thread; the split tiles are free
@@ -596,14 +628,19 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
     __syncthreads();             // the split tiles are ready, the staging tile free
     if (tile + 1 < n_tiles) load_kv(k0 + KT);
     tiles::cp_async_commit();
-    if (!warp_live || (CAUSAL && k0 > row_lo + 15)) continue;
+    // every pair masked: the tile after the warp's rows, or before their
+    // windows
+    if (!warp_live || (CAUSAL && k0 > row_lo + 15 + qo) ||
+        (windowed && w > 0 && row_lo + qo - (k0 + KT - 1) >= w))
+      continue;
 
     // S = Q K^T and dP = dO V^T, q and dO split in registers
     float s[NC][4], dp[NC][4];
     scores<true, D / 8, KP, KP, NC>(s, qw, nullptr, kbig, ksmall, lane);
     scores<true, DV / 8, VP, VP, NC>(dp, ow, nullptr, vbig, vsmall, lane);
     // P and dS: row row_lo + g + 8 (r >> 1), key k0 + 8 j + 2 t + (r & 1)
-    const bool masked = k0 + KT > Skv || (CAUSAL && k0 + KT - 1 > row_lo);
+    const bool masked = k0 + KT > Skv || (CAUSAL && k0 + KT - 1 > row_lo + qo) ||
+                        (windowed && w > 0 && row_lo + 15 + qo - k0 >= w);
 #pragma unroll
     for (int j = 0; j < NC; ++j)
 #pragma unroll
@@ -611,8 +648,10 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
         float p = exp2f(fmaf(s[j][r], sl2, -l2[r >> 1]));
         if (masked) {
           const int kpos = k0 + 8 * j + 2 * t + (r & 1);
-          const int qpos = row_lo + g + 8 * (r >> 1);
-          if (kpos >= Skv || (CAUSAL && kpos > qpos)) p = 0.f;
+          const int row = row_lo + g + 8 * (r >> 1);
+          if (kpos >= Skv || (CAUSAL && kpos > row + qo) ||
+              (windowed && w > 0 && row + qo - kpos >= w))
+            p = 0.f;
         }
         dp[j][r] = p * (dp[j][r] - dr[r >> 1]) * scale;
       }
@@ -636,15 +675,15 @@ __global__ void __launch_bounds__(Pass3<D, DV>::MAX_GB * 128, 1)
   }
 }
 
-template <int D, int DV, bool CAUSAL>
+template <int D, int DV, bool CAUSAL, bool WINDOWED>
 int launch_pair(const float* q, const float* k, const float* v, const float* dout,
                 const float* lse, const float* drow, float* dq, float* dk, float* dv, int B,
-                int Sq, int Skv, int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
-                cudaStream_t stream) {
+                int Sq, int Skv, int H, int KH, int q_off, int win, Strides qs, Strides ks,
+                Strides vs, float scale, cudaStream_t stream) {
   constexpr int F = static_cast<int>(sizeof(float));
   if (Skv > 0) {
     using S = Pass2<D, DV>;
-    auto kernel = flash_bwd_dkdv_f32_mma_kernel<D, DV, CAUSAL>;
+    auto kernel = flash_bwd_dkdv_f32_mma_kernel<D, DV, CAUSAL, WINDOWED>;
     // the limit is per device: set it on the current one at every launch
     const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::FLOATS * F);
@@ -652,13 +691,13 @@ int launch_pair(const float* q, const float* k, const float* v, const float* dou
     const long long blocks = static_cast<long long>((Skv + KEYS2 - 1) / KEYS2) * KH * B;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<static_cast<unsigned>(blocks), S::THREADS, S::FLOATS * F, stream>>>(
-        q, k, v, dout, lse, drow, dk, dv, B, Sq, Skv, H, KH, qs, ks, vs, scale);
+        q, k, v, dout, lse, drow, dk, dv, B, Sq, Skv, H, KH, q_off, win, qs, ks, vs, scale);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (Sq > 0) {
     using S = Pass3<D, DV>;
-    auto kernel = flash_bwd_dq_f32_mma_kernel<D, DV, CAUSAL>;
+    auto kernel = flash_bwd_dq_f32_mma_kernel<D, DV, CAUSAL, WINDOWED>;
     const int G = H / KH;
     const int GB = flash::heads_per_cta(G, S::MAX_GB);
     const int n_qblocks = (Sq + ROWS3 - 1) / ROWS3;
@@ -669,19 +708,20 @@ int launch_pair(const float* q, const float* k, const float* v, const float* dou
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::floats(S::MAX_GB) * F);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     kernel<<<static_cast<unsigned>(blocks), GB * 128, S::floats(GB) * F, stream>>>(
-        q, k, v, dout, lse, drow, dq, Sq, Skv, H, G, GB, n_qblocks, n_heads_b, qs, ks, vs,
-        scale);
+        q, k, v, dout, lse, drow, dq, Sq, Skv, H, G, GB, n_qblocks, n_heads_b, q_off, win, qs,
+        ks, vs, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-int flash::launch_bwd_f32(int D, int Dv, bool causal, const void* q, const void* k,
-                          const void* v, const void* dout, const float* lse, const float* drow,
-                          void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, int KH,
-                          Strides qs, Strides ks, Strides vs, float scale,
-                          cudaStream_t stream) {
+int flash::launch_bwd_f32(int D, int Dv, bool causal, int q_offset, int window,
+                          const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* drow, void* dq, void* dk, void* dv,
+                          int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
+                          Strides vs, float scale, cudaStream_t stream) {
+  const bool windowed = causal && (q_offset > 0 || window > 0);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
@@ -690,13 +730,18 @@ int flash::launch_bwd_f32(int D, int Dv, bool causal, const void* q, const void*
   float* dkp = static_cast<float*>(dk);
   float* dvp = static_cast<float*>(dv);
 #define REPRO_FLASH_BWD_F32(DQ, DVV)                                                      \
-  if (D == DQ && Dv == DVV)                                                             \
-    return causal ? launch_pair<DQ, DVV, true>(qp, kp, vp, dop, lse, drow, dqp, dkp, dvp, \
-                                               B, Sq, Skv, H, KH, qs, ks, vs, scale,     \
-                                               stream)                                   \
-                  : launch_pair<DQ, DVV, false>(qp, kp, vp, dop, lse, drow, dqp, dkp,    \
-                                                dvp, B, Sq, Skv, H, KH, qs, ks, vs,      \
-                                                scale, stream);
+  if (D == DQ && Dv == DVV) {                                                           \
+    if (windowed)                                                                       \
+      return launch_pair<DQ, DVV, true, true>(qp, kp, vp, dop, lse, drow, dqp, dkp, dvp, \
+                                              B, Sq, Skv, H, KH, q_offset, window, qs,  \
+                                              ks, vs, scale, stream);                   \
+    return causal ? launch_pair<DQ, DVV, true, false>(qp, kp, vp, dop, lse, drow, dqp,  \
+                                                      dkp, dvp, B, Sq, Skv, H, KH, 0, 0, \
+                                                      qs, ks, vs, scale, stream)        \
+                  : launch_pair<DQ, DVV, false, false>(qp, kp, vp, dop, lse, drow, dqp, \
+                                                       dkp, dvp, B, Sq, Skv, H, KH, 0,  \
+                                                       0, qs, ks, vs, scale, stream);   \
+  }
   REPRO_FLASH_PAIRS(REPRO_FLASH_BWD_F32)
 #undef REPRO_FLASH_BWD_F32
   return static_cast<int>(cudaErrorInvalidValue);

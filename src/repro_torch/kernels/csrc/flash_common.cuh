@@ -96,10 +96,13 @@ int launch_decode(int D, int Dv, bool causal, int q_offset, int window, const vo
 
 // The backward's float32 dK/dV and dQ passes for the pair (D, Dv)
 // (flash_attention_bwd_f32.cu), after Drow; cudaErrorInvalidValue for a pair
-// they were not built for.
-int launch_bwd_f32(int D, int Dv, bool causal, const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* drow, void* dq, void* dk,
-                   void* dv, int B, int Sq, int Skv, int H, int KH, Strides qs, Strides ks,
-                   Strides vs, float scale, cudaStream_t stream);
+// they were not built for. ``q_offset`` and ``window`` as in band(), 0 for
+// both when not causal; a causal call with either runs the windowed
+// instantiations.
+int launch_bwd_f32(int D, int Dv, bool causal, int q_offset, int window, const void* q,
+                   const void* k, const void* v, const void* dout, const float* lse,
+                   const float* drow, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
+                   int H, int KH, Strides qs, Strides ks, Strides vs, float scale,
+                   cudaStream_t stream);
 
 }  // namespace flash

@@ -48,7 +48,10 @@ backward of the reference's custom VJP (``repro/models/attention.py``,
 ``_make_flash``): the Pallas kernel has none. From q, k, v, the output,
 its gradient and the lse it recomputes each block's probabilities and
 returns (dq, dk, dv) in the inputs' dtypes, dk and dv summed over each KV
-head's query heads, with no atomics (bit-for-bit repeatable). Both dtypes
+head's query heads, with no atomics (bit-for-bit repeatable). It takes
+the forward's window and query offset: a causal call with either runs
+windowed instantiations of both passes, which walk only the tiles of the
+rows' bands (a key that no row sees gets zero dk and dv). Both dtypes
 run on the tensor cores: bf16 products with P and dS in two bf16 parts,
 and float32 in 3xTF32 (each operand as two tf32 parts, three products a
 multiply-add, every tensor-core sum in a short chain merged into float32),
@@ -153,10 +156,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True):
+                              causal: bool = True, q_offset: int = 0,
+                              window: int = 0):
     """Plain PyTorch version of the backward: the materialized float32
-    formula (not autograd)."""
-    return mha_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    formula (not autograd), with the forward's window and query offset,
+    refusing what the forward refuses (``check_band``)."""
+    q_offset, window = check_band(q.shape[1], k.shape[1], causal, q_offset,
+                                  window)
+    return mha_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                       q_offset=q_offset, window=window)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -231,13 +239,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, *, causal: bool = True):
-    """The backward of ``flash_attention_fwd`` from its residuals: q, k, v
-    as the forward took them, its output and float32 lse, and dout, the
-    gradient of the output (B,Sq,H,Dv) -> (dq, dk, dv) in q's dtype."""
+                        dout: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0, window: int = 0):
+    """The backward of ``flash_attention_fwd`` from its residuals: q, k, v,
+    the causal flag, ``q_offset`` and ``window`` as the forward took them,
+    its output and float32 lse, and dout, the gradient of the output
+    (B,Sq,H,Dv) -> (dq, dk, dv) in q's dtype. Raises where the forward
+    does (``check_band``)."""
+    q_offset, window = check_band(q.shape[1], k.shape[1], causal, q_offset,
+                                  window)
     if KB.on_cpu(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal)
+                                         causal=causal, q_offset=q_offset,
+                                         window=window)
     B, Sq, Skv, H, KH, D, Dv = _check(q, k, v)
     for name, t, dt, shape in (("out", out, q.dtype, (B, Sq, H, Dv)),
                                ("dout", dout, q.dtype, (B, Sq, H, Dv)),
@@ -260,5 +274,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               dout.data_ptr(), lse.data_ptr(), drow.data_ptr(),
               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               _DTYPES[q.dtype], B, Sq, Skv, H, KH, D, Dv, int(causal),
-              *_strides(q, k, v), 1.0 / math.sqrt(D))
+              q_offset, window, *_strides(q, k, v), 1.0 / math.sqrt(D))
     return dq, dk, dv

@@ -6,7 +6,7 @@ the query's dtype — the allclose target of the tiled kernel and the same
 function as models/attention.py's plain core. ``mha_ref_lse`` also
 returns each row's log-sum-exp and ``mha_bwd_ref`` is the backward of the
 reference's custom VJP (``repro/models/attention.py:_make_flash``) from
-those residuals, both materialized in float32.
+those residuals, both materialized in float32, with the forward's masks.
 
 The forward oracles take the masks of the reference's naive core
 (``repro/models/attention.py:_naive_core``): query i stands at position
@@ -83,16 +83,17 @@ def _attend(q, k, v, causal: bool, want_lse: bool, q_offset: int = 0,
 
 def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                causal: bool = True):
+                causal: bool = True, q_offset: int = 0, window: int = 0):
     """(dq, dk, dv) in q's, k's and v's dtypes: the reference's bwd
     materialized in float32 (not autograd). Drow = rowsum(dO * O), P =
-    exp(s - lse) (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP -
-    Drow) scale, dQ = dS K, dK = dS^T Q, dK and dV summed over each KV
-    head's G query heads."""
+    exp(s - lse) (0 where masked: ``band_mask`` of ``q_offset`` and
+    ``window`` when causal), dV = P^T dO, dP = dO V^T, dS = P (dP - Drow)
+    scale, dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's G
+    query heads. A key no row sees gets zero dK and dV."""
     B, Sq, H, D = q.shape
     KH, Dv = k.shape[2], v.shape[-1]
     G = H // KH
-    s, mask = _scores(q, k, causal)
+    s, mask = _scores(q, k, causal, q_offset, window)
     p = torch.exp(s - lse.to(torch.float32).reshape(B, Sq, KH, G, 1))
     if mask is not None:
         p = torch.where(mask, p, 0.0)

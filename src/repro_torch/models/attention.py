@@ -42,22 +42,22 @@ When grad is enabled and an input requires it (training), ``sdpa`` goes
 through ``FlashAttention``, a ``torch.autograd.Function``: its forward is
 the same kernel, which also saves each row's log-sum-exp, and its
 backward is ``flash_attention_bwd`` (the kernel on the card, its plain
-version on the CPU), the port of the reference's custom VJP. Every
-inference path calls the forward kernel alone, as before. The backward
-kernels take no window or offset yet: ``FlashAttention`` refuses both
-(ROADMAP Queue 1, item 13), so a windowed config does not train.
+version on the CPU), the port of the reference's custom VJP; both take
+the window and the query offset, so a windowed config trains. Every
+inference path calls the forward kernel alone, as before.
 On a device mesh (q, k and v DTensors, launch/train.py's ``mesh=``)
-``sdpa`` pins them at the reference's points (``act_sharding.constrain``)
-and runs ``_flash`` through ``local_map``: batch over the active rules'
-batch axes and the KV heads over "model" when it divides them (replicated
-there otherwise), so the kernel and ``FlashAttention``'s backward kernel
-run on each rank's local q, k and v and never see a DTensor. The query
-is pinned to the batch axes only: the reference's context-parallel
-layout ("flash_seq", the query sequence over "model") would need each
-rank's query offset, and pinning it there only to gather it back left
-the backward's gradients sequence-sharded, which DTensor's matmul
-propagation rejects under fake tensors. So each rank holds whole rows and
-a window or an offset stays local.
+``sdpa`` lays them out as the reference's context-parallel flash does
+(``act_sharding.constrain``): the query's sequence over the rules'
+"flash_seq" axes beside the batch axes, k and v over the batch axes and
+replicated over the rest. ``_flash`` runs through ``local_map`` on each
+rank's local q, k and v, so the kernels never see a DTensor, with the
+rank's own ``q_offset``: the global position of its first query row
+(``act_sharding.shard_start``) plus the caller's. Each rank's dk and dv
+are its rows' share of the sum, reduced over the "flash_seq" axes, and
+the output is laid out by batch again for the output projection. Where
+those axes do not divide the query's length, the query stays whole on
+them (``constrain``'s rule for any dim): every rank of them computes the
+whole attention of its batch rows, at the caller's offset.
 ``decode_sdpa`` (one query against the cache) has no kernel in the
 reference and stays plain PyTorch, as do MLA's absorbed decode einsums,
 which read ``wkv_b``'s weight directly (not through ``layers.dense``): in
@@ -81,9 +81,6 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.models import layers as L
 from repro_torch.parallel import act_sharding as ash
 from repro_torch.parallel.hlo_analysis import flash_region
-
-_WINDOWED_BWD = "ROADMAP Queue 1, item 13 (the windowed flash backward)"
-
 
 class KVCache(NamedTuple):
     """A layer's cache: k and v (B, max_seq, KH, D), or for MLA k the
@@ -126,29 +123,25 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, object]:
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the flash backward: the forward kernel keeps
     q, k, v, its output and lse; the backward recomputes the
-    probabilities from them (reference: ``_make_flash``'s fwd and bwd).
-    The backward kernels have no window or query offset: a causal call
-    with either that needs a gradient raises."""
+    probabilities from them (reference: ``_make_flash``'s fwd and bwd),
+    at the forward's window and query offset."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window=0, q_offset=0):
-        if causal and (window or q_offset) and any(ctx.needs_input_grad[:3]):
-            raise NotImplementedError(
-                f"FlashAttention with window={window}, q_offset={q_offset}: "
-                f"the flash backward kernels take no window or offset yet "
-                f"({_WINDOWED_BWD})")
         out, lse = flash_attention_fwd(q, k, v, causal=causal,
                                        return_lse=True, q_offset=q_offset,
                                        window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal)
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset,
+                                         window=ctx.window)
         return dq, dk, dv, None, None, None
 
 
@@ -178,29 +171,47 @@ def _local_flash(q, k, v, causal, window=0, q_offset=0, cost_mode=False):
 
 def _sharded_flash(q, k, v, causal: bool, window=0, q_offset=0,
                    cost_mode=False):
-    """``sdpa`` of DTensors q (B,Sq,H,D), k, v (B,Skv,KH,*): each rank's
-    batch rows (the rules' batch axes) and, when "model" divides KH, its
-    KV heads with their query heads, through ``_flash`` on local tensors."""
-    from torch.distributed.tensor import Replicate, Shard
+    """``sdpa`` of DTensors q (B,Sq,H,D), k, v (B,Skv,KH,*) in the
+    reference's context-parallel layout: q's batch over the rules' batch
+    axes and its sequence over their "flash_seq" axes (kept whole on
+    axes that do not divide it), k and v over the batch axes alone.
+    ``_flash`` runs on each rank's local rows at their global offset;
+    its dk and dv are partial sums over the "flash_seq" axes. The output
+    comes back laid out by batch alone."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
-    q = ash.constrain(q, "batch", None, None, None)
-    k = ash.constrain(k, "batch", None, None, None)
-    v = ash.constrain(v, "batch", None, None, None)
+
+    from repro_torch.parallel.sharding import mesh_axis_sizes, placements_of
+    q = ash.constrain(q, "batch", "flash_seq", None, None)
+    # each rank's dk and dv are partial sums (below): reduced into k's and
+    # v's layout here, where left to the projections' backward they met
+    # Whisper's 1500 frames unevenly sharded over "model" (a strided shard
+    # that the weight gradient's matmul cannot view)
+    k = ash.pin_grad(ash.constrain(k, "batch", None, None, None))
+    v = ash.pin_grad(ash.constrain(v, "batch", None, None, None))
     mesh = q.device_mesh
+    names, sizes = mesh.mesh_dim_names, mesh_axis_sizes(mesh)
     rules = ash.current_rules() or {}
-    batch = L._mesh_axes(rules.get("batch"))
-    names = mesh.mesh_dim_names
-    heads = ("model" in names
-             and k.shape[2] % mesh.shape[names.index("model")] == 0)
-    place = tuple(Shard(0) if n in batch else
-                  Shard(2) if n == "model" and heads else Replicate()
-                  for n in names)
-    return local_map(_local_flash, out_placements=(place,),
-                     in_placements=(place, place, place, None, None, None,
-                                    None),
-                     device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v, causal, window,
-                                               q_offset, cost_mode)
+    qplace = placements_of(L.resolve_spec(
+        q.shape, ("batch", "flash_seq", None, None), rules, sizes), names)
+    kplace = placements_of(L.resolve_spec(
+        k.shape, ("batch", None, None, None), rules, sizes), names)
+    # each rank's dk and dv sum over its own query rows alone
+    kgrad = tuple(Partial() if qp.is_shard(1) else kp
+                  for qp, kp in zip(qplace, kplace))
+    start = ash.shard_start(q.shape[1], qplace, mesh, 1)
+    out = local_map(_local_flash, out_placements=(qplace,),
+                    in_placements=(qplace, kplace, kplace, None, None, None,
+                                   None),
+                    in_grad_placements=(qplace, kgrad, kgrad, None, None,
+                                        None, None),
+                    device_mesh=mesh,
+                    redistribute_inputs=True)(q, k, v, causal, window,
+                                              q_offset + start, cost_mode)
+    # the output laid out by batch alone: flattened for the output
+    # projection, a sequence shard becomes a strided shard of the tokens,
+    # which DTensor's matmul takes under no strategy
+    return ash.constrain(out, "batch", None, None, None)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal=True,

@@ -29,9 +29,10 @@ The model code's other DTensor cases use four helpers: ``unflatten_last``
 (a flat dim split into heads, gathered first when its shards do not
 divide them), ``local_pointwise`` (an elementwise op DTensor has no
 strategy for, run on local shards), ``batch_placements`` (the layout of
-a ``local_map`` over each rank's own batch rows) and ``write_at`` (a
+a ``local_map`` over each rank's own batch rows), ``write_at`` (a
 decode step's write into a cache sharded over the sequence, on each
-rank's local shard).
+rank's local shard) and ``shard_start`` (where a rank's shard begins:
+the context-parallel flash's query offset, ``write_at``'s row).
 """
 from __future__ import annotations
 
@@ -225,14 +226,7 @@ def write_at(cache, at, new, dim: int = 1):
     if is_dtensor(at):
         at = at.full_tensor()
     local = cache.to_local()
-    # this rank's first row along dim: its shard's start, mesh dim by mesh
-    # dim in placement order (torch.chunk's split, as DTensor's Shard)
-    size, start, coord = cache.shape[dim], 0, mesh.get_coordinate()
-    for i, pl in enumerate(cache.placements):
-        if pl.is_shard() and pl.dim == dim:
-            chunk = -(-size // mesh.size(i))
-            lo = min(coord[i] * chunk, size)
-            size, start = min(size - lo, chunk), start + lo
+    start = shard_start(cache.shape[dim], cache.placements, mesh, dim)
     n = local.shape[dim]
     if n == 0:           # a shard past the cache's end holds no row
         return cache
@@ -242,6 +236,20 @@ def write_at(cache, at, new, dim: int = 1):
     local.index_copy_(dim, at, torch.where(inside, new.to_local(),
                                            local.index_select(dim, at)))
     return cache
+
+
+def shard_start(size: int, placements, mesh, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` (of
+    ``size``) of a DTensor laid out by ``placements`` on ``mesh``: its
+    shard's start, mesh dim by mesh dim in placement order (torch.chunk's
+    split, as DTensor's Shard)."""
+    start, coord = 0, mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if pl.is_shard() and pl.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = min(coord[i] * chunk, size)
+            size, start = min(size - lo, chunk), start + lo
+    return start
 
 
 def batch_placements(mesh, rows: int, dim: int = 0):

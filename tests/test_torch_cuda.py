@@ -1684,6 +1684,56 @@ def test_flash_attention_bwd_float32_vlm_cross(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("dtype,rel_tol", [(torch.float32, 1e-5),
+                                           (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,D,Dv,q_offset,window", [
+    (2, 256, 256, 9, 3, 64, 64, 0, 100),       # SmolLM's heads, unaligned
+    (2, 256, 256, 9, 3, 64, 64, 0, 64),        # one tile's width
+    (2, 200, 200, 4, 4, 64, 64, 0, 3),         # three keys a row
+    (1, 64, 256, 9, 3, 64, 64, 192, 0),        # an offset shard, causal
+    (1, 64, 256, 9, 3, 64, 64, 192, 70),       # ... windowed: keys no row sees
+    (1, 130, 300, 16, 2, 128, 128, 170, 90),   # D 128, G 8, ragged
+    (1, 100, 100, 8, 8, 96, 64, 0, 33),        # MLA (96, 64)
+    (1, 70, 90, 4, 4, 48, 32, 20, 17),         # the MLA smoke widths
+    (2, 90, 90, 6, 3, 32, 32, 0, 200),         # D 32, a window past Sq
+    (1, 6, 50, 8, 1, 64, 64, 44, 3),           # one partial tile
+])
+def test_flash_attention_bwd_windowed_matches_plain(dev, dtype, rel_tol, B, Sq,
+                                                    Skv, H, KH, D, Dv,
+                                                    q_offset, window):
+    """The windowed instantiations of the backward (a window, a query
+    offset or both) against the plain backward at the same band: each
+    gradient within chip_smoke.py's gates, one launch a call, two launches
+    bit-equal, zero dk and dv at keys no row sees."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        band, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(Sq + 5 * Skv + D + window + q_offset)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     .to(dev, dtype) for s in ((B, Sq, H, D), (B, Skv, KH, D),
+                                               (B, Skv, KH, Dv),
+                                               (B, Sq, H, Dv)))
+    kw = dict(causal=True, q_offset=q_offset, window=window)
+    out, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = KB.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert KB.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_frobenius(g, w) <= rel_tol
+        abs_tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert (g.float() - w.float()).abs().max().item() <= \
+            abs_tol * w.float().abs().max().item()
+    lo, hi = band(Sq, Skv, True, q_offset, window)
+    for g in got[1:]:
+        assert not g[:, :lo].any() and not g[:, hi:].any()
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,Dv,H,KH,causal", [(64, 64, 9, 3, True),
                                               (128, 128, 8, 2, False),

@@ -236,8 +236,10 @@ def test_dryrun_cells_trace_on_the_production_meshes(smoke_cells):
 def test_dryrun_peak_outside_flash(smoke_cells):
     """The prefill cell's peak without the tensors the attention's plain
     version makes: below the traced peak by at least one layer's float32
-    scores (each rank's batch rows, every head: SmolLM's one KV head does
-    not split over 16 ranks), and no larger than the peak of any cell."""
+    scores of a rank's query shard (its batch rows and its sixteenth of
+    the sequence over "model", the reference's context-parallel layout,
+    every head, against every key), and no larger than the peak of any
+    cell."""
     tmp_path, _, overrides = smoke_cells
     shape = SHAPES["prefill_32k"]
     for s, mp in CELLS:
@@ -248,8 +250,8 @@ def test_dryrun_peak_outside_flash(smoke_cells):
             <= mem["peak_traced_bytes"]
         if s != "prefill_32k":
             continue
-        rows = shape.global_batch // 16
-        scores = rows * overrides["num_heads"] * shape.seq_len ** 2 * 4
+        rows, seq = shape.global_batch // 16, shape.seq_len
+        scores = rows * overrides["num_heads"] * (seq // 16) * seq * 4
         assert (mem["peak_traced_bytes"]
                 - mem["peak_traced_bytes_outside_flash"]) >= scores, mem
 

@@ -12,6 +12,14 @@ devices.
   the reference already holds: losses within 1e-5 relative and the first
   step's gradients within 1e-5 relative Frobenius a leaf (other summation
   orders over the shards, nothing else);
+- the same run with the smoke config windowed (window 5) against the
+  reference's mesh run of it; in both, each rank's local flash forward
+  and backward (spied, every keyword passed on) at its query shard's
+  offset: the query's sequence lies over "model", the reference's
+  context-parallel "flash_seq" layout;
+- ``sdpa`` of DTensors under the train plan's rules: each rank's call at
+  its shard's offset plus the caller's, the results equal to one rank's;
+  a length that "model" does not divide keeps the query whole there;
 - ``train(mesh=make_host_mesh(1, 1))`` bit-equal to the mesh-less
   trainer, the one-rank group it starts, and a mesh larger than the world
   refused with the world size;
@@ -110,7 +118,16 @@ def _batch(cfg):
     return {"tokens": torch.from_numpy(pipe.batch(0)["tokens"])}
 
 
-SHARDED_TRAIN = f"""
+SMOKE = dict(dtype="float32")
+WINDOWED = dict(dtype="float32", attention="windowed", window_size=5)
+
+
+def _sharded_train(cfg_kw) -> str:
+    """The (2, 2) gloo ranks' 3 ``train(mesh=)`` steps and first-step
+    gradients of the SmolLM smoke config replaced by ``cfg_kw``, each
+    rank's flash calls (rows, ``q_offset``, window) recorded by spies that
+    pass every keyword on."""
+    return f"""
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
 from repro_torch.core.tree import tree_map, tree_leaves
@@ -119,7 +136,8 @@ from repro_torch.launch import steps as S
 from repro_torch.launch import train as T
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.parallel.sharding import distribute, make_plan
-cfg = get_smoke("smollm_135m").replace(dtype="float32")
+from repro_torch.models import attention as A
+cfg = get_smoke("smollm_135m").replace(**{cfg_kw!r})
 tcfg = TrainConfig(**{TCFG!r})
 B, L = {SHAPE!r}
 mesh = make_host_mesh(2, 2, device_type="cpu")
@@ -132,8 +150,25 @@ pipe = TokenPipeline(DataConfig(cfg.vocab_size, L, B, seed=0))
 batch = {{"tokens": torch.from_numpy(pipe.batch(0)["tokens"])}}
 dp = distribute(params, plan.param_shardings(cfg))
 db = distribute(batch, plan.batch_shardings(cfg, "train"))
+calls, fwd, bwd = [], A.flash_attention_fwd, A.flash_attention_bwd
+
+
+def spy_fwd(q, k, v, **kw):
+    calls.append(("fwd", q.shape[1], kw.get("q_offset"), kw.get("window")))
+    return fwd(q, k, v, **kw)
+
+
+def spy_bwd(q, *args, **kw):
+    calls.append(("bwd", q.shape[1], kw.get("q_offset"), kw.get("window")))
+    return bwd(q, *args, **kw)
+
+
+A.flash_attention_fwd, A.flash_attention_bwd = spy_fwd, spy_bwd
 with T._mesh_scope(plan, mesh):
     g, ce = S.loss_grads(dp, db, cfg)
+A.flash_attention_fwd, A.flash_attention_bwd = fwd, bwd
+torch.save({{"calls": calls, "coord": mesh.get_coordinate()}},
+           OUT + f"/calls_{{RANK}}.pt")
 full = tree_map(lambda t: t.full_tensor(), g)
 if RANK == 0:
     torch.save({{"losses": losses, "grads": full,
@@ -145,7 +180,10 @@ if RANK == 0:
 """
 
 
-REF_SHARDED_TRAIN = f"""
+def _ref_sharded_train(cfg_kw) -> str:
+    """The reference's ``train(mesh=)`` and first-step gradients of the
+    same config on a (2, 2) mesh of four fake XLA devices."""
+    return f"""
 import pickle
 import jax, numpy as np
 from repro.configs import get_smoke
@@ -156,7 +194,7 @@ from repro.launch.mesh import make_host_mesh
 from repro.models import model as M
 from repro.parallel.act_sharding import activation_rules
 from repro.parallel.sharding import make_plan
-cfg = get_smoke("smollm_135m").replace(dtype="float32")
+cfg = get_smoke("smollm_135m").replace(**{cfg_kw!r})
 tcfg = TrainConfig(**{TCFG!r})
 B, L = {SHAPE!r}
 mesh = make_host_mesh(2, 2)
@@ -178,11 +216,25 @@ with open(sys.argv[1], "wb") as f:
 """
 
 
+def _load_run(out: Path):
+    got = torch.load(out / "mesh.pt")
+    got["ranks"] = [torch.load(out / f"calls_{r}.pt") for r in range(4)]
+    return got
+
+
 @pytest.fixture(scope="module")
 def sharded_run(tmp_path_factory):
-    """The (2, 2) gloo ranks' losses, first-step gradients and layouts."""
+    """The (2, 2) gloo ranks' losses, first-step gradients, layouts and
+    flash calls."""
     tmp = tmp_path_factory.mktemp("sharded")
-    return torch.load(run_ranks(SHARDED_TRAIN, 4, tmp) / "mesh.pt")
+    return _load_run(run_ranks(_sharded_train(SMOKE), 4, tmp))
+
+
+@pytest.fixture(scope="module")
+def windowed_run(tmp_path_factory):
+    """The same with the smoke config windowed (window 5)."""
+    tmp = tmp_path_factory.mktemp("windowed")
+    return _load_run(run_ranks(_sharded_train(WINDOWED), 4, tmp))
 
 
 def test_sharded_training_matches_one_rank(sharded_run):
@@ -205,24 +257,117 @@ def test_sharded_training_matches_one_rank(sharded_run):
     assert max(gaps) <= REL, gaps
 
 
-def test_sharded_training_matches_reference_mesh(sharded_run, tmp_path):
-    """The same run against the reference's ``train(mesh=)`` and its
-    first-step gradients on a (2, 2) mesh of four fake XLA devices."""
+def _matches_reference_mesh(got, cfg_kw, tmp_path):
     import pickle
     from repro_torch.models import model as M
     ref = tmp_path / "ref.pkl"
     check("import sys\nsys.argv[1:] = [" + repr(str(ref)) + "]\n"
-          + REF_SHARDED_TRAIN, n_devices=4)
+          + _ref_sharded_train(cfg_kw), n_devices=4)
     with open(ref, "rb") as f:
         want = pickle.load(f)
-    got = sharded_run
     for a, b in zip(got["losses"], want["losses"]):
         assert abs(a - b) <= REL_REF * abs(b), (got["losses"],
                                                 want["losses"])
-    g = M.params_from_numpy(want["grads"], _smoke(), device="cpu")
+    cfg = get_smoke("smollm_135m").replace(**cfg_kw)
+    g = M.params_from_numpy(want["grads"], cfg, device="cpu")
     gaps = [_rel(a, b) for a, b in zip(tree_leaves(got["grads"]),
                                        tree_leaves(g))]
     assert max(gaps) <= REL_REF, gaps
+
+
+def test_sharded_training_matches_reference_mesh(sharded_run, tmp_path):
+    """The same run against the reference's ``train(mesh=)`` and its
+    first-step gradients on a (2, 2) mesh of four fake XLA devices."""
+    _matches_reference_mesh(sharded_run, SMOKE, tmp_path)
+
+
+def test_windowed_sharded_training_matches_reference_mesh(windowed_run,
+                                                          tmp_path):
+    """A windowed smoke SmolLM (window 5 against 32-token rows) trained on
+    the (2, 2) gloo mesh, each rank's query shard at its own offset,
+    against the reference's mesh run of the same config."""
+    _matches_reference_mesh(windowed_run, WINDOWED, tmp_path)
+
+
+@pytest.mark.parametrize("run,window", [("sharded_run", 0),
+                                        ("windowed_run", 5)])
+def test_each_rank_attends_at_its_own_query_offset(run, window, request):
+    """The query's sequence lies over "model" (the reference's
+    "flash_seq"): each rank's local flash forward and backward take its
+    16 of the 32 rows at offset 16 x its "model" coordinate, the window
+    passed through, in every one of the smoke model's 4 blocks (the
+    forward twice a block under remat)."""
+    for got in request.getfixturevalue(run)["ranks"]:
+        off = SHAPE[1] // 2 * got["coord"][1]
+        want = [("fwd", 16, off, window)] * 4 + [("fwd", 16, off, window),
+                                                  ("bwd", 16, off, window)] * 4
+        assert sorted(got["calls"]) == sorted(want), (got["coord"],
+                                                      got["calls"])
+
+
+SDPA_SHARDS = """
+import numpy as np
+from torch.distributed.tensor import Replicate, distribute_tensor
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import attention as A
+from repro_torch.parallel import act_sharding as ash
+mesh = make_host_mesh(2, 2, device_type="cpu")
+rules = {"batch": ("data",), "seq": None, "flash_seq": "model"}
+calls, fwd = [], A.flash_attention_fwd
+
+
+def spy(q, k, v, **kw):
+    calls.append((q.shape[1], kw.get("q_offset")))
+    return fwd(q, k, v, **kw)
+
+
+A.flash_attention_fwd = spy
+rep = [Replicate(), Replicate()]
+out = {"coord": mesh.get_coordinate(), "cases": {}}
+for Sq, off, window in ((32, 0, 5), (31, 0, 5), (24, 8, 0), (24, 8, 4)):
+    rng = np.random.default_rng(Sq + off + window)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                     for s in ((4, Sq, 6, 32), (4, Sq + off, 2, 32),
+                               (4, Sq + off, 2, 32), (4, Sq, 6, 32)))
+    full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = A.sdpa(*full, causal=True, q_offset=off, window=window)
+    gwant = torch.autograd.grad(want, full, dout)
+    dts = [distribute_tensor(t, mesh, rep).requires_grad_(True)
+           for t in (q, k, v)]
+    calls.clear()
+    with ash.activation_rules(rules, {"data": 2, "model": 2}, mesh):
+        got = A.sdpa(*dts, causal=True, q_offset=off, window=window)
+        grads = torch.autograd.grad(got, dts,
+                                    distribute_tensor(dout, mesh, rep))
+    out["cases"][(Sq, off, window)] = {
+        "calls": list(calls), "placements": str(got.placements),
+        "out": (got.full_tensor() - want).abs().max().item(),
+        "grads": [((g.full_tensor() - w).norm() / w.norm()).item()
+                  for g, w in zip(grads, gwant)]}
+torch.save(out, OUT + f"/sdpa_{RANK}.pt")
+"""
+
+
+def test_sdpa_query_shards_take_their_offsets(tmp_path):
+    """``sdpa`` of DTensors under the train plan's rules on the (2, 2)
+    gloo mesh: the query's 32 (or 24) rows over "model", each rank's
+    local call at its shard's global offset plus the caller's, the output
+    laid out by batch alone and equal to the one-rank result (1e-6), dq,
+    dk and dv
+    (dk and dv summed over the shards) within 1e-6 relative Frobenius.
+    31 rows do not divide over "model": the query stays whole there and
+    every rank attends all 31 rows at the caller's offset."""
+    out = run_ranks(SDPA_SHARDS, 4, tmp_path)
+    for r in range(4):
+        got = torch.load(out / f"sdpa_{r}.pt")
+        m = got["coord"][1]
+        for (Sq, off, window), res in got["cases"].items():
+            split = Sq % 2 == 0
+            rows = Sq // 2 if split else Sq
+            assert res["calls"] == [(rows, off + (rows * m if split
+                                                  else 0))], res["calls"]
+            assert res["placements"] == "(Shard(dim=0), Replicate())"
+            assert res["out"] <= 1e-6 and max(res["grads"]) <= 1e-6, res
 
 
 ONE_BY_ONE = f"""

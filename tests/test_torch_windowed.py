@@ -8,8 +8,9 @@ reference on the CPU, on the same numpy inputs.
   2e-2, the flash tolerances of tests/test_torch_flash.py;
 - ``cost_mode`` against the reference's, in ``sdpa`` and the LM forward;
 - the reference's flash core dropping ``q_offset`` (ROADMAP Queue 3);
-- the refusals: a row that sees no key, and ``FlashAttention`` (the
-  training path) with a window or an offset;
+- the refusal of a row that sees no key; ``FlashAttention`` (the
+  training path) with a window or an offset against ``jax.vjp`` of the
+  reference's ``sdpa``;
 - ``decode_splits`` sized by the band of keys the rows see;
 - a windowed SmolLM at smoke width (4 blocks, window 3 against 8-token
   prompts) through ``forward``, ``OrigamiExecutor.infer`` (the first
@@ -178,21 +179,30 @@ def test_rows_without_keys_are_refused():
 
 @pytest.mark.parametrize("kw", [{"window": 4}, {"q_offset": 2}])
 def test_flash_attention_refuses_a_window_with_a_gradient(kw):
-    """The backward kernels take no window or offset: the training path
-    raises, naming its ROADMAP item, and never falls back to the plain
-    backward; without a gradient the forward runs."""
+    """The calls the training path once refused (a window or an offset
+    with a gradient) now train: ``sdpa`` and ``FlashAttention`` give the
+    gradients of ``jax.vjp`` of the reference's ``sdpa`` (its naive core
+    at this shape) through the plain backward on the CPU, and the
+    forward without a gradient is the same function."""
     q, k, v = _qkv(np.random.default_rng(6), 1, 8, 8, 4, 2, 32)
-    qg = _t(q).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 13"):
-        A.sdpa(qg, _t(k), _t(v), causal=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        A.FlashAttention.apply(qg, _t(k), _t(v), True, kw.get("window", 0),
-                               kw.get("q_offset", 0))
+    dout = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: JA.sdpa(a, b, c, causal=True, **kw),
+                     _j(q), _j(k), _j(v))
+    want = [np.asarray(g) for g in vjp(_j(dout))]
+    for call in (lambda a, b, c: A.sdpa(a, b, c, causal=True, **kw),
+                 lambda a, b, c: A.FlashAttention.apply(
+                     a, b, c, True, kw.get("window", 0),
+                     kw.get("q_offset", 0))):
+        qkv = [_t(x).requires_grad_(True) for x in (q, k, v)]
+        out = call(*qkv)
+        out.backward(_t(dout))
+        for x, w in zip(qkv, want):
+            np.testing.assert_allclose(x.grad.numpy(), w, rtol=F32_TOL,
+                                       atol=F32_TOL)
     with torch.no_grad():
-        A.sdpa(qg, _t(k), _t(v), causal=True, **kw)
-    out = A.sdpa(qg, _t(k), _t(v), causal=True)     # no window: trains
-    out.sum().backward()
-    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+        np.testing.assert_array_equal(
+            A.sdpa(_t(q), _t(k), _t(v), causal=True, **kw).numpy(),
+            out.detach().numpy())
 
 
 @pytest.mark.parametrize("Sq,Skv,causal,off,window", [
